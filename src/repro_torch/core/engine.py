@@ -1,0 +1,597 @@
+"""Batched surrogate-evaluation engine for the DSE hot loop.
+
+``SurrogateEngine`` is the ``evaluate(configs) -> (n, n_obj)`` callable
+that the search drives, as in `repro.core.engine`:
+
+* **fixed-shape chunked inference** — batches are split into chunks of
+  ``chunk_size`` and a ragged final chunk is padded up to the next
+  power-of-two bucket, so the backend sees at most ``log2(chunk_size)+1``
+  shapes;
+* **featurize/compute overlap** — the GNN backend is a `PipelinedBackend`
+  (prepare → dispatch → collect): with ≥ 2 chunks a worker thread
+  featurizes chunk *k+1* on the host (timing sweep + functional probe)
+  while chunk *k* runs on the card; CUDA launches return at once, and the
+  blocking device→host copies wait until every chunk is in flight;
+* **config-key memoization** with keys prefixed by the feature-schema
+  version, and duplicates inside one batch evaluated once;
+* **cross-request batching** — `submit` enqueues a query, `drain` fuses
+  every pending query into one engine call;
+* **fault handling** — an optional retry policy around every backend call
+  and a NaN guard that re-evaluates non-finite rows and quarantines
+  configs whose rows stay non-finite (served as +inf).
+
+On the card, the GNN engine runs every message-passing layer of the gcn
+and gsae architectures through the CUDA `gnn_mp` kernel; there is no
+fallback to another path. The engine serves one device; sharding a wave
+over several cards (``devices > 1``) comes later.
+"""
+from __future__ import annotations
+
+import itertools
+import queue as queue_lib
+import threading
+import time
+import warnings
+from concurrent.futures import Future
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_lib
+
+Config = Tuple[int, ...]
+BatchFn = Callable[[Sequence[Config]], np.ndarray]
+
+# fraction of a call's backend rows that may be ragged padding before the
+# engine warns (once per engine)
+PADDING_WARN_FRACTION = 0.25
+
+
+# --------------------------------------------------------------------------
+# stats
+# --------------------------------------------------------------------------
+
+@dataclass
+class EngineStats:
+    """Counters accumulated across engine calls. Thread-safe: every
+    mutation goes through `update`/`bump_max` under one lock.
+
+    calls/configs/cache_hits/evaluated/padded/chunks/max_batch count
+    requests and backend work; submits/drains the cross-request queue;
+    retries and quarantined the fault handling; eval_time_s/wall_time_s
+    the time in the backend and in the engine; featurize_s/dispatch_s/
+    collect_s/overlapped_s the pipelined backend's phases (overlapped_s is
+    featurization hidden behind device work).
+    """
+    calls: int = 0
+    configs: int = 0
+    cache_hits: int = 0
+    evaluated: int = 0
+    padded: int = 0
+    chunks: int = 0
+    max_batch: int = 0
+    submits: int = 0
+    drains: int = 0
+    retries: int = 0
+    quarantined: int = 0
+    eval_time_s: float = 0.0
+    wall_time_s: float = 0.0
+    featurize_s: float = 0.0
+    dispatch_s: float = 0.0
+    collect_s: float = 0.0
+    overlapped_s: float = 0.0
+
+    def __post_init__(self):
+        self._lock = threading.Lock()
+
+    def update(self, **deltas) -> None:
+        """Atomically add `deltas` to the named counters."""
+        with self._lock:
+            for name, d in deltas.items():
+                setattr(self, name, getattr(self, name) + d)
+
+    def bump_max(self, **candidates) -> None:
+        """Atomically raise the named high-water-mark counters."""
+        with self._lock:
+            for name, v in candidates.items():
+                if v > getattr(self, name):
+                    setattr(self, name, v)
+
+    @property
+    def batch_occupancy(self) -> float:
+        """Mean submissions coalesced per drain wave."""
+        return self.submits / self.drains if self.drains else 0.0
+
+
+# --------------------------------------------------------------------------
+# pipelined backends: prepare (host) -> dispatch (device) -> collect (host)
+# --------------------------------------------------------------------------
+
+class PipelinedBackend:
+    """A batch backend split into its host and device phases.
+
+    ``collect(dispatch(prepare(configs)))`` is the plain batch-function
+    contract; the split lets `SurrogateEngine` overlap the phases across
+    chunks: ``prepare`` featurizes on the host (worker thread),
+    ``dispatch`` copies to the device and launches the model without
+    waiting, ``collect`` waits for the result and post-processes it.
+    """
+
+    def __init__(self, prepare: Callable[[Sequence[Config]], Any],
+                 dispatch: Callable[[Any], Any],
+                 collect: Callable[[Any], np.ndarray]):
+        self.prepare = prepare
+        self.dispatch = dispatch
+        self.collect = collect
+
+    def __call__(self, configs: Sequence[Config]) -> np.ndarray:
+        return self.collect(self.dispatch(self.prepare(configs)))
+
+
+# --------------------------------------------------------------------------
+# GNN predict functions
+# --------------------------------------------------------------------------
+
+def _make_predict(two_cfg, params, adj_row: np.ndarray,
+                  mask_row: np.ndarray, device: torch.device):
+    """X (B,N,F) on ``device`` -> normalized (B, 4) targets.
+
+    gcn and gsae run each message-passing layer through
+    `kernels.ops.gnn_mp` — the CUDA kernel on the card — whose fused
+    update ``relu(A' @ (H @ Wn) + H @ Ws + b)`` is the layer with
+    ``A' = adj`` (gcn) or ``A' = adj / deg`` (GraphSAGE-mean: row-scaling
+    the adjacency commutes with the product). One (N,N) adjacency serves
+    the whole batch. gat and mpnn, which have no kernel, run
+    `models.predict`.
+    """
+    from repro_torch.core import gnn, models
+    from repro_torch.kernels import ops
+
+    mask = torch.from_numpy(mask_row).to(device)
+    adj = torch.from_numpy(adj_row).to(device)
+
+    if two_cfg.gnn.arch not in ("gcn", "gsae"):
+        def predict_plain(X):
+            B = X.shape[0]
+            return models.predict(two_cfg, params,
+                                  adj.expand(B, *adj.shape), X,
+                                  mask.expand(B, *mask.shape))[0]
+        return predict_plain
+
+    a = np.asarray(adj_row, np.float32)
+    if two_cfg.gnn.arch == "gsae":
+        a = a / np.maximum(a.sum(-1, keepdims=True), 1e-6)
+    adj_k = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    mask_col = mask[None, :, None]
+
+    def stack(p, x):
+        h = x * mask_col
+        for lp in p["layers"]:
+            h = ops.gnn_mp(adj_k, h, lp["w_self"], lp["w_nbr"], lp["b"])
+            h = h * mask_col
+        return h
+
+    def predict(X):
+        m = mask.expand(X.shape[0], *mask.shape)
+        s1, s2 = two_cfg.stage1, two_cfg.stage2
+        crit_logits = gnn.readout(s1, params.stage1,
+                                  stack(params.stage1, X), m)[..., 0]
+        x2 = models.with_crit_bit(two_cfg, X, m, crit_logits)
+        return gnn.readout(s2, params.stage2, stack(params.stage2, x2), m)
+
+    return predict
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device=device, dtype=torch.float32).contiguous()
+
+
+# --------------------------------------------------------------------------
+# the engine
+# --------------------------------------------------------------------------
+
+class SurrogateEngine:
+    """Batched, memoized evaluator: ``engine(configs) -> (n, n_obj)``.
+
+    Args:
+        batch_fn:    ``configs -> (len(configs), n_obj)`` backend, or a
+                     `PipelinedBackend` whose phases the engine overlaps.
+        backend:     label for stats/reporting.
+        chunk_size:  maximum configs per backend call.
+        overlap:     pipeline multi-chunk calls when the backend is a
+                     `PipelinedBackend` (``None`` = exactly then).
+        fixed_shape: pad a ragged final chunk up to a power-of-two bucket.
+        cache:       memoize rows by config key across calls.
+        max_cache:   cache entry bound; oldest entries evicted beyond it.
+        retry:       an object with ``call(fn, arg, on_retry=...)`` (the
+                     reference's `RetryPolicy` contract) applied around
+                     every backend call; ``None`` = no retry.
+        nan_guard:   re-evaluate configs whose rows are non-finite
+                     (``nan_retries`` attempts each); quarantine those
+                     that stay non-finite as +inf rows.
+        schema_version: feature-schema version prefixed to memo keys.
+    """
+
+    def __init__(self, batch_fn: BatchFn, *, backend: str = "generic",
+                 chunk_size: int = 512, fixed_shape: bool = False,
+                 overlap: Optional[bool] = None, cache: bool = True,
+                 max_cache: int = 1_000_000, retry=None,
+                 nan_guard: bool = True, nan_retries: int = 2,
+                 schema_version: Optional[int] = None):
+        if chunk_size < 1:
+            raise ValueError("chunk_size must be >= 1")
+        self._batch_fn = batch_fn
+        # the backend's phases, when it has them (None otherwise)
+        self.pipeline = batch_fn if isinstance(batch_fn, PipelinedBackend) \
+            else None
+        self.overlap = (self.pipeline is not None) if overlap is None \
+            else bool(overlap)
+        self._warned_padding = False
+        self.backend = backend
+        self.schema_version = schema_version
+        self.chunk_size = int(chunk_size)
+        self.fixed_shape = fixed_shape
+        self.cache_enabled = cache
+        self.max_cache = max_cache
+        self.retry = retry
+        self.nan_guard = nan_guard
+        self.nan_retries = int(nan_retries)
+        self.quarantined: set = set()
+        self._cache: Dict[Config, np.ndarray] = {}
+        self.stats = EngineStats()
+        self._lock = threading.RLock()
+        self._queue: List[Tuple[List[Config], Future]] = []
+        self._queue_cv = threading.Condition()
+
+    # -- public API --------------------------------------------------------
+
+    def __call__(self, configs: Sequence[Config]) -> np.ndarray:
+        """Evaluate a batch of configs; rows align with the input order.
+        Concurrent callers are serialized on an internal lock."""
+        with self._lock:
+            return self._call_locked(configs)
+
+    def _call_locked(self, configs: Sequence[Config]) -> np.ndarray:
+        t_wall = time.perf_counter()
+        raw = [tuple(int(v) for v in c) for c in configs]
+        sv = self.schema_version
+        keys = raw if sv is None else [(sv,) + k for k in raw]
+        self.stats.update(calls=1, configs=len(keys))
+        self.stats.bump_max(max_batch=len(keys))
+        miss: List[Config] = []       # raw configs for the backend
+        miss_keys: List[Config] = []  # their (possibly prefixed) memo keys
+        seen = set()
+        for k, r in zip(keys, raw):
+            if k not in self._cache and k not in seen:
+                seen.add(k)
+                miss.append(r)
+                miss_keys.append(k)
+        self.stats.update(cache_hits=len(keys) - len(miss))
+        if miss:
+            t0 = time.perf_counter()
+            rows = self._eval_chunked(miss)
+            self.stats.update(eval_time_s=time.perf_counter() - t0,
+                              evaluated=len(miss))
+            for k, r in zip(miss_keys, rows):
+                self._cache[k] = r
+        out = np.stack([self._cache[k] for k in keys], 0).astype(np.float64)
+        if not self.cache_enabled:
+            self._cache.clear()
+        elif len(self._cache) > self.max_cache:
+            drop = len(self._cache) - self.max_cache
+            for k in list(itertools.islice(self._cache, drop)):
+                del self._cache[k]
+        self.stats.update(wall_time_s=time.perf_counter() - t_wall)
+        return out
+
+    # -- cross-request batching queue --------------------------------------
+
+    def submit(self, configs: Sequence[Config]) -> Future:
+        """Enqueue a query; the future resolves to the rows a direct call
+        would give once a `drain` wave picks it up."""
+        fut: Future = Future()
+        cfgs = list(configs)
+        if not cfgs:
+            fut.set_result(np.zeros((0, 0), np.float64))
+            return fut
+        with self._queue_cv:
+            self._queue.append((cfgs, fut))
+            self.stats.update(submits=1)
+            self._queue_cv.notify_all()
+        return fut
+
+    def pending(self) -> int:
+        """Number of submissions waiting for a drain wave."""
+        with self._queue_cv:
+            return len(self._queue)
+
+    def drain(self, timeout: Optional[float] = None) -> int:
+        """Evaluate ALL pending submissions as one fused engine call.
+
+        Waits up to `timeout` seconds for a first submission (``None`` =
+        don't wait), then runs the concatenated configs through
+        ``__call__`` and resolves each future with its slice. Returns the
+        number of submissions served. If the fused wave raises, each
+        submission is evaluated on its own, so only the offending ones'
+        futures carry the exception."""
+        with self._queue_cv:
+            if not self._queue and timeout is not None:
+                self._queue_cv.wait(timeout)
+            batch, self._queue = self._queue, []
+        if not batch:
+            return 0
+        flat: List[Config] = [c for cfgs, _ in batch for c in cfgs]
+        try:
+            rows = self(flat)
+        except Exception:
+            for cfgs, fut in batch:
+                try:
+                    fut.set_result(self(cfgs))
+                except Exception as e:       # delivered to the caller
+                    fut.set_exception(e)
+            self.stats.update(drains=1)
+            return len(batch)
+        self.stats.update(drains=1)
+        off = 0
+        for cfgs, fut in batch:
+            fut.set_result(rows[off:off + len(cfgs)])
+            off += len(cfgs)
+        return len(batch)
+
+    # -- chunking ----------------------------------------------------------
+
+    def _bucket(self, n: int) -> int:
+        """Smallest power-of-two >= n, capped at chunk_size."""
+        b = 1
+        while b < n:
+            b <<= 1
+        return min(b, self.chunk_size)
+
+    def _eval_backend(self, chunk: List[Config]) -> np.ndarray:
+        """One backend call, re-issued under `self.retry` on transient
+        faults (`stats.retries` counts every re-issue)."""
+        if self.retry is None:
+            return np.asarray(self._batch_fn(chunk))
+        return np.asarray(self.retry.call(
+            self._batch_fn, chunk,
+            on_retry=lambda e: self.stats.update(retries=1)))
+
+    def _guard_rows(self, part: List[Config], y: np.ndarray) -> np.ndarray:
+        """Heal non-finite rows by re-evaluating the offending configs one
+        by one; a config whose row stays non-finite is quarantined: its
+        row becomes +inf and its key joins ``self.quarantined``."""
+        bad = np.where(~np.all(np.isfinite(y), axis=1))[0]
+        if not len(bad):
+            return y
+        y = np.array(y, copy=True)
+        for j in bad:
+            for _ in range(self.nan_retries):
+                row = self._eval_backend([part[j]])[0]
+                if np.all(np.isfinite(row)):
+                    y[j] = row
+                    break
+            else:
+                y[j] = np.inf
+                self.quarantined.add(part[j])
+                self.stats.update(quarantined=1)
+        return y
+
+    def _plan_chunks(self, configs: List[Config]
+                     ) -> List[Tuple[int, int, List[Config]]]:
+        """``(start, take, padded_chunk)`` work items; fixed-shape padding
+        up to the power-of-two bucket is applied and counted here."""
+        plan: List[Tuple[int, int, List[Config]]] = []
+        i, n = 0, len(configs)
+        while i < n:
+            take = min(self.chunk_size, n - i)
+            chunk = configs[i:i + take]
+            if self.fixed_shape and take < self.chunk_size:
+                b = self._bucket(take)
+                self.stats.update(padded=b - take)
+                chunk = chunk + [chunk[-1]] * (b - take)
+            plan.append((i, take, chunk))
+            i += take
+        return plan
+
+    def _warn_padding(self, plan, n_configs: int) -> None:
+        """Once-per-engine warning when ragged padding exceeds
+        `PADDING_WARN_FRACTION` of a wave's backend rows."""
+        if self._warned_padding:
+            return
+        pad_rows = sum(len(c) - take for _, take, c in plan)
+        total = pad_rows + n_configs
+        if pad_rows and pad_rows > PADDING_WARN_FRACTION * total:
+            self._warned_padding = True
+            warnings.warn(
+                f"engine[{self.backend}]: {pad_rows}/{total} backend rows "
+                f"({pad_rows / total:.0%}) in this wave are ragged-chunk "
+                f"padding — retune chunk_size or the caller's batch shape",
+                RuntimeWarning, stacklevel=4)
+
+    def _finish_chunk(self, configs, i, take, chunk, y) -> np.ndarray:
+        if y.shape[0] != len(chunk):
+            raise ValueError(f"backend returned {y.shape[0]} rows for "
+                             f"{len(chunk)} configs")
+        part = y[:take]
+        if self.nan_guard and not np.all(np.isfinite(part)):
+            part = self._guard_rows(configs[i:i + take], part)
+        self.stats.update(chunks=1)
+        return part
+
+    def _eval_chunked(self, configs: List[Config]) -> np.ndarray:
+        plan = self._plan_chunks(configs)
+        self._warn_padding(plan, len(configs))
+        if self.overlap and self.pipeline is not None and len(plan) >= 2:
+            return self._eval_pipelined(plan, configs)
+        return np.concatenate(
+            [self._finish_chunk(configs, i, take, chunk,
+                                self._eval_backend(chunk))
+             for i, take, chunk in plan], 0)
+
+    def _eval_pipelined(self, plan: List[Tuple[int, int, List[Config]]],
+                        configs: List[Config]) -> np.ndarray:
+        """Pipelined execution of the chunk plan: ONE worker thread runs
+        the backend's ``prepare`` into a two-slot queue while this thread
+        ``dispatch``es each chunk to the device without waiting; the
+        blocking ``collect`` runs once every chunk is in flight. The same
+        phase functions run once per chunk in the same order as the serial
+        path, so rows are identical. A chunk whose phase raises is
+        re-evaluated through `_eval_backend` (under the retry policy)."""
+        pb = self.pipeline
+        prepared: "queue_lib.Queue" = queue_lib.Queue(maxsize=2)
+
+        def featurize_worker() -> None:
+            for idx, (_, _, chunk) in enumerate(plan):
+                t0 = time.perf_counter()
+                try:
+                    X = pb.prepare(chunk)
+                except Exception as e:      # re-raised via the serial path
+                    prepared.put((idx, e, time.perf_counter() - t0))
+                    return
+                prepared.put((idx, X, time.perf_counter() - t0))
+
+        worker = threading.Thread(target=featurize_worker, daemon=True,
+                                  name="engine-featurize")
+        worker.start()
+        inflight: List[Tuple[int, Any]] = []   # (plan index, handle|None)
+        feat_s = disp_s = overlapped_s = 0.0
+        for k in range(len(plan)):
+            idx, X, dt = prepared.get()
+            feat_s += dt
+            if k > 0:
+                # featurized while earlier chunks ran on the device
+                overlapped_s += dt
+            if isinstance(X, Exception):
+                # worker died: this and later chunks take the serial call
+                inflight.extend((j, None) for j in range(idx, len(plan)))
+                break
+            t0 = time.perf_counter()
+            try:
+                handle = pb.dispatch(X)
+            except Exception:               # healed by the serial call
+                handle = None
+            disp_s += time.perf_counter() - t0
+            inflight.append((idx, handle))
+        worker.join()
+        self.stats.update(featurize_s=feat_s, dispatch_s=disp_s,
+                          overlapped_s=overlapped_s)
+        rows: List[Optional[np.ndarray]] = [None] * len(plan)
+        coll_s = 0.0
+        for idx, handle in inflight:
+            i, take, chunk = plan[idx]
+            t0 = time.perf_counter()
+            y = None
+            if handle is not None:
+                try:
+                    y = np.asarray(pb.collect(handle))
+                except Exception:           # healed by the serial call
+                    y = None
+            if y is None:
+                y = self._eval_backend(chunk)
+            coll_s += time.perf_counter() - t0
+            rows[idx] = self._finish_chunk(configs, i, take, chunk, y)
+        self.stats.update(collect_s=coll_s)
+        return np.concatenate(rows, 0)
+
+    # -- constructors ------------------------------------------------------
+
+    @classmethod
+    def from_gnn(cls, two_cfg, params, ds, app,
+                 entries: Dict[str, Sequence], *, chunk_size: int = 512,
+                 cache: bool = True, devices: int = 1,
+                 overlap: Optional[bool] = None,
+                 parity_atol: float = 2e-3, device=None
+                 ) -> "SurrogateEngine":
+        """GNN-surrogate engine (the ApproxPilot fast path) on ``device``
+        (default: the CUDA card).
+
+        Featurizes by table lookup plus the schema-v2 timing sweep and
+        functional probe, runs the two-stage model with power-of-two
+        bucketed chunk shapes, denormalizes and flips ssim to the
+        minimized ``1 - ssim``. For gcn/gsae every message-passing layer
+        goes through `kernels.ops.gnn_mp` (the CUDA kernel on the card);
+        at construction that path is held against `models.predict` on a
+        small probe batch and a mismatch beyond ``parity_atol`` (on
+        normalized outputs) raises.
+        """
+        from repro_torch.core import dataset as ds_lib
+        from repro_torch.core import models
+
+        if devices != 1:
+            raise NotImplementedError(
+                "SurrogateEngine serves one device; sharding a chunk over "
+                "several devices is not ported yet")
+        dev = device_lib.resolve(device)
+        feat = ds_lib.featurizer_for(ds, app, entries, dev)
+        sv = two_cfg.schema_version
+        if sv != feat.schema.version:
+            raise ValueError(
+                f"model was trained on feature schema v{sv} but the "
+                f"dataset featurizes with v{feat.schema.version} — "
+                f"rebuild the stale artifact")
+        params = models.TwoStageParams(*(_to_device(p, dev) for p in params))
+        predict = _make_predict(two_cfg, params, feat.adj, feat.mask, dev)
+        kernel_path = two_cfg.gnn.arch in ("gcn", "gsae")
+        backend = ("gnn_mp" if dev.type == "cuda" else "torch") \
+            if kernel_path else "torch"
+        if kernel_path:
+            Xp = torch.from_numpy(feat.normalized(
+                _probe_configs(feat.sizes))).to(dev)
+            B = Xp.shape[0]
+            adj = torch.from_numpy(feat.adj).to(dev).expand(B, -1, -1)
+            mask = torch.from_numpy(feat.mask).to(dev).expand(B, -1)
+            with torch.no_grad():
+                got = predict(Xp)
+                want = models.predict(two_cfg, params, adj, Xp, mask)[0]
+            err = float((got - want).abs().max())
+            if not err <= parity_atol:
+                raise RuntimeError(
+                    f"gnn_mp layer path disagrees with models.predict on "
+                    f"the probe batch: max |diff| {err} > {parity_atol}")
+
+        def prepare(configs):
+            return feat.normalized(configs)     # host: lookup + dynamic sweep
+
+        def dispatch(X):
+            Xt = torch.from_numpy(X)
+            if dev.type == "cuda":
+                Xt = Xt.pin_memory().to(dev, non_blocking=True)
+            with torch.no_grad():
+                return predict(Xt)              # launches, does not wait
+
+        def collect(y_dev):
+            y = y_dev.cpu().numpy()             # waits for the device
+            y = ds.denorm_y(y)
+            y[:, 3] = 1 - y[:, 3]               # ssim -> 1-ssim (minimize)
+            return y
+
+        return cls(PipelinedBackend(prepare, dispatch, collect),
+                   backend=backend, chunk_size=chunk_size, fixed_shape=True,
+                   cache=cache, overlap=overlap, schema_version=sv)
+
+    @classmethod
+    def from_oracle(cls, app, entries: Dict[str, Sequence], inp, exact_out,
+                    *, cache: bool = True,
+                    chunk_size: int = 256) -> "SurrogateEngine":
+        """Synthesis-oracle engine (ground truth): batched synthesis PPA
+        plus the config-batched functional model on ``inp``'s device."""
+        from repro_torch.accel import batch_oracle
+
+        def batch_fn(configs):
+            return batch_oracle.objective_rows(app, entries, configs, inp,
+                                               exact_out, chunk=chunk_size)
+
+        return cls(batch_fn, backend="oracle", chunk_size=chunk_size,
+                   cache=cache)
+
+
+def _probe_configs(sizes: Sequence[int], n: int = 4) -> List[Config]:
+    """Small deterministic config set for the construction parity check."""
+    rng = np.random.default_rng(0)
+    return [tuple(int(rng.integers(0, s)) for s in sizes) for _ in range(n)]

@@ -1,0 +1,116 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+Each source under ``csrc/`` compiles on its own into a shared library with
+a plain C interface, ``build/kernels/lib<name>-<digest>.so`` at the root of
+the checkout; the digest covers the source and the flags, so an edited
+source never loads a stale library. Builds start at first use (or all at
+once through `build`, one nvcc per source in parallel) — never at import,
+so the CPU-only test host imports every module without a toolkit.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Callable, Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = {"gnn_mp": "gnn_mp.cu", "lut_eval": "lut_eval.cu"}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+class LaunchCounter:
+    """Thread-safe count of kernel launches (the featurize worker thread
+    launches `lut_eval` while the main thread launches `gnn_mp`)."""
+
+    def __init__(self):
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._n
+
+
+def nvcc() -> str:
+    """Path of nvcc: ``$CUDA_HOME/bin/nvcc``, /usr/local/cuda, then PATH."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only "
+                           "where the CUDA toolkit is installed")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / SOURCES[name]
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile the named kernels (default: all) that are not built yet,
+    one nvcc process per source, all started together. Returns the
+    seconds each compile took (0.0 for a library already on disk);
+    raises with nvcc's output if any compile fails."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    started = {}
+    seconds = {}
+    for name in names:
+        target = library_path(name)
+        if target.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, tmp, target, time.perf_counter())
+    failures = []
+    for name, (proc, tmp, target, t0) in started.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, target)
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return seconds
+
+
+def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built on first use.
+    ``declare`` sets the C functions' argtypes/restype once."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            declare(lib)
+            _libs[name] = lib
+        return lib

@@ -30,6 +30,8 @@ def pytest_configure(config):
     # signal can deselect with ``-m "not slow"``.
     config.addinivalue_line(
         "markers", "slow: multi-second test (deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips without one)")
 
 
 try:

@@ -1,0 +1,131 @@
+"""The port's kernels: plain PyTorch versions against the JAX package's
+Pallas kernels (interpret mode), the per-device dispatch, and — on a CUDA
+card only — each CUDA kernel against its plain version.
+
+The JAX side is imported inside the parity tests so that the card-only
+test collects on a host without JAX.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import gnn_mp as gnn_mp_kernel
+from repro_torch.kernels import lut_eval as lut_eval_kernel
+from repro_torch.kernels import ops, ref
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+GNN_SHAPES = [(2, 8, 16, 8), (4, 32, 21, 48), (3, 16, 24, 24), (8, 32, 8, 304)]
+LUT_CASES = [("mul8", 8, 8, 5, 4096), ("mul8x4", 8, 4, 3, 4096),
+             ("add8", 8, 8, 7, 4096),
+             # ragged: not a multiple of the reference's block
+             ("mul8x4", 8, 4, 2, 4096 + 700), ("add8", 8, 8, 4, 1023)]
+
+
+def _gnn_inputs(B, N, F, Fo, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.random((B, N, N)).astype(np.float32),
+            rng.standard_normal((B, N, F)).astype(np.float32),
+            (rng.standard_normal((F, Fo)) * 0.1).astype(np.float32),
+            (rng.standard_normal((F, Fo)) * 0.1).astype(np.float32),
+            (rng.standard_normal(Fo) * 0.1).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,N,F,Fo", GNN_SHAPES)
+def test_gnn_mp_ref_matches_pallas(B, N, F, Fo):
+    """fp32 with another summation order: rtol/atol 1e-5, the bar the
+    reference's own kernel test sets."""
+    import jax.numpy as jnp
+    from repro.kernels import gnn_mp as pallas_gnn_mp
+    arrs = _gnn_inputs(B, N, F, Fo, seed=B * 1000 + N)
+    want = np.asarray(pallas_gnn_mp.gnn_mp(*map(jnp.asarray, arrs),
+                                           interpret=True))
+    got = ref.gnn_mp_ref(*map(torch.from_numpy, arrs)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind,wa,wb,idx,M", LUT_CASES)
+def test_lut_eval_ref_matches_pallas(kind, wa, wb, idx, M):
+    """Integer gather: bit-exact."""
+    import jax.numpy as jnp
+    from repro.accel import library as jlib
+    from repro.kernels import lut_eval as pallas_lut
+    inst = jlib.instances(kind)[idx]
+    lut = np.array(pallas_lut.build_lut(inst.fn(), wa, wb))
+    rng = np.random.default_rng(M + idx)
+    a = rng.integers(0, 1 << wa, M).astype(np.int32)
+    b = rng.integers(0, 1 << wb, M).astype(np.int32)
+    want = np.asarray(pallas_lut.lut_eval(
+        jnp.asarray(lut), jnp.asarray(a), jnp.asarray(b), wb=wb,
+        block=1024, interpret=True))
+    got = ref.lut_eval_ref(torch.from_numpy(lut), torch.from_numpy(a),
+                           torch.from_numpy(b), wb).numpy()
+    assert got.shape == (M,)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_gnn_mp_ref_shared_adjacency_equals_batched():
+    adj, h, ws, wn, b = map(torch.from_numpy, _gnn_inputs(5, 12, 7, 9, 3))
+    shared = ref.gnn_mp_ref(adj[0], h, ws, wn, b)
+    batched = ref.gnn_mp_ref(adj[0].expand(5, 12, 12), h, ws, wn, b)
+    torch.testing.assert_close(shared, batched, rtol=0, atol=0)
+
+
+def test_ops_on_cpu_run_the_plain_versions_and_launch_nothing():
+    adj, h, ws, wn, b = map(torch.from_numpy, _gnn_inputs(3, 8, 6, 5, 1))
+    lut = torch.arange(64, dtype=torch.int32) * 7
+    a = torch.tensor([0, 3, 7, 5], dtype=torch.int32)
+    bb = torch.tensor([1, 0, 7, 2], dtype=torch.int32)
+    n_mp, n_lut = gnn_mp_kernel.LAUNCHES.value, lut_eval_kernel.LAUNCHES.value
+    torch.testing.assert_close(ops.gnn_mp(adj, h, ws, wn, b),
+                               ref.gnn_mp_ref(adj, h, ws, wn, b),
+                               rtol=0, atol=0)
+    assert torch.equal(ops.lut_eval(lut, a, bb, 3), lut[(a << 3) | bb])
+    assert (gnn_mp_kernel.LAUNCHES.value, lut_eval_kernel.LAUNCHES.value) \
+        == (n_mp, n_lut)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The wrappers launch or raise: no silent plain-version fallback."""
+    adj, h, ws, wn, b = map(torch.from_numpy, _gnn_inputs(2, 4, 3, 5, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        gnn_mp_kernel.gnn_mp(adj, h, ws, wn, b)
+    x = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        lut_eval_kernel.lut_eval(x, x, x, 0)
+
+
+def test_lut_eval_ref_keeps_out_of_domain_indices_in_the_table():
+    lut = torch.arange(16, dtype=torch.int32)
+    a = torch.tensor([-1, 20, 3], dtype=torch.int32)
+    zero = torch.zeros(3, dtype=torch.int32)
+    assert ref.lut_eval_ref(lut, a, zero, 0).tolist() == [15, 15, 3]
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_versions():
+    """On the card: each CUDA kernel against its plain version at the
+    main path's shapes (fp32 with another summation order: rtol/atol
+    1e-4; the gather bit-exact), ragged sizes included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    for B, N, F, Fo in [(512, 32, 27, 300), (512, 32, 300, 300),
+                        (37, 32, 300, 300), *GNN_SHAPES]:
+        adj, h, ws, wn, b = (torch.from_numpy(x).to(dev)
+                             for x in _gnn_inputs(B, N, F, Fo, seed=B + F))
+        for a in (adj, adj[0], adj[0].expand(B, N, N)):
+            got = gnn_mp_kernel.gnn_mp(a, h, ws, wn, b)
+            torch.testing.assert_close(got, ref.gnn_mp_ref(a, h, ws, wn, b),
+                                       rtol=1e-4, atol=1e-4)
+    rng = np.random.default_rng(0)
+    for n_lut, wb, M in [(17 << 8, 0, 1 << 20), (17 << 12, 4, 4096 + 700),
+                         (6 << 20, 0, 1023)]:
+        lut = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n_lut,
+                                            dtype=np.int64).astype(np.int32))
+        a = torch.from_numpy(rng.integers(0, n_lut >> wb, M).astype(np.int32))
+        b = torch.from_numpy(rng.integers(0, 1 << wb, M).astype(np.int32))
+        got = lut_eval_kernel.lut_eval(lut.to(dev), a.to(dev), b.to(dev), wb)
+        assert torch.equal(got.cpu(), ref.lut_eval_ref(lut, a, b, wb))
+    torch.cuda.synchronize()
