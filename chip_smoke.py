@@ -4,19 +4,30 @@ Run from the root of a checkout, on a host with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds both CUDA kernels from src/repro_torch/kernels/csrc (one nvcc
-per source, in parallel, into build/kernels/), holds each kernel against
-its plain PyTorch version at the main path's shapes and times both with
-CUDA events, then drives the port's main path for the Gaussian
-accelerator: pruned library -> batched labeling of 2048 configurations
-(SSIM through `lut_eval`) -> a paper-width two-stage GraphSAGE surrogate
-(5 layers, hidden 300, random weights from a seeded generator) served by
-`SurrogateEngine.from_gnn` (`gnn_mp` in every layer) and an oracle engine.
-Launch counters are zeroed just before the main path and read just after.
+It builds the four CUDA kernels from src/repro_torch/kernels/csrc (one
+nvcc per source, in parallel, into build/kernels/), holds each kernel
+against its plain PyTorch version at the main paths' shapes and times
+both with CUDA events, then drives the port's two main paths:
 
-The last line of standard output is the device JSON; the line before it
-is the per-kernel JSON. Exits non-zero without a CUDA card, outside a
-checkout, or when any phase fails.
+- the Gaussian accelerator: pruned library -> batched labeling of 2048
+  configurations (SSIM through `lut_eval`) -> a paper-width two-stage
+  GraphSAGE surrogate (5 layers, hidden 300, random weights from a seeded
+  generator) served by `SurrogateEngine.from_gnn` (`gnn_mp` in every
+  layer) and an oracle engine;
+- the LM serving slice: Hymba-1.5B at full published width (32 layers,
+  d_model 1600, 25 heads over 5 KV heads, SSM state 16, SWA window 1024)
+  with random bf16 weights from a seeded generator, 8 prompts of 1024
+  tokens through `make_prefill_step` (`flash_attention` and `ssm_scan` in
+  every layer), then 32 greedy `make_decode_step` steps; held by
+  prefill/decode consistency checks (float32 compute over all 32
+  layers, bf16 over two), the float32 gap of a short prompt on the card
+  against the CPU's plain path, and a card-against-CPU check of a
+  two-layer model in bf16.
+
+Launch counters are zeroed just before each main path and read just
+after. The last line of standard output is the device JSON; the line
+before it is the per-kernel JSON. Exits non-zero without a CUDA card,
+outside a checkout, or when any phase fails.
 """
 from __future__ import annotations
 
@@ -31,11 +42,41 @@ ROOT = Path(__file__).resolve().parent
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 GNN_TOL = 1e-4          # fp32 against cuBLAS fp32: another summation order
 PARITY_ATOL = 2e-3      # the reference engine's kernel-vs-plain bar
 # the slice: Gaussian, paper-width GNN (Sec IV-A: 5 layers, hidden 300)
 N_SAMPLES, N_LAYERS, HIDDEN, CHUNK = 2048, 5, 300, 512
+# flash_attention against its plain version, which rounds p to bf16 at
+# the same place. Each rounds every p_i (the kernel unnormalized, the
+# plain version normalized) by up to 2^-8 of it and rounds each output,
+# so an output o = sum_i p_i v_i may move by up to 2^-7 (sum_i p_i |v_i|
+# + |o|) <= 2^-6 sum_i p_i |v_i|: a bar per element, which a bar in |o|
+# cannot be (a row with few keys may have |o| far below the sum). Over a
+# query row the roundings are independent, a few 2^-9 of the row's norm:
+# a bar of 2e-2 on each row's relative L2 error, which a dropped key tile
+# (1/16 of a late row's keys, ~25%) exceeds tenfold. float32: another
+# summation order, 1e-4.
+FA_BF16_ELEM, FA_BF16_ROW, FA_F32_TOL = 2.0 ** -6, 2e-2, 1e-4
+# the LM slice: Hymba-1.5B at full width, 8 prompts of 1024 tokens, a
+# decode horizon of 1056 slots, 32 greedy steps
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_STEPS = \
+    "hymba-1.5b", 8, 1024, 1056, 32
+# prefill+decode against one longer prefill: tests/test_models.py's bar
+# for decode against forward
+LM_RTOL, LM_ATOL = 0.1, 0.15
+# the second witness: at a short prompt the bf16 KV cache sets the
+# float32 gap between the two orders; the card's gap, and the card's
+# logits against the CPU's, within a quarter of the CPU path's gap (the
+# port against the reference in float32 at reduced width reads 4% of it)
+LM_WITNESS_PROMPT, WITNESS_SHARE = 100, 0.25
+# card against CPU in bf16 over two layers: products rounded after
+# another summation order (cuBLAS, oneDNN); the logits read 0.031
+CARD_CPU_TOL = (5e-2, 5e-2)
+# the SSM state: float32 sums of bf16 inputs that may differ by an ulp;
+# an absolute bar at 1% of the state's largest entry
+CARD_CPU_SSM_ATOL = 1e-2
 
 
 def card_line() -> str:
@@ -62,15 +103,22 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, peak=PEAK_FP32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = n_flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+FAILURES = []
+
+
 def check(cond: bool, what: str) -> None:
+    """Record a check that did not hold. The run goes on, so that every
+    reading is printed, and fails at the end."""
     if not cond:
-        raise AssertionError(what)
+        FAILURES.append(what)
+        print(f"chip_smoke: check failed: {what}", file=sys.stderr,
+              flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -161,8 +209,89 @@ def lut_eval_phase(gen):
     return rows
 
 
+def flash_attention_phase(gen):
+    """K3 at the LM slice's prefill shape (model-layout (B,S,H,D) tensors
+    read in place), the ragged S = 1025, and one float32 case."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    rows = []
+    B, H, KV, D = 8, 25, 5, 64
+    for S, dt in [(1024, torch.bfloat16), (1025, torch.bfloat16),
+                  (1024, torch.float32)]:
+        q, k, v = (torch.randn(B, S, n, D, device=dev, generator=gen).to(dt)
+                   .transpose(1, 2) for n in (H, KV, KV))
+        got = fa.flash_attention(q, k, v, causal=True).float()
+        want = ref.flash_attention_ref(q, k, v, causal=True).float()
+        err = (got - want).abs()
+        acc = {"max_abs_err": float(err.max())}
+        if dt == torch.bfloat16:
+            # sum_i p_i |v_i| for every output, in float32
+            p_abs_v = ref.flash_attention_ref(q.float(), k.float(),
+                                              v.float().abs(), causal=True)
+            acc["err_over_p_abs_v"] = float(
+                (err / p_abs_v.clamp_min(1e-30)).max())
+            acc["row_rel_l2"] = float(
+                (err.norm(dim=-1) / want.norm(dim=-1)).max())
+            ok = (acc["err_over_p_abs_v"] <= FA_BF16_ELEM
+                  and acc["row_rel_l2"] <= FA_BF16_ROW)
+            del p_abs_v
+        else:
+            ok = torch.allclose(got, want, rtol=FA_F32_TOL, atol=FA_F32_TOL)
+        check(ok, f"flash_attention {B}x{H}x{S}x{D} {dt} disagrees with "
+              f"its plain version: {acc}")
+        del got, want, err
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20)
+        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                        5)
+        library = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20)
+        # causal: S(S+1)/2 query-key pairs, 2 products of 2D FLOP each
+        flops = 4 * B * H * D * S * (S + 1) / 2
+        nbytes = q.element_size() * (2 * B * H * S * D + 2 * B * KV * S * D)
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
+        bnd, by = bound_ms(nbytes, flops, peak)
+        rows.append({"shape": [B, H, KV, S, D], "dtype": str(dt), **acc,
+                     "ms": ms,
+                     "plain_ms": plain, "library_ms": library,
+                     "bound_ms": bnd, "bound_by": by, "gflop": flops / 1e9})
+    return rows
+
+
+def ssm_scan_phase(gen):
+    """K4 at the LM slice's prefill shape (T = 1024 steps, D = B*H*Dh*N =
+    204,800 channels, the decay compact per head), the full (T, D) decay,
+    and a ragged T."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as sc
+    dev = torch.device("cuda")
+    rows = []
+    D = 8 * 25 * 64 * 16
+    for T, rep in [(1024, 64 * 16), (1024, 1), (1000, 64 * 16)]:
+        a = torch.rand(T, D // rep, device=dev, generator=gen) * 0.95
+        b = torch.randn(T, D, device=dev, generator=gen)
+        y0 = torch.randn(D, device=dev, generator=gen)
+        ys, yf = sc.ssm_scan(a, b, y0)
+        a_full = a.repeat_interleave(rep, dim=1)
+        want_ys, want_yf = ref.ssm_scan_ref(a_full, b, y0)
+        torch.cuda.synchronize()
+        # a rounded multiply, then a rounded add, on both sides
+        check(torch.equal(ys, want_ys) and torch.equal(yf, want_yf),
+              f"ssm_scan T={T} D={D} rep={rep} is not bit-exact")
+        ms = cuda_ms(lambda: sc.ssm_scan(a, b, y0), 20)
+        plain = cuda_ms(lambda: ref.ssm_scan_ref(a_full, b, y0), 2, warmup=1)
+        bnd, by = bound_ms(4 * (a.numel() + 2 * T * D + 2 * D), 2 * T * D)
+        rows.append({"T": T, "D": D, "decay_repeat": rep, "max_abs_err": 0,
+                     "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+                     "bound_by": by})
+    return rows
+
+
 # --------------------------------------------------------------------------
-# the main path
+# the main paths
 # --------------------------------------------------------------------------
 
 def sync(dev) -> None:
@@ -324,6 +453,263 @@ def slice_phase(card: str, dev):
     return report, launches
 
 
+def finite(t) -> bool:
+    import torch
+    return bool(torch.isfinite(t).all())
+
+
+def gap(a, b) -> dict:
+    """How far two logits tensors are apart: max |a - b|, relative L2,
+    and the share of rows whose argmax agrees."""
+    a, b = a.float().cpu(), b.float().cpu()
+    check(a.shape == b.shape and finite(a) and finite(b),
+          f"shapes {tuple(a.shape)} vs {tuple(b.shape)} or non-finite "
+          f"values")
+    return {"max_abs": float((a - b).abs().max()),
+            "rel_l2": float((a - b).norm() / b.norm()),
+            "argmax_agree": float((a.argmax(-1) == b.argmax(-1))
+                                  .float().mean())}
+
+
+def within(a, b, rtol: float, atol: float) -> bool:
+    import torch
+    return bool(torch.allclose(a.float().cpu(), b.float().cpu(), rtol=rtol,
+                               atol=atol))
+
+
+KIND_OF_KERNEL = (  # device time of a prefill, by what the kernel does
+    ("flash_attention", ("flash_",)),
+    ("ssm_scan", ("ssm_scan",)),
+    ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass")),
+    ("copy", ("copy",)),
+)
+
+
+def device_profile(fn) -> dict:
+    """Device time of one call of ``fn`` from torch.profiler: the busy
+    share of the call's wall time, the time by kind of kernel (K3, K4,
+    matrix products, copies, the rest) and the kernels that take the
+    most. A profiler that records no device activity is reported, not
+    fatal: it measures, it checks nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    if not by_name:
+        return {"wall_ms": wall_ms, "device_ms": "not measured: the "
+                "profiler recorded no device activity"}
+    busy = sum(by_name.values())
+    by_kind = dict.fromkeys([k for k, _ in KIND_OF_KERNEL] + ["other"], 0.0)
+    for name, ms in by_name.items():
+        kind = next((k for k, keys in KIND_OF_KERNEL
+                     if any(s in name.lower() for s in keys)), "other")
+        by_kind[kind] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "device_ms_by_kind": by_kind, "kernels": len(by_name),
+            "top_ms": {name[:80]: ms for name, ms in top}}
+
+
+def lm_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
+                   prompt_len: int = LM_PROMPT, max_len: int = LM_MAX_LEN,
+                   n_steps: int = LM_STEPS, cpu_len: int = 256,
+                   witness_len: int = LM_WITNESS_PROMPT):
+    """Drive the LM serving slice on ``dev`` through `make_prefill_step`
+    and `make_decode_step`; returns (report, launches of the counted
+    prefill). On the CPU (a rehearsal at reduced size) the kernels' plain
+    versions run and nothing is launched."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as sc
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import tree_map
+    report = {"card": card, "arch": cfg.name, "batch": batch,
+              "prompt": prompt_len, "max_len": max_len,
+              "decode_steps": n_steps}
+    per_run = cfg.n_layers if dev.type == "cuda" else 0
+    checks = {}
+
+    def timed(fn):
+        sync(dev)
+        t = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, (time.perf_counter() - t) * 1e3
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, ms = timed(lambda: transformer.build_param_table(cfg).init(
+        gen, device=dev, dtype=torch.bfloat16))
+    report["init_ms"] = ms
+    n_params = []
+    tree_map(lambda a: n_params.append(a.numel()), params)
+    report["params"] = sum(n_params)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len + 1),
+                           generator=gen, device=dev, dtype=torch.int32)
+    prompt = {"tokens": tokens[:, :prompt_len]}
+    prefill = steps.make_prefill_step(cfg, max_len=max_len)
+    decode = steps.make_decode_step(cfg)
+
+    def first_layers(p, n):
+        return dict(p, blocks=tree_map(lambda a: a[:n], p["blocks"]))
+
+    def stepped_and_longer(c, p, toks, S):
+        """Last logits of prefill(S) + decode_step(S), and of one
+        prefill(S + 1)."""
+        pre = steps.make_prefill_step(c, max_len=max_len)
+        _, cache = pre(p, {"tokens": toks[:, :S]})
+        stepped, _ = steps.make_decode_step(c)(p, cache, toks[:, S:S + 1], S)
+        longer, _ = pre(p, {"tokens": toks[:, :S + 1]})
+        return stepped[:, 0], longer
+
+    with torch.inference_mode():
+        (last, cache), report["prefill_cold_ms"] = timed(
+            lambda: prefill(params, prompt))
+        check(tuple(last.shape) == (batch, cfg.vocab_size)
+              and finite(last), "prefill logits: shape or values")
+        del cache
+
+        # the counted run: one warm prefill, then greedy decoding
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        fa.LAUNCHES.reset()
+        sc.LAUNCHES.reset()
+        (last, cache), warm = timed(lambda: prefill(params, prompt))
+        launches = {"flash_attention": fa.LAUNCHES.value,
+                    "ssm_scan": sc.LAUNCHES.value}
+        for name, n in launches.items():
+            check(n == per_run, f"{name}: {n} launches in the prefill, not "
+                  f"{per_run} (one per layer on the card)")
+        tok = last.argmax(-1, keepdim=True).to(torch.int32)
+        step_ms = []
+        for i in range(n_steps):
+            (logits, cache), ms = timed(
+                lambda: decode(params, cache, tok, prompt_len + i))
+            step_ms.append(ms)
+            tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+        check(finite(logits) and tuple(logits.shape)
+              == (batch, 1, cfg.vocab_size), "decode logits")
+        if dev.type == "cuda":
+            report["peak_allocated_gib"] = (
+                torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        report["prefill_warm_ms"] = warm
+        report["prefill_tokens_per_s"] = batch * prompt_len / warm * 1e3
+        report["decode_ms_per_step"] = sum(step_ms) / len(step_ms)
+        report["decode_ms_per_step_median"] = sorted(step_ms)[n_steps // 2]
+        report["decode_tokens_per_s"] = (batch * 1e3
+                                         / report["decode_ms_per_step"])
+        report["launches"] = launches
+        del cache
+
+        # where one warm prefill's and one decode step's device time goes
+        if dev.type == "cuda":
+            report["prefill_device_profile"] = device_profile(
+                lambda: prefill(params, prompt))
+            _, cache = prefill(params, prompt)
+            report["decode_step_device_profile"] = device_profile(
+                lambda: decode(params, cache, tok, prompt_len))
+            del cache
+
+        # consistency at full width: prefill(S) + one decode step at S
+        # against one prefill(S + 1), at test_models.py's bar. At S + 1 >
+        # window the SWA layers take the plain windowed path and the
+        # global layers a ragged K3. In float32 compute (K3's float32
+        # path) over all 32 layers; in bf16 (the served kernels) over two:
+        # deeper, a one-ulp difference between the two orders grows past
+        # any bar through the random-weight stack, in the JAX reference
+        # too (tests/test_torch_lm.py::
+        # test_bf16_decode_gap_at_depth_is_rounding_order).
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = tree_map(lambda a: a.float(), params)
+        a, b = stepped_and_longer(cfg32, p32, tokens, prompt_len)
+        checks["decode_vs_longer_prefill_f32"] = gap(a, b)
+        check(within(a, b, LM_RTOL, LM_ATOL),
+              "float32 prefill+decode vs prefill(S+1) beyond the bar")
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        a, b = stepped_and_longer(cfg2, first_layers(params, 2), tokens,
+                                  prompt_len)
+        checks["decode_vs_longer_prefill_bf16_2_layers"] = gap(a, b)
+        check(within(a, b, LM_RTOL, LM_ATOL),
+              "bf16 two-layer prefill+decode vs prefill(S+1) beyond the bar")
+
+        # the second witness: the float32 gap at a short prompt, on the
+        # card and on the CPU's plain path with the same weights. Its
+        # source is the bf16 KV cache (the decode step reads the prompt's
+        # k/v rounded, the longer prefill does not), the same on both
+        # devices; a kernel fault would make the card's gap its own.
+        toks_w = tokens[:, :witness_len + 1]
+        card_s, card_l = stepped_and_longer(cfg32, p32, toks_w, witness_len)
+        del p32
+        p32_cpu = tree_map(lambda a: a.float().cpu(), params)
+        cpu_s, cpu_l = stepped_and_longer(cfg32, p32_cpu, toks_w.cpu(),
+                                          witness_len)
+        del p32_cpu
+        w = {"prompt": witness_len, "card": gap(card_s, card_l),
+             "cpu": gap(cpu_s, cpu_l),
+             "stepped_card_vs_cpu": gap(card_s, cpu_s),
+             "longer_card_vs_cpu": gap(card_l, cpu_l)}
+        checks["decode_gap_f32_card_vs_cpu"] = w
+        cpu_gap = w["cpu"]["max_abs"]
+        check(abs(w["card"]["max_abs"] - cpu_gap) <= WITNESS_SHARE * cpu_gap,
+              "float32 decode gap on the card is not the CPU plain path's")
+        for key in ("stepped_card_vs_cpu", "longer_card_vs_cpu"):
+            check(w[key]["max_abs"] <= WITNESS_SHARE * cpu_gap,
+                  f"float32 {key} beyond {WITNESS_SHARE} of the CPU's gap")
+
+        # card against CPU: two layers at full width in bf16, the same
+        # weights; only what the kernels produce or feed: the logits, the
+        # SSM state (K4's y_final) and the second layer's KV cache (its
+        # input went through the first layer's K3 and K4)
+        p2 = first_layers(params, 2)
+        batch2 = {"tokens": tokens[:2, :cpu_len]}
+        prefill2 = steps.make_prefill_step(cfg2)
+        fa.LAUNCHES.reset()
+        sc.LAUNCHES.reset()
+        last_d, cache_d = prefill2(p2, batch2)
+        check(fa.LAUNCHES.value == sc.LAUNCHES.value == (
+            2 if dev.type == "cuda" else 0),
+            "the two-layer prefill did not run both kernels in each layer")
+        last_c, cache_c = prefill2(tree_map(lambda a: a.cpu(), p2),
+                                   {"tokens": batch2["tokens"].cpu()})
+        ssm_c = cache_c["ssm"]
+        ssm_atol = CARD_CPU_SSM_ATOL * float(ssm_c.abs().max())
+        checks["card_vs_cpu"] = {
+            "logits": gap(last_d, last_c),
+            "ssm_state_max_abs": float((cache_d["ssm"].cpu()
+                                        - ssm_c).abs().max()),
+            "ssm_state_ref_max_abs": float(ssm_c.abs().max()),
+            "layer1_kv_max_abs": max(
+                float((cache_d["layers"][1][n].float().cpu()
+                       - cache_c["layers"][1][n].float()).abs().max())
+                for n in ("k", "v"))}
+        check(within(last_d, last_c, *CARD_CPU_TOL),
+              "two-layer prefill logits, card vs CPU, beyond the bar")
+        check(within(cache_d["ssm"], ssm_c, CARD_CPU_TOL[0], ssm_atol),
+              "SSM state, card vs CPU, beyond the bar")
+        for n in ("k", "v"):
+            check(within(cache_d["layers"][1][n], cache_c["layers"][1][n],
+                         *CARD_CPU_TOL),
+                  f"layer 1 {n} cache, card vs CPU, beyond the bar")
+    report["checks"] = checks
+    report["tolerance"] = {"consistency": [LM_RTOL, LM_ATOL],
+                           "witness_share": WITNESS_SHARE,
+                           "card_vs_cpu": list(CARD_CPU_TOL),
+                           "card_vs_cpu_ssm_atol": ssm_atol}
+    return report, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -340,8 +726,11 @@ def main() -> int:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
         return 2
+    FAILURES.clear()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products accumulate in float32 (models.layers.fdot)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
@@ -352,10 +741,17 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     gnn_rows = gnn_mp_phase(gen)
     lut_rows = lut_eval_phase(gen)
-    print("kernel_shapes " + json.dumps({"card": card, "gnn_mp": gnn_rows,
-                                         "lut_eval": lut_rows}), flush=True)
+    fa_rows = flash_attention_phase(gen)
+    scan_rows = ssm_scan_phase(gen)
+    print("kernel_shapes " + json.dumps({
+        "card": card, "gnn_mp": gnn_rows, "lut_eval": lut_rows,
+        "flash_attention": fa_rows, "ssm_scan": scan_rows}), flush=True)
     report, launches = slice_phase(card, torch.device("cuda"))
     print("slice " + json.dumps(report), flush=True)
+    from repro_torch.configs import get_arch
+    lm_report, lm_launches = lm_slice_phase(card, torch.device("cuda"),
+                                            get_arch(LM_ARCH))
+    print("lm_slice " + json.dumps(lm_report), flush=True)
 
     g = gnn_rows[1]            # 512 x 32 x 300 -> 300: 8 of the 10 layers
     lt = lut_rows[0]           # the labeling gather: 17 KB column table
@@ -374,6 +770,29 @@ def main() -> int:
          "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
          "library_ms": lt["library_ms"]},
     ]
+    fr = fa_rows[0]            # the prefill shape: bf16, causal, S = 1024
+    sr = scan_rows[0]          # the prefill shape, decay compact per head
+    kernels += [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:67",
+         "launches": lm_launches["flash_attention"],
+         "max_abs_err": fr["max_abs_err"], "ms": fr["ms"],
+         "plain_ms": fr["plain_ms"], "bound_ms": fr["bound_ms"],
+         "bound_by": fr["bound_by"], "library_ms": fr["library_ms"]},
+        # library_ms null: no one PyTorch call computes a linear recurrence
+        {"name": "ssm_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan.py:49",
+         "launches": lm_launches["ssm_scan"],
+         "max_abs_err": sr["max_abs_err"], "ms": sr["ms"],
+         "plain_ms": sr["plain_ms"], "bound_ms": sr["bound_ms"],
+         "bound_by": sr["bound_by"], "library_ms": None},
+    ]
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} check(s) failed: "
+              + "; ".join(FAILURES), file=sys.stderr)
+        return 1
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

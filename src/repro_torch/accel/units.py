@@ -5,13 +5,13 @@ their parameters follow `repro.accel.units` (TRUNC/LOA/LOX/ACA/SEG adders
 and subtractors; RTRUNC/OTRUNC/BROKEN/MITCHELL/DRUM multipliers;
 ITRUNC/PWL/NEWTON sqrt).
 
-Powers of two are exact here: ``floor(log2 x)`` comes from the integer's
-bit length and ``2^k`` from `torch.ldexp`. The JAX package goes through
-float ``exp2``/``log2``, which XLA on the CPU evaluates inexactly at some
-integer arguments (``exp2(15.)`` gives 32767.984). The pruned libraries'
-truth tables are identical either way on the domains of sobel, gaussian,
-fir15 and dct8; four k-means tables differ (mul8 mitchell_2/_3, sqrt18
-pwl_4/newton_4 — counted in tests/test_torch_accel.py).
+Powers of two and ``floor(log2 x)`` follow the reference's float32
+arithmetic as XLA evaluates it on the CPU: ``exp2(x)`` is
+``exp(x * ln 2)`` and ``log2(x)`` is ``log(x) / ln 2`` in float32, which
+are inexact at some integer arguments (``exp2(15.)`` gives 32767.984).
+The mitchell, drum, pwl and newton units inherit those roundings, so
+every truth table equals the reference's bit for bit, the k-means
+tables included (tests/test_torch_accel.py).
 """
 from __future__ import annotations
 
@@ -128,36 +128,34 @@ def mul_broken(a, b, na, nb, k):
     return a * ((b >> k) << k)
 
 
+_LN2 = torch.tensor(math.log(2.0), dtype=torch.float32)
+
+
+def _exp2(x):
+    """2^x of a float32 tensor as XLA's CPU ``exp2``: exp(x * ln 2)."""
+    return torch.exp(x * _LN2)
+
+
 def _ilog2(x):
-    """floor(log2(max(x, 1))) of int32 x, exactly, from the bit length."""
-    x = torch.clamp(x, min=1)
-    r = torch.zeros_like(x)
-    for s in (16, 8, 4, 2, 1):
-        big = x >= (1 << s)
-        x = torch.where(big, x >> s, x)
-        r = r + big.to(r.dtype) * s
-    return r
-
-
-def _pow2(e):
-    """2^e as float32, exact for integer tensors e."""
-    return torch.ldexp(torch.ones(e.shape, dtype=torch.float32,
-                                  device=e.device), e)
+    """floor(log2(max(x, 1))) of int32 x as the reference computes it,
+    with XLA's CPU ``log2``: float32 log(x) / ln 2."""
+    xf = torch.clamp(x, min=1).to(torch.float32)
+    return torch.floor(torch.log(xf) / _LN2).to(torch.int32)
 
 
 def mul_mitchell(a, b, na, nb, c):
     """Mitchell log multiplier with c correction bits on the fraction add."""
     za = _ilog2(a)
     zb = _ilog2(b)
-    fa = a.to(torch.float32) / _pow2(za) - 1.0
-    fb = b.to(torch.float32) / _pow2(zb) - 1.0
+    fa = a.to(torch.float32) / _exp2(za.to(torch.float32)) - 1.0
+    fb = b.to(torch.float32) / _exp2(zb.to(torch.float32)) - 1.0
     if c > 0:  # quantize fractions to c bits (the "correction" datapath width)
         q = float(1 << c)
         fa = torch.floor(fa * q) / q
         fb = torch.floor(fb * q) / q
     s = fa + fb
-    e = za + zb
-    approx = torch.where(s < 1.0, _pow2(e) * (1.0 + s), _pow2(e + 1) * s)
+    e = (za + zb).to(torch.float32)
+    approx = torch.where(s < 1.0, _exp2(e) * (1.0 + s), _exp2(e + 1.0) * s)
     approx = torch.where((a == 0) | (b == 0), 0.0, approx)
     return approx.to(torch.int32)
 
@@ -192,28 +190,21 @@ def sqrt_itrunc(x, n, k):
 
 
 def sqrt_pwl(x, n, seg):
-    """Piecewise-linear: r = 2^(z/2) * (1 + f/2) with f quantized to `seg`.
-
-    Evaluated in float64 with 2^(z/2) = 2^floor(z/2) * (sqrt 2 if z is
-    odd) by `torch.ldexp`, so the only rounding is the final product's:
-    a float64 NumPy evaluation of the same formula gives the same table.
-    """
+    """Piecewise-linear: r = 2^(z/2) * (1 + f/2) with f quantized to `seg`,
+    in float32 as the reference."""
     z = _ilog2(x)
-    f = x.to(torch.float64) / _pow2(z).to(torch.float64) - 1.0
+    f = x.to(torch.float32) / _exp2(z.to(torch.float32)) - 1.0
     if seg > 0:
         q = float(1 << seg)
         f = torch.floor(f * q) / q
-    sqrt2 = torch.full(z.shape, math.sqrt(2.0), dtype=torch.float64,
-                       device=z.device)
-    mant = torch.where(z % 2 == 1, sqrt2, 1.0)
-    r = torch.ldexp(mant, z // 2) * (1.0 + f / 2.0)
+    r = _exp2(z.to(torch.float32) / 2.0) * (1.0 + f / 2.0)
     return torch.where(x == 0, 0, r.to(torch.int32))
 
 
 def sqrt_newton(x, n, seg):
-    """One Newton step from the PWL seed, in float64 like `sqrt_pwl`."""
-    r0 = torch.clamp(sqrt_pwl(x, n, seg).to(torch.float64), min=1.0)
-    r = 0.5 * (r0 + x.to(torch.float64) / r0)
+    """One Newton step from the PWL seed, in float32 as the reference."""
+    r0 = torch.clamp(sqrt_pwl(x, n, seg).to(torch.float32), min=1.0)
+    r = 0.5 * (r0 + x.to(torch.float32) / r0)
     return torch.where(x == 0, 0, r.to(torch.int32))
 
 

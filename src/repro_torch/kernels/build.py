@@ -21,7 +21,9 @@ from typing import Callable, Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"gnn_mp": "gnn_mp.cu", "lut_eval": "lut_eval.cu"}
+SOURCES = {"gnn_mp": "gnn_mp.cu", "lut_eval": "lut_eval.cu",
+           "flash_attention": "flash_attention.cu",
+           "ssm_scan": "ssm_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

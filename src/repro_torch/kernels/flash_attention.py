@@ -1,0 +1,86 @@
+"""Wrapper of the CUDA kernel ``csrc/flash_attention.cu``: causal or full
+attention with grouped KV heads, in the reference kernel's (B,H,S,D)
+layout, read and written through strides."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+LAUNCHES = build.LaunchCounter()
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_BATCH_HEADS = 65535        # the grid's y extent
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.flash_attention_launch.argtypes = (
+        [p, p, p, p, i, i, i, i, i] + [ll] * 12 + [i, i, p])
+    lib.flash_attention_launch.restype = i
+
+
+def _bhs_strides(name: str, t: torch.Tensor):
+    """(batch, head, sequence) strides of a (B,*,S,D) tensor whose rows the
+    kernel reads 16 bytes at a time."""
+    vec = 16 // t.element_size()
+    st = t.stride()
+    if st[3] != 1 or any(s % vec for s in st[:3]) or t.data_ptr() % 16:
+        raise ValueError(
+            f"flash_attention: {name} needs a unit last stride, 16-byte "
+            f"aligned data and other strides that are multiples of {vec} "
+            f"elements; got strides {st}")
+    return st[:3]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Launch the kernel. q: (B,H,S,D); k, v: (B,KV,S,D) with H = KV*G;
+    all bfloat16 or all float32 on one CUDA device, any strides with a
+    unit last stride (a transposed view of a (B,S,H,D) tensor is read in
+    place). Returns (B,H,S,D) in q's type and memory layout."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention kernel needs CUDA tensors, "
+                         f"got {dev}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"flash_attention: bfloat16 or float32, got "
+                         f"{q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention: {name} must be {q.dtype} "
+                             f"on {dev}, got {t.dtype} on {t.device}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q (B,H,S,D) and k, v "
+                         f"(B,KV,S,D); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    if (k.shape[0], k.shape[2], k.shape[3]) != (B, S, D) or KV == 0 \
+            or H % KV:
+        raise ValueError(f"flash_attention: k, v {tuple(k.shape)} do not "
+                         f"match q {tuple(q.shape)} with H % KV == 0")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D}; the kernel "
+                         f"takes {HEAD_DIMS}")
+    if B * H > MAX_BATCH_HEADS:
+        raise ValueError(f"flash_attention: B*H = {B * H} exceeds one "
+                         f"launch's grid ({MAX_BATCH_HEADS})")
+    out = torch.empty_like(q)
+    if B * H * S == 0:
+        return out
+    strides = [*_bhs_strides("q", q), *_bhs_strides("k", k),
+               *_bhs_strides("v", v), *_bhs_strides("out", out)]
+    lib = build.load("flash_attention", _declare)
+    with torch.cuda.device(dev):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, KV, S, D, *strides, int(bool(causal)),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES.add()
+    return out

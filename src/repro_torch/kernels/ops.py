@@ -7,9 +7,11 @@ the kernel to the plain version: which one ran follows from the device.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gnn_mp as _mp
 from repro_torch.kernels import lut_eval as _lut
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as _scan
 
 
 def gnn_mp(adj, h, w_self, w_nbr, b):
@@ -24,3 +26,19 @@ def lut_eval(lut, a, b, wb: int):
     if a.device.type == "cpu":
         return ref.lut_eval_ref(lut, a, b, wb)
     return _lut.lut_eval(lut, a, b, wb)
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Attention with grouped KV heads; q (B,H,S,D), k/v (B,KV,S,D)."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    return _fa.flash_attention(q, k, v, causal=causal)
+
+
+def ssm_scan(a, b, y0):
+    """y_t = a_t * y_{t-1} + b_t over (T,D); `a` is (T,D) or a compact
+    (T,D/R) shared by R neighbouring channels. Returns (ys, y_final)."""
+    if b.device.type == "cpu":
+        rep = _scan.repeat_factor(a, b)
+        return ref.ssm_scan_ref(a.repeat_interleave(rep, dim=1), b, y0)
+    return _scan.ssm_scan(a, b, y0)

@@ -24,3 +24,36 @@ def lut_eval_ref(lut, a, b, wb: int):
     idx = (a << wb) | b
     idx = torch.where(idx < 0, idx + n, idx).clamp_(0, n - 1)
     return lut[idx.long()]
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """Causal or full attention with grouped KV heads.
+
+    q: (B,H,S,D); k, v: (B,KV,S,D) with H = KV*G, query head h reading KV
+    head h // G. Scores in float32 scaled by D^-0.5, masked with -1e30,
+    softmax in float32, probabilities rounded to v's type before the PV
+    product (the reference kernel's order). Returns (B,H,S,D) in v's type.
+    """
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    q5 = q.reshape(B, KV, G, S, D).float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", q5, k.float()) * D ** -0.5
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v)
+    return o.reshape(B, H, S, D)
+
+
+def ssm_scan_ref(a, b, y0):
+    """Diagonal linear recurrence y_t = a_t * y_{t-1} + b_t.
+
+    a, b: (T,D) float32; y0: (D,). Returns ys (T,D) and y_final (D,)."""
+    ys = torch.empty_like(b)
+    y = y0
+    for t in range(b.shape[0]):
+        y = a[t] * y + b[t]
+        ys[t] = y
+    return ys, y.clone()

@@ -1,0 +1,212 @@
+"""KV-cache / recurrent-state management and single-token decode steps.
+
+The port of `repro.models.decoding` for the dense and hybrid families.
+Cache layouts (W = ring-buffer width = min(seq_len, swa_window or inf)):
+ - dense         : {"k": (L,B,W,KV,D) bf16, "v": ..., "pos": (B,W) int32}
+ - hymba(hybrid) : {"layers": per-layer {"k", "v": (B,Wi,KV,D) bf16,
+                   "pos": (B,Wi)} (SWA layers Wi = window, global layers
+                   Wi = seq_len), "ssm": (L,B,H,Dh,N) float32}
+Decode steps update the cache IN PLACE (the reference returns a new one;
+here that would copy every layer's cache per token) and return it with
+the logits: (params, cache, tokens, step) -> (logits, cache).
+The int8 KV cache (``kv_int8``) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.device import DeviceLike
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import (apply_rope, fdot, rms_norm,
+                                      rope_angles)
+from repro_torch.models.transformer import (_mlp, _project_qkv,
+                                            cast_params, check_supported,
+                                            head_weight, is_global_layer,
+                                            layer_params, run_blocks)
+
+
+def _cache_width(cfg: ArchConfig, seq_len: int) -> int:
+    if cfg.swa_window and not cfg.global_attn_every:
+        return min(cfg.swa_window, seq_len)
+    return seq_len
+
+
+def cache_spec(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """(shape, dtype) of every cache leaf: bf16 KV, float32 SSM state."""
+    check_supported(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    bf16 = torch.bfloat16
+    if cfg.family == "hybrid":
+        W = min(cfg.swa_window, S)
+        layers = []
+        for i in range(L):
+            wi = S if is_global_layer(cfg, i) else W
+            layers.append({"k": ((B, wi, KV, D), bf16),
+                           "v": ((B, wi, KV, D), bf16),
+                           "pos": ((B, wi), torch.int32)})
+        return {"layers": layers,
+                "ssm": ((L, B, cfg.n_heads, D, cfg.ssm_state),
+                        torch.float32)}
+    W = _cache_width(cfg, S)
+    return {"k": ((L, B, W, KV, D), bf16), "v": ((L, B, W, KV, D), bf16),
+            "pos": ((B, W), torch.int32)}
+
+
+def init_cache(cfg: ArchConfig, shape: ShapeConfig,
+               device: DeviceLike = None) -> Dict[str, Any]:
+    """An empty cache on ``device`` (the card unless it says otherwise):
+    zeros, and position -1 in every slot."""
+    device = device_lib.resolve(device)
+
+    def make(spec):
+        if isinstance(spec, dict):
+            return {k: make(v) for k, v in spec.items()}
+        if isinstance(spec, list):
+            return [make(v) for v in spec]
+        shp, dt = spec
+        if dt == torch.int32:
+            return torch.full(shp, -1, dtype=dt, device=device)
+        return torch.zeros(shp, dtype=dt, device=device)
+    return make(cache_spec(cfg, shape))
+
+
+# --------------------------------------------------------------------------
+# decode steps
+# --------------------------------------------------------------------------
+
+def _attn_decode(cfg, p, nx, ck, cv, cpos, step: int, is_global=None):
+    """nx: (B,1,d). Returns the attention output; the cache is updated in
+    place."""
+    q, k, v = _project_qkv(cfg, p, nx)
+    B = nx.shape[0]
+    if cfg.rope_theta:
+        pos = torch.full((B, 1), step, dtype=torch.int32, device=nx.device)
+        ang = rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta)
+        q, k = apply_rope(q, ang), apply_rope(k, ang)
+    window = cfg.swa_window if cfg.swa_window else 0
+    attn_lib.cache_update(ck, cv, cpos, k.to(ck.dtype), v.to(cv.dtype),
+                          step)
+    o = attn_lib.decode_attention(q, ck, cv, cpos, window=window,
+                                  is_global=is_global)
+    return o.reshape(B, 1, -1) @ p["wo"]
+
+
+def decode_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
+                step: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """tokens: (B,1) int; step: the absolute position (a Python int).
+    Returns (logits (B,1,V), cache) with the cache updated in place."""
+    check_supported(cfg)
+    params = cast_params(cfg, params)
+    step = int(step)
+    if cfg.family == "hybrid":
+        return _decode_hybrid(cfg, params, cache, tokens, step)
+    return _decode_stacked(cfg, params, cache, tokens, step)
+
+
+def _embed_decode(cfg, params, tokens):
+    return params["embed"]["tokens"].to(getattr(torch, cfg.dtype))[
+        tokens.long()]
+
+
+def _logits(cfg, params, x):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x @ head_weight(cfg, params).to(x.dtype)
+
+
+def _decode_stacked(cfg, params, cache, tokens, step):
+    """dense: a loop over the stacked layers. Every layer writes the same
+    slot of the shared position row."""
+    x = _embed_decode(cfg, params, tokens)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["blocks"], i)
+        nx = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        a = _attn_decode(cfg, lp["attn"], nx, cache["k"][i], cache["v"][i],
+                         cache["pos"], step)
+        x = x + a
+        nx = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = x + _mlp(cfg, lp["mlp"], nx)
+    return _logits(cfg, params, x), cache
+
+
+def _decode_hybrid(cfg, params, cache, tokens, step):
+    """hymba: per-layer caches of two widths, and the SSM state."""
+    x = _embed_decode(cfg, params, tokens)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["blocks"], i)
+        lc = cache["layers"][i]
+        nx = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        a = _attn_decode(cfg, lp["attn"], nx, lc["k"], lc["v"], lc["pos"],
+                         step, is_global=bool(is_global_layer(cfg, i)))
+        s, st = ssm_lib.ssm_decode_step(cfg, lp["ssm"], nx, cache["ssm"][i])
+        cache["ssm"][i] = st
+        fs = lp["fuse_scale"]
+        x = x + 0.5 * (fs[0] * a + fs[1] * s)
+        nx = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = x + _mlp(cfg, lp["mlp"], nx)
+    return _logits(cfg, params, x), cache
+
+
+# --------------------------------------------------------------------------
+# prefill: forward pass that also returns a populated cache
+# --------------------------------------------------------------------------
+
+def _pad_cache_entry(k, v, pos, width: int):
+    """Extend a (B,S,KV,D) cache to `width` slots (empty slots pos=-1), or
+    keep its last `width` positions, rolled so that position p sits in
+    ring slot p % width, where `attention.cache_update` writes and evicts.
+    (The reference keeps them unrolled: when S % width != 0 its first
+    decode steps overwrite positions still inside the window.)"""
+    S = k.shape[1]
+    if width <= S:
+        return tuple(t[:, S - width:].roll(S % width, dims=1)
+                     for t in (k, v, pos))
+    B = k.shape[0]
+    pad = k.new_zeros((B, width - S) + tuple(k.shape[2:]))
+    k = torch.cat([k, pad], dim=1)
+    v = torch.cat([v, pad], dim=1)
+    pos = torch.cat([pos, pos.new_full((B, width - S), -1)], dim=1)
+    return k, v, pos
+
+
+def prefill(cfg: ArchConfig, params, batch, max_len: int = 0
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Runs the full forward and materializes the decode cache.
+
+    `max_len` sets the decode horizon: full-attention caches are padded to
+    that many slots (ring-buffer alignment: prompt token i sits in slot i).
+    Returns (last-position logits (B,V), cache). The head is applied to
+    the last position only: the reference computes every position's
+    logits and keeps the last."""
+    check_supported(cfg)
+    params = cast_params(cfg, params)
+    x, entries = run_blocks(cfg, params, batch, collect=True)
+    logits = fdot(x[:, -1], head_weight(cfg, params).to(x.dtype))
+    B, S = batch["tokens"].shape
+    max_len = max(max_len, S)
+    dev = x.device
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    bf16 = torch.bfloat16
+    if cfg.family == "hybrid":
+        layers, states = [], []
+        for i, ((k, v), state) in enumerate(entries):
+            wi = (max_len if is_global_layer(cfg, i)
+                  else min(cfg.swa_window, max_len))
+            k, v, p = _pad_cache_entry(k.to(bf16), v.to(bf16), pos, wi)
+            layers.append({"k": k.contiguous(), "v": v.contiguous(),
+                           "pos": p.contiguous()})
+            states.append(state)
+        return logits, {"layers": layers, "ssm": torch.stack(states)}
+    W = _cache_width(cfg, max_len)
+    ks, vs = [], []
+    for k, v in entries:
+        k, v, p = _pad_cache_entry(k.to(bf16), v.to(bf16), pos, W)
+        ks.append(k)
+        vs.append(v)
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
+                    "pos": p.contiguous()}

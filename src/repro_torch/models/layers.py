@@ -1,0 +1,151 @@
+"""Parameter tables and elementary layers of the LM stack, in PyTorch.
+
+The port of `repro.models.layers`. Parameters live in nested dicts of
+tensors whose paths and stacked leading ``L`` axis are the reference's
+(``blocks/attn/wq`` is (L, d, H*hd) in both), so weights carry across
+unchanged (`params_from_numpy`). The logical sharding axes of the
+reference's table have no counterpart on one card and are not kept.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import device as device_lib
+from repro_torch.device import DeviceLike
+
+Initializer = str  # "normal" | "zeros" | "ones" | "embed"
+
+
+class ParamTable:
+    """Declarative parameter registry: path -> (shape, init, scale)."""
+
+    def __init__(self):
+        self.defs: Dict[str, Tuple[Tuple[int, ...], Initializer, float]] = {}
+
+    def add(self, path: str, shape: Sequence[int],
+            init: Initializer = "normal", scale: Optional[float] = None):
+        if scale is None:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            scale = 1.0 / math.sqrt(max(fan_in, 1))
+        self.defs[path] = (tuple(int(s) for s in shape), init, scale)
+
+    def init(self, gen: torch.Generator, device: DeviceLike = None,
+             dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+        """Random parameters from ``gen``, in the reference's distribution
+        (normal x 1/sqrt(fan_in); ``embed`` at its own scale; zeros and
+        ones as declared), drawn in float32 on ``gen``'s device and stored
+        in ``dtype`` on ``device`` (`repro_torch.device.resolve`: the card
+        unless ``device`` says otherwise). The numbers differ from the
+        reference's threefry draw; parity tests carry the reference's
+        weights over with `params_from_numpy`."""
+        dev = device_lib.resolve(device)
+        params: Dict[str, Any] = {}
+        for path, (shape, kind, scale) in sorted(self.defs.items()):
+            if kind == "zeros":
+                arr = torch.zeros(shape, dtype=dtype, device=dev)
+            elif kind == "ones":
+                arr = torch.ones(shape, dtype=dtype, device=dev)
+            else:
+                arr = torch.randn(shape, generator=gen, dtype=torch.float32,
+                                  device=gen.device).mul_(scale)
+                arr = arr.to(device=dev, dtype=dtype)
+            _assign(params, path, arr)
+        return params
+
+
+def _assign(tree: Dict[str, Any], path: str, value: Any) -> None:
+    parts = path.split("/")
+    for p in parts[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[parts[-1]] = value
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def params_from_numpy(tree, device: DeviceLike = None,
+                      dtype: Optional[torch.dtype] = None):
+    """The port's parameters from a tree of NumPy arrays (the reference's
+    parameters after ``np.asarray``), on ``device`` (the card unless it
+    says otherwise). ``dtype`` casts every floating leaf; None keeps each
+    leaf's own type (a bfloat16 leaf stays bfloat16)."""
+    dev = device_lib.resolve(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":        # ml_dtypes: no torch view
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))   # a writable copy
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(dev)
+    return tree_map(leaf, tree)
+
+
+# --------------------------------------------------------------------------
+# elementary ops
+# --------------------------------------------------------------------------
+
+def fdot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weight matmul with float32 accumulation, the result in x's type.
+
+    A bf16 product accumulates in float32 inside the library on both
+    devices (cuBLAS's compute type; oneDNN on the CPU) and rounds once at
+    the end, as the reference's ``preferred_element_type=float32`` does.
+    On the card that holds only with split-K reductions in float32:
+    `chip_smoke.py` sets
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    to False."""
+    return torch.matmul(x, w.to(x.dtype)).to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * gamma.float()).to(dt)
+
+
+def activation(name: str):
+    """The MLP activation; the ported families all use SiLU (Whisper's
+    GELU waits with its family)."""
+    return {"silu": F.silu}[name]
+
+
+# --------------------------------------------------------------------------
+# rotary embeddings
+# --------------------------------------------------------------------------
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> torch.Tensor:
+    """positions: (B,S) int. Returns (B,S,head_dim//2) float32. (The
+    multimodal M-RoPE of the vlm family is not ported yet.)"""
+    half = head_dim // 2
+    inv_freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                       device=positions.device) / half)
+    return positions.float()[..., None] * inv_freq
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: (B,S,H,D); angles: (B,S,D//2)."""
+    dt = x.dtype
+    x = x.float()
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(dt)

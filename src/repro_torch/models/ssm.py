@@ -1,0 +1,96 @@
+"""Selective SSM (mamba-style) head bank of the Hymba hybrid blocks.
+
+The port of `repro.models.ssm`. State: (B, H, Dh, N). Per step t (decay
+a_t in (0,1), data-dependent):
+    S_t = a_t * S_{t-1} + dt_t * x_t (outer) B_t
+    y_t = S_t @ C_t + D_h * x_t
+Prefill writes the recurrence as one diagonal scan over T = S steps and
+D = B*H*Dh*N channels and calls `kernels.ops.ssm_scan` once per layer
+(the CUDA kernel on a card); the decay is passed compact, one value per
+(batch, head) shared by that head's Dh*N channels. Decode is a single
+recurrence step in plain PyTorch.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import ParamTable
+
+
+def declare_ssm(t: ParamTable, prefix: str, cfg: ArchConfig, n_layers: int):
+    d, H = cfg.d_model, cfg.n_heads
+    Dh = cfg.resolved_head_dim
+    N, L = cfg.ssm_state, n_layers
+    t.add(f"{prefix}/in_proj", (L, d, H * Dh))
+    t.add(f"{prefix}/gate_proj", (L, d, H * Dh))
+    t.add(f"{prefix}/bc_proj", (L, d, 2 * N))
+    t.add(f"{prefix}/dt_proj", (L, d, H))
+    t.add(f"{prefix}/a_log", (L, H), init="zeros")
+    t.add(f"{prefix}/d_skip", (L, H), init="ones")
+    t.add(f"{prefix}/out_proj", (L, H * Dh, d))
+
+
+def _ssm_inputs(cfg: ArchConfig, p: Dict[str, torch.Tensor],
+                x: torch.Tensor):
+    B, S, d = x.shape
+    H, Dh, N = cfg.n_heads, cfg.resolved_head_dim, cfg.ssm_state
+    xh = (x @ p["in_proj"]).reshape(B, S, H, Dh)
+    z = (x @ p["gate_proj"]).reshape(B, S, H, Dh)
+    bc = x @ p["bc_proj"]
+    Bmat, Cmat = bc[..., :N], bc[..., N:]                 # (B,S,N)
+    dt = F.softplus(x @ p["dt_proj"])                     # (B,S,H)
+    a = torch.exp(-torch.exp(p["a_log"].float())[None, None]
+                  * dt.float())                           # (B,S,H)
+    return xh, z, Bmat, Cmat, dt, a
+
+
+def ssm_scan(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+             state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,S,d) -> (y: (B,S,d), final_state: (B,H,Dh,N) float32)."""
+    B, S, d = x.shape
+    H, Dh, N = cfg.n_heads, cfg.resolved_head_dim, cfg.ssm_state
+    xh, z, Bmat, Cmat, dt, a = _ssm_inputs(cfg, p, x)
+    if state is None:
+        state = torch.zeros((B, H, Dh, N), dtype=torch.float32,
+                            device=x.device)
+    # time-major: b_t[b,h,d,n] = (dt*x)[b,t,h,d] * B[b,t,n], rounded in x's
+    # type as the reference computes it, then float32
+    u = (dt[..., None] * xh).transpose(0, 1).contiguous()  # (S,B,H,Dh)
+    bt = Bmat.transpose(0, 1).contiguous()                 # (S,B,N)
+    contrib = u[..., None] * bt[:, :, None, None, :]
+    b_seq = contrib.float().reshape(S, B * H * Dh * N)
+    a_seq = a.transpose(0, 1).reshape(S, B * H).contiguous()
+    ys, y_final = ops.ssm_scan(a_seq, b_seq,
+                               state.reshape(-1).float().contiguous())
+    del contrib, b_seq
+    # y_t = S_t @ C_t for every step: (S,B,H*Dh,N) @ (S,B,N,1)
+    y = torch.matmul(ys.view(S, B, H * Dh, N),
+                     Cmat.transpose(0, 1).float()[..., None])
+    del ys
+    y = y.view(S, B, H, Dh).transpose(0, 1).to(x.dtype)  # (B,S,H,Dh)
+    y = y + p["d_skip"][None, None, :, None] * xh
+    y = y * F.silu(z)
+    return (y.reshape(B, S, H * Dh) @ p["out_proj"],
+            y_final.view(B, H, Dh, N))
+
+
+def ssm_decode_step(cfg: ArchConfig, p: Dict[str, torch.Tensor],
+                    x: torch.Tensor, state: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,1,d); state: (B,H,Dh,N) -> (y: (B,1,d), state')."""
+    B = x.shape[0]
+    H, Dh = cfg.n_heads, cfg.resolved_head_dim
+    xh, z, Bmat, Cmat, dt, a = _ssm_inputs(cfg, p, x)
+    contrib = (dt[:, 0, :, None] * xh[:, 0])[..., None] * \
+        Bmat[:, 0, None, None, :]
+    state = a[:, 0, :, None, None] * state + contrib.float()
+    y = torch.einsum("bhdn,bn->bhd", state, Cmat[:, 0].float())
+    y = y.to(x.dtype) + p["d_skip"][None, :, None] * xh[:, 0]
+    y = (y * F.silu(z[:, 0])).reshape(B, 1, H * Dh)
+    return y @ p["out_proj"], state

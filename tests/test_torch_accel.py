@@ -22,51 +22,13 @@ from repro_torch.core import pruning as tpruning
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# apps whose units the slices port first; k-means is held separately
-# (see DEVIATING below)
-APPS_HELD = ["sobel", "gaussian", "fir15", "dct8"]
-
-# Tables of the pruned library that differ from the JAX package's because
-# XLA on the CPU evaluates exp2 at integer arguments inexactly (exp2(15.)
-# = 32767.984) where the port computes exact powers of two; the count is
-# the measured number of differing entries over the k-means domain. The
-# port's tables are held bit-exact against a float64 NumPy evaluation of
-# the same formula instead.
-DEVIATING = {"mul8_mitchell_2": 59392, "mul8_mitchell_3": 58368,
-             "sqrt18_pwl_4": 33, "sqrt18_newton_4": 3}
+# the apps held against the reference: all five
+APPS_HELD = ["sobel", "gaussian", "fir15", "dct8", "kmeans"]
 
 
 @pytest.fixture(scope="module")
 def pruned():
     return jpruning.prune_library()[0], tpruning.prune_library()[0]
-
-
-def _ilog2_np(x):
-    return np.frexp(np.maximum(x, 1).astype(np.float64))[1] - 1
-
-
-def _float64_table(name: str, ea: int, eb: int) -> np.ndarray:
-    """The unit's formula in float64 NumPy with exact powers of two."""
-    a = np.repeat(np.arange(1 << ea, dtype=np.int64), 1 << eb)
-    b = np.tile(np.arange(1 << eb, dtype=np.int64), 1 << ea)
-    if name.startswith("mul8_mitchell_"):
-        q = float(1 << int(name[-1]))
-        za, zb = _ilog2_np(a), _ilog2_np(b)
-        fa = np.floor((a / np.ldexp(1.0, za) - 1.0) * q) / q
-        fb = np.floor((b / np.ldexp(1.0, zb) - 1.0) * q) / q
-        s = fa + fb
-        r = np.where(s < 1.0, np.ldexp(1.0, za + zb) * (1.0 + s),
-                     np.ldexp(1.0, za + zb + 1) * s)
-        return np.where((a == 0) | (b == 0), 0, r.astype(np.int32))
-    x, q = a, 16.0
-    z = _ilog2_np(x)
-    f = np.floor((x / np.ldexp(1.0, z) - 1.0) * q) / q
-    r = np.ldexp(np.where(z % 2 == 1, np.sqrt(2.0), 1.0), z // 2) * (1 + f / 2)
-    pwl = np.where(x == 0, 0, r.astype(np.int32))
-    if name == "sqrt18_pwl_4":
-        return pwl
-    r0 = np.maximum(pwl.astype(np.float64), 1.0)
-    return np.where(x == 0, 0, (0.5 * (r0 + x / r0)).astype(np.int32))
 
 
 def _domains():
@@ -81,23 +43,15 @@ def _domains():
 
 @pytest.mark.parametrize("kind,domain", _domains())
 def test_pruned_truth_tables_match(pruned, kind, domain):
-    """Bit-exact on every app's LUT domain, except the k-means tables in
-    DEVIATING: those equal the float64 formula, and differ from the JAX
-    package at exactly the measured number of entries."""
+    """Bit-exact on every app's LUT domain, the k-means tables included:
+    the port evaluates exp2/log2 as XLA on the CPU does."""
     ea, eb = domain
     jent, tent = pruned[0][kind], pruned[1][kind]
     assert [e.inst.name for e in jent] == [e.inst.name for e in tent]
     for je, te in zip(jent, tent):
         want = np.asarray(je.inst.lut(ea, eb))
         got = te.inst.lut(ea, eb).numpy()
-        name = te.inst.name
-        if name in DEVIATING:
-            np.testing.assert_array_equal(got, _float64_table(name, ea, eb))
-            if kind == "mul8" and (ea, eb) == (9, 9) or \
-                    kind == "sqrt18" and (ea, eb) == (20, 0):
-                assert int((got != want).sum()) == DEVIATING[name]
-        else:
-            np.testing.assert_array_equal(got, want, err_msg=name)
+        np.testing.assert_array_equal(got, want, err_msg=te.inst.name)
 
 
 def _addsub_operands(n: int):
@@ -140,31 +94,16 @@ def test_addsub_batched_bit_exact(kind):
 
 def test_library_metrics_and_pruning(pruned):
     """PPA identical; float32 error metrics at rtol 1e-6 (another
-    reduction order over up to 2^20 values); the DEVIATING entries'
-    metrics against float64 NumPy reductions of their own tables;
-    pruned entry names identical for all 7 kinds."""
+    reduction order over up to 2^20 values); pruned entry names identical
+    for all 7 kinds."""
     for kind in tlib.TABLE_III:
         for je, te in zip(jlib.build_library(kind), tlib.build_library(kind)):
             assert je.inst.name == te.inst.name
             for f in ("area", "power", "latency"):
                 assert getattr(te, f) == getattr(je, f)
-            if te.inst.name in DEVIATING:
-                a, b = (x.numpy() for x in tlib._char_inputs(kind))
-                exact = a * b if kind == "mul8" else np.floor(np.sqrt(a))
-                table = _float64_table(te.inst.name, te.inst.kind.width_a,
-                                       te.inst.kind.width_b)
-                idx = (a << te.inst.kind.width_b) | b
-                err = (table[idx] - exact).astype(np.float64)
-                denom = np.maximum(np.abs(exact), 1.0)
-                want = {"mae": np.abs(err).mean(),
-                        "mre": (np.abs(err) / denom).mean(),
-                        "mse": (err ** 2).mean(),
-                        "wce": (np.abs(err) / denom).max()}
-            else:
-                want = {f: getattr(je, f) for f in ("mae", "mre", "mse",
-                                                    "wce")}
-            for f, v in want.items():
-                assert getattr(te, f) == pytest.approx(v, rel=1e-6), \
+            for f in ("mae", "mre", "mse", "wce"):
+                assert getattr(te, f) == pytest.approx(getattr(je, f),
+                                                       rel=1e-6), \
                     (te.inst.name, f)
     for kind in tlib.TABLE_III:
         assert [e.inst.name for e in pruned[0][kind]] == \
