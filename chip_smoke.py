@@ -5,9 +5,13 @@ Run from the root of a checkout, on a host with a CUDA card:
     python3 chip_smoke.py
 
 It builds the four CUDA kernels from src/repro_torch/kernels/csrc (one
-nvcc per source, in parallel, into build/kernels/), holds each kernel
-against its plain PyTorch version at the main paths' shapes and times
-both with CUDA events, then drives the port's two main paths:
+nvcc per source, in parallel, into build/kernels/) and prints ptxas's
+registers, shared memory and spills of each, holds each kernel against
+its plain PyTorch version at the main paths' shapes (flash_attention also
+at Granite-20B's and Qwen2.5-32B's D = 128 prefills, ragged, full and
+D = 16/32 shapes) and times both, and the one PyTorch call that computes
+the same function where there is one, with CUDA events around a CUDA
+graph of the calls, then drives the port's two main paths:
 
 - the Gaussian accelerator: pruned library -> batched labeling of 2048
   configurations (SSIM through `lut_eval`) -> a paper-width two-stage
@@ -87,8 +91,35 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device milliseconds of ``fn`` over ``iters`` back-to-back
-    calls, from CUDA events after a warm-up."""
+    """Mean device milliseconds of ``fn`` over ``iters`` calls, from CUDA
+    events around one replay of a CUDA graph that holds the ``iters``
+    calls, after a warm-up. The graph keeps the host's cost of a launch
+    (Python, the wrapper's checks) out of the reading: issued back to
+    back, a kernel shorter than that cost would read the host's time."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def eager_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean milliseconds of ``fn`` over ``iters`` back-to-back eager
+    calls, from CUDA events: the device time, or the host's where the
+    host cannot keep up."""
     import torch
     for _ in range(warmup):
         fn()
@@ -101,6 +132,31 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled template kernel, e.g.
+    ``flash_wgmma_kernel<64>``; the mangled name if it is not one."""
+    import re
+    end = mangled.find("_kernel") + len("_kernel")
+    # the identifier is preceded by its length in digits
+    for start in range(end - len("_kernel"), 0, -1):
+        if mangled[:start].endswith(str(end - start)):
+            ident = mangled[start:end]
+            args = re.match(r"I((?:L[a-z]+\d+E)+)E", mangled[end:])
+            if args is None:
+                return ident
+            vals = re.findall(r"L[a-z]+(\d+)E", args.group(1))
+            return f"{ident}<{','.join(vals)}>"
+    return mangled
+
+
+def ptxas_report(build) -> dict:
+    """Registers, static shared memory and spill bytes of every kernel
+    this process built, from ``-Xptxas -v`` (build.NVCC_FLAGS)."""
+    return {src: {kernel_name(fn): res
+                  for fn, res in build.resources(log).items()}
+            for src, log in build.LOGS.items()}
 
 
 def bound_ms(n_bytes: float, n_flops: float, peak=PEAK_FP32_FLOPS):
@@ -157,6 +213,11 @@ def gnn_mp_phase(gen):
 
 
 def lut_eval_phase(gen):
+    """K2 on the five tables of the main paths, bit-exact at M, M + 777
+    and 1023 elements (and from a start off a 16-byte boundary), timed
+    in the form the main path calls: without b where wb = 0 (the
+    constant-coefficient column, sqrt), with b otherwise. The 17 KB
+    column is also timed with a zero b, its PR 12 form."""
     import numpy as np
     import torch
     from repro_torch.accel import library as lib
@@ -181,56 +242,90 @@ def lut_eval_phase(gen):
     rng = np.random.default_rng(0)
     rows = []
     M = 256 * 4 * 64 * 64            # one labeling chunk of one unit node
+
+    def operands(m, wb, ea, n_ent):
+        e = rng.integers(0, n_ent, m)
+        a = torch.from_numpy(((e << ea) | rng.integers(0, 1 << ea, m))
+                             .astype(np.int32)).to(dev)
+        b = torch.from_numpy(rng.integers(0, 1 << wb, m)
+                             .astype(np.int32)).to(dev)
+        return a, b
+
     for name, (table, wb, ea, n_ent) in tables.items():
         lut = table.to(dev)
+        forms = ["a", "a,b"] if wb == 0 else ["a,b"]
         for m in (M, M + 777, 1023):
-            e = rng.integers(0, n_ent, m)
-            a = torch.from_numpy(((e << ea) | rng.integers(0, 1 << ea, m))
-                                 .astype(np.int32)).to(dev)
-            b = torch.from_numpy(rng.integers(0, 1 << wb, m)
-                                 .astype(np.int32)).to(dev)
-            got = lut_eval.lut_eval(lut, a, b, wb)
-            check(torch.equal(got, ref.lut_eval_ref(lut, a, b, wb)),
-                  f"lut_eval {name} M={m} is not bit-exact")
-        e = rng.integers(0, n_ent, M)
-        a = torch.from_numpy(((e << ea) | rng.integers(0, 1 << ea, M))
-                             .astype(np.int32)).to(dev)
-        b = torch.from_numpy(rng.integers(0, 1 << wb, M)
-                             .astype(np.int32)).to(dev)
-        idx = ((a << wb) | b).long()
-        ms = cuda_ms(lambda: lut_eval.lut_eval(lut, a, b, wb), 50)
-        plain = cuda_ms(lambda: ref.lut_eval_ref(lut, a, b, wb), 50)
-        library = cuda_ms(lambda: torch.take(lut, idx), 50)
-        bnd, by = bound_ms(4 * lut.numel() + 12 * M, 0)
-        rows.append({"table": name, "table_kib": 4 * lut.numel() / 1024,
-                     "m": M, "max_abs_err": 0, "ms": ms, "plain_ms": plain,
-                     "library_ms": library, "bound_ms": bnd,
-                     "bound_by": by})
+            a, b = operands(m + 1, wb, ea, n_ent)
+            for form in forms:
+                bb = b if form == "a,b" else None
+                # a[1:] starts 4 bytes past a 16-byte boundary: the
+                # kernel's scalar path
+                for x, y in ((a[:m], None if bb is None else bb[:m]),
+                             (a[1:], None if bb is None else bb[1:])):
+                    got = lut_eval.lut_eval(lut, x, y, wb)
+                    check(torch.equal(got, ref.lut_eval_ref(lut, x, y, wb)),
+                          f"lut_eval {name} ({form}) M={m} offset "
+                          f"{x.storage_offset()} is not bit-exact")
+        a, b = operands(M, wb, ea, n_ent)
+        for form in forms:
+            bb = b if form == "a,b" else None
+            idx = ((a << wb) | b).long()
+            ms = cuda_ms(lambda: lut_eval.lut_eval(lut, a, bb, wb), 50)
+            eager = eager_ms(lambda: lut_eval.lut_eval(lut, a, bb, wb), 50)
+            plain = cuda_ms(lambda: ref.lut_eval_ref(lut, a, bb, wb), 50)
+            library = cuda_ms(lambda: torch.take(lut, idx), 50)
+            per_elem = 12 if bb is not None else 8
+            bnd, by = bound_ms(4 * lut.numel() + per_elem * M, 0)
+            rows.append({"table": name, "form": form,
+                         "path": lut_eval.path(4 * lut.numel()),
+                         "table_kib": 4 * lut.numel() / 1024, "m": M,
+                         "max_abs_err": 0, "ms": ms, "eager_ms": eager,
+                         "plain_ms": plain, "library_ms": library,
+                         "bound_ms": bnd,
+                         "bound_by": by,
+                         "gb_per_s": (4 * lut.numel() + per_elem * M)
+                         / ms / 1e6})
     return rows
 
 
-def flash_attention_phase(gen):
-    """K3 at the LM slice's prefill shape (model-layout (B,S,H,D) tensors
-    read in place), the ragged S = 1025, and one float32 case."""
+# K3's shapes: (label, B, H, KV, S, D, dtype, causal). The first is the
+# Hymba-1.5B prefill (the kernels line reports it); the D = 128 rows are
+# Granite-20B (MQA) and Qwen2.5-32B (GQA) prefills of 1024 tokens.
+FA_SHAPES = [
+    ("hymba_prefill", 8, 25, 5, 1024, 64, "bfloat16", True),
+    ("hymba_ragged_1025", 8, 25, 5, 1025, 64, "bfloat16", True),
+    ("hymba_float32", 8, 25, 5, 1024, 64, "float32", True),
+    ("granite20b_mqa_d128", 2, 48, 1, 1024, 128, "bfloat16", True),
+    ("qwen2.5_32b_gqa_d128", 2, 40, 8, 1024, 128, "bfloat16", True),
+    ("hymba_ragged_1000", 8, 25, 5, 1000, 64, "bfloat16", True),
+    ("full_d128_s200", 8, 40, 8, 200, 128, "bfloat16", False),
+    ("d32_s333", 4, 8, 2, 333, 32, "bfloat16", True),
+    ("d16_s77", 4, 4, 2, 77, 16, "bfloat16", True),
+]
+
+
+def flash_attention_phase(gen, shapes=FA_SHAPES):
+    """K3 against its plain version and SDPA on model-layout (B,S,H,D)
+    tensors read in place: bf16 at the per-element and per-row bars,
+    float32 at FA_F32_TOL."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     dev = torch.device("cuda")
     rows = []
-    B, H, KV, D = 8, 25, 5, 64
-    for S, dt in [(1024, torch.bfloat16), (1025, torch.bfloat16),
-                  (1024, torch.float32)]:
+    for label, B, H, KV, S, D, dt, causal in shapes:
+        dt = getattr(torch, dt)
         q, k, v = (torch.randn(B, S, n, D, device=dev, generator=gen).to(dt)
                    .transpose(1, 2) for n in (H, KV, KV))
-        got = fa.flash_attention(q, k, v, causal=True).float()
-        want = ref.flash_attention_ref(q, k, v, causal=True).float()
+        got = fa.flash_attention(q, k, v, causal=causal).float()
+        want = ref.flash_attention_ref(q, k, v, causal=causal).float()
         err = (got - want).abs()
         acc = {"max_abs_err": float(err.max())}
         if dt == torch.bfloat16:
             # sum_i p_i |v_i| for every output, in float32
             p_abs_v = ref.flash_attention_ref(q.float(), k.float(),
-                                              v.float().abs(), causal=True)
+                                              v.float().abs(), causal=causal)
             acc["err_over_p_abs_v"] = float(
                 (err / p_abs_v.clamp_min(1e-30)).max())
             acc["row_rel_l2"] = float(
@@ -240,23 +335,25 @@ def flash_attention_phase(gen):
             del p_abs_v
         else:
             ok = torch.allclose(got, want, rtol=FA_F32_TOL, atol=FA_F32_TOL)
-        check(ok, f"flash_attention {B}x{H}x{S}x{D} {dt} disagrees with "
-              f"its plain version: {acc}")
+        check(ok, f"flash_attention {label} {B}x{H}/{KV}x{S}x{D} {dt} "
+              f"disagrees with its plain version: {acc}")
         del got, want, err
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20)
-        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True),
-                        5)
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 20)
+        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                        causal=causal), 5)
         library = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 20)
-        # causal: S(S+1)/2 query-key pairs, 2 products of 2D FLOP each
-        flops = 4 * B * H * D * S * (S + 1) / 2
+            q, k, v, is_causal=causal, enable_gqa=True), 20)
+        # query-key pairs (causal: S(S+1)/2), 2 products of 2D FLOP each
+        pairs = S * (S + 1) / 2 if causal else S * S
+        flops = 4 * B * H * D * pairs
         nbytes = q.element_size() * (2 * B * H * S * D + 2 * B * KV * S * D)
         peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
         bnd, by = bound_ms(nbytes, flops, peak)
-        rows.append({"shape": [B, H, KV, S, D], "dtype": str(dt), **acc,
-                     "ms": ms,
+        rows.append({"label": label, "shape": [B, H, KV, S, D],
+                     "dtype": str(dt), "causal": causal, **acc, "ms": ms,
                      "plain_ms": plain, "library_ms": library,
-                     "bound_ms": bnd, "bound_by": by, "gflop": flops / 1e9})
+                     "bound_ms": bnd, "bound_by": by, "gflop": flops / 1e9,
+                     "tflop_per_s": flops / ms / 1e9})
     return rows
 
 
@@ -737,6 +834,7 @@ def main() -> int:
     built = build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
           f"{ {k: round(v, 1) for k, v in built.items()} }", flush=True)
+    print("ptxas " + json.dumps(ptxas_report(build)), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     gnn_rows = gnn_mp_phase(gen)

@@ -484,15 +484,13 @@ class _LutUnit:
                 guards.append((tag, self.kind.name, ea, eb,
                                _excess(a, ea), zero))
                 flat = af.reshape(-1)
-                out = kernel_ops.lut_eval(self.table, flat,
-                                          torch.zeros_like(flat), 0)
+                out = kernel_ops.lut_eval(self.table, flat)
                 return out.view(af.shape)
             if not torch.is_tensor(b) and 0 <= b < (1 << eb):
                 guards.append((tag, self.kind.name, ea, eb,
                                _excess(a, ea), zero))
                 flat = af.reshape(-1)
-                out = kernel_ops.lut_eval(self.column(b), flat,
-                                          torch.zeros_like(flat), 0)
+                out = kernel_ops.lut_eval(self.column(b), flat)
                 return out.view(af.shape)
             if not torch.is_tensor(b):
                 b = torch.full_like(a, b)

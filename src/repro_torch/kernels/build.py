@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,11 +25,14 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"gnn_mp": "gnn_mp.cu", "lut_eval": "lut_eval.cu",
            "flash_attention": "flash_attention.cu",
            "ssm_scan": "ssm_scan.cu"}
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+# spills (kept in LOGS, read by `resources`)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+LOGS: Dict[str, str] = {}      # nvcc's output of each build in this process
 
 
 class LaunchCounter:
@@ -99,6 +103,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            LOGS[name] = log
             os.replace(tmp, target)
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
@@ -116,3 +121,29 @@ def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
             declare(lib)
             _libs[name] = lib
         return lib
+
+
+def resources(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel function of a ``-Xptxas -v`` log: registers, shared
+    memory (static) and spill bytes. Mangled names are kept."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[fn]["spill_stores"] = int(m.group(1))
+            out[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[fn]["smem_static"] = int(sm.group(1)) if sm else 0
+    return out

@@ -3,56 +3,167 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/lut_eval.py::lut_eval
 // (body `_kernel`): the int32 gather out[i] = lut[(a[i] << wb) | b[i]],
 // where the batched functional model folds each configuration's library
-// choice into a as (entry << ea) | a.
+// choice into a as (entry << ea) | a. Without b (the caller passes none
+// for a constant-coefficient column or a one-operand unit, wb = 0) the
+// index is a[i] and no b is read.
 //
-// Bound on an H100: device-memory bytes. Each element reads a and b and
-// writes out, 12 bytes, and does no arithmetic to speak of, so the floor
-// is 12 bytes x M over 3.35 TB/s plus one read of the table. The TPU
-// kernel kept the whole table in VMEM; here the table is read through the
-// read-only path (__ldg): the small tables (17 KB constant-coefficient
-// columns, 278 KB full mul8x4) stay in L1/L2 after first touch, and the
-// largest (k-means' 24 MB sqrt18 stack) still fits the 50 MB L2. A
-// grid-stride loop with a masked tail replaces the reference's padding of
-// the ragged last block. An index outside the table is wrapped once if
-// negative and then clamped, exactly as the plain version does, so an
-// operand outside the table's domain never reads outside the table (the
-// caller's domain guard reports it). A shared-memory variant for small
-// tables is later work.
+// Bound on an H100: device-memory bytes. Each element reads a (and b)
+// and writes out, 8 (12) bytes, and does no arithmetic to speak of, so
+// the floor is those bytes x M over 3.35 TB/s plus one read of the table.
+// The TPU kernel kept the whole table in VMEM. Here the wrapper picks one
+// of two paths by the table's size:
+//  - a small table (up to its threshold: the 17 KB constant-coefficient
+//    columns) is staged into shared memory once per block of a
+//    persistent grid (a few blocks an SM walk all of M), so it is fetched
+//    a few hundred times, not once per 256 elements, and its gathers cost
+//    no cache traffic. Every thread loads a (and b) 16 bytes at a time,
+//    two such vectors a step, so 8 independent gathers are in flight, and
+//    stores 16 bytes at a time; a scalar tail takes the last M % 4
+//    elements, and a start off a 16-byte boundary the scalar loop
+//    throughout;
+//  - a larger table (272 KiB to 24 MiB, in L2 after first touch: the
+//    24 MiB sqrt18 stack fits the 50 MB) is gathered through the
+//    read-only path, one element a thread over a grid that covers M. The
+//    vector form of the small-table path measured slower here than one
+//    gather a thread: the limit is L2's random 32-byte sector reads,
+//    which more threads keep busier than more gathers a thread.
+// a, b and out are streamed (evict-first) on both paths, so they do not
+// push the table out of the caches. An index outside the table is
+// wrapped once if negative and then clamped, exactly as the plain version
+// does, so an operand outside the table's domain never reads outside the
+// table (the caller's domain guard reports it).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;   // 16 blocks per SM on an H100
+constexpr int kThreads = 512;
+constexpr int kUnroll = 2;             // 16-byte vectors per thread a step
 
+__device__ __forceinline__ int lookup(const int* tab, int n, int key,
+                                      bool shared) {
+  int idx = key < 0 ? key + n : key;
+  idx = idx < 0 ? 0 : (idx >= n ? n - 1 : idx);
+  return shared ? tab[idx] : __ldg(tab + idx);
+}
+
+// int32 arithmetic with wraparound, as torch's and XLA's << and | do
+__device__ __forceinline__ int make_key(int a, int b, int wb) {
+  return (int)(((unsigned)a << wb) | (unsigned)b);
+}
+
+// The table in shared memory; n_vec 16-byte vectors, then the scalar tail.
+template <bool kHasB>
 __global__ void __launch_bounds__(kThreads)
-lut_eval_kernel(const int* __restrict__ lut, long long n_lut,
-                const int* __restrict__ a, const int* __restrict__ b,
-                int* __restrict__ out, long long m, int wb) {
+lut_shared_kernel(const int* __restrict__ lut, int n_lut,
+                  const int* __restrict__ a, const int* __restrict__ b,
+                  int* __restrict__ out, long long m, int wb,
+                  long long n_vec) {
+  extern __shared__ int tab[];
+  for (int i = threadIdx.x; i < n_lut; i += kThreads) tab[i] = __ldg(lut + i);
+  __syncthreads();
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < m;
-       i += stride) {
-    // int32 arithmetic with wraparound, as torch's and XLA's << and | do
-    const int key = (int)(((unsigned)__ldg(a + i) << wb) |
-                          (unsigned)__ldg(b + i));
-    long long idx = key < 0 ? key + n_lut : key;
-    idx = idx < 0 ? 0 : (idx >= n_lut ? n_lut - 1 : idx);
-    out[i] = __ldg(lut + idx);
+
+  const int4* a4 = reinterpret_cast<const int4*>(a);
+  const int4* b4 = reinterpret_cast<const int4*>(b);
+  int4* o4 = reinterpret_cast<int4*>(out);
+  for (long long i = tid; i < n_vec; i += kUnroll * stride) {
+    int4 x[kUnroll], y[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long j = i + u * stride;
+      x[u] = j < n_vec ? __ldcs(a4 + j) : make_int4(0, 0, 0, 0);
+      y[u] = (kHasB && j < n_vec) ? __ldcs(b4 + j) : make_int4(0, 0, 0, 0);
+    }
+    int4 r[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      r[u].x = lookup(tab, n_lut, make_key(x[u].x, y[u].x, wb), true);
+      r[u].y = lookup(tab, n_lut, make_key(x[u].y, y[u].y, wb), true);
+      r[u].z = lookup(tab, n_lut, make_key(x[u].z, y[u].z, wb), true);
+      r[u].w = lookup(tab, n_lut, make_key(x[u].w, y[u].w, wb), true);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (i + u * stride < n_vec) __stcs(o4 + i + u * stride, r[u]);
   }
+  for (long long e = 4 * n_vec + tid; e < m; e += stride)
+    out[e] = lookup(tab, n_lut, make_key(a[e], kHasB ? b[e] : 0, wb), true);
+}
+
+// The table through the read-only path: one element a thread.
+template <bool kHasB>
+__global__ void __launch_bounds__(kThreads)
+lut_global_kernel(const int* __restrict__ lut, int n_lut,
+                  const int* __restrict__ a, const int* __restrict__ b,
+                  int* __restrict__ out, long long m, int wb) {
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= m) return;
+  const int key = make_key(__ldcs(a + e), kHasB ? __ldcs(b + e) : 0, wb);
+  __stcs(out + e, lookup(lut, n_lut, key, false));
+}
+
+template <bool kHasB>
+int launch_shared(const int* lut, int n_lut, const int* a, const int* b,
+                  int* out, long long m, int wb, cudaStream_t stream) {
+  auto kernel = lut_shared_kernel<kHasB>;
+  const int smem = n_lut * (int)sizeof(int);
+  // the occupancy of the last table size and the SM count, kept: the
+  // queries cost host time on every launch otherwise
+  static int last_smem = -1, per_sm = 0, sms = 0;
+  if (smem != last_smem) {
+    int device = 0;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                  smem);
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    last_smem = smem;
+  }
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // 16-byte vectors need a, b and out on 16-byte boundaries (a fresh
+  // tensor is; a view may start anywhere)
+  const bool vec = ((reinterpret_cast<uintptr_t>(a) |
+                     reinterpret_cast<uintptr_t>(b) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const long long n_vec = vec ? m / 4 : 0;
+  // persistent: every block that fits at once, no more than the work
+  long long blocks = (long long)sms * per_sm;
+  const long long work = ((n_vec > 0 ? n_vec : m) + kThreads - 1) / kThreads;
+  if (blocks > work) blocks = work;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(lut, n_lut, a, b, out,
+                                                       m, wb, n_vec);
+  return (int)cudaGetLastError();
+}
+
+template <bool kHasB>
+int launch_global(const int* lut, int n_lut, const int* a, const int* b,
+                  int* out, long long m, int wb, cudaStream_t stream) {
+  const long long blocks = (m + kThreads - 1) / kThreads;
+  lut_global_kernel<kHasB><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      lut, n_lut, a, b, out, m, wb);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the gather on `stream`; returns cudaGetLastError() (0 = launched).
-// The caller validates contiguous int32 tensors, n_lut >= 1 and 0 <= wb < 31.
+// Launches the gather on `stream`; returns cudaGetLastError() (0 =
+// launched). b may be null (then wb is 0 and the index is a). `staged`
+// copies the table into shared memory per block; the caller picks it for
+// tables that fit. The caller validates contiguous int32 tensors,
+// 1 <= n_lut < 2^31, M < 2^40 and 0 <= wb < 31.
 extern "C" int lut_eval_launch(const int* lut, long long n_lut, const int* a,
                                const int* b, int* out, long long m, int wb,
-                               void* stream) {
+                               int staged, void* stream) {
   if (m <= 0) return 0;
-  long long blocks = (m + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  lut_eval_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      lut, n_lut, a, b, out, m, wb);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n = (int)n_lut;
+  if (b == nullptr)
+    return staged ? launch_shared<false>(lut, n, a, b, out, m, wb, s)
+                  : launch_global<false>(lut, n, a, b, out, m, wb, s);
+  return staged ? launch_shared<true>(lut, n, a, b, out, m, wb, s)
+                : launch_global<true>(lut, n, a, b, out, m, wb, s);
 }

@@ -21,8 +21,9 @@ def gnn_mp(adj, h, w_self, w_nbr, b):
     return _mp.gnn_mp(adj, h, w_self, w_nbr, b)
 
 
-def lut_eval(lut, a, b, wb: int):
-    """int32 gather ``lut[(a << wb) | b]`` over 1-D a, b."""
+def lut_eval(lut, a, b=None, wb: int = 0):
+    """int32 gather ``lut[(a << wb) | b]`` over 1-D a, b; ``lut[a]``
+    when b is None (wb must be 0)."""
     if a.device.type == "cpu":
         return ref.lut_eval_ref(lut, a, b, wb)
     return _lut.lut_eval(lut, a, b, wb)

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.lut_eval import check_b
+
 
 def gnn_mp_ref(adj, h, w_self, w_nbr, b):
     """Fused GNN message passing: relu(A @ (H @ Wn) + H @ Ws + b).
@@ -13,15 +15,17 @@ def gnn_mp_ref(adj, h, w_self, w_nbr, b):
     return torch.relu(adj @ (h @ w_nbr) + h @ w_self + b)
 
 
-def lut_eval_ref(lut, a, b, wb: int):
-    """int32 gather ``lut[(a << wb) | b]``.
+def lut_eval_ref(lut, a, b=None, wb: int = 0):
+    """int32 gather ``lut[(a << wb) | b]``; b None stands for b = 0 and
+    needs wb == 0 (the index is a).
 
     A negative index counts from the end of the table and an index still
     out of range is clamped, so an operand outside the table's domain never
     reads outside the table (the CUDA kernel does the same; the apps'
     domain guard reports such operands)."""
+    check_b(b, wb)
     n = lut.shape[0]
-    idx = (a << wb) | b
+    idx = a if b is None else (a << wb) | b
     idx = torch.where(idx < 0, idx + n, idx).clamp_(0, n - 1)
     return lut[idx.long()]
 

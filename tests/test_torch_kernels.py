@@ -128,4 +128,66 @@ def test_cuda_kernels_match_plain_versions():
         b = torch.from_numpy(rng.integers(0, 1 << wb, M).astype(np.int32))
         got = lut_eval_kernel.lut_eval(lut.to(dev), a.to(dev), b.to(dev), wb)
         assert torch.equal(got.cpu(), ref.lut_eval_ref(lut, a, b, wb))
+        if wb == 0:   # no b: both paths, a start off a 16-byte boundary
+            for x in (a, a[1:]):
+                got = lut_eval_kernel.lut_eval(lut.to(dev), x.to(dev))
+                assert torch.equal(got.cpu(), ref.lut_eval_ref(lut, x))
     torch.cuda.synchronize()
+
+
+# the five tables of the main paths: (kind, ea, eb, column of a
+# constant coefficient or None) -- Gaussian's mul8x4 column and full
+# (8, 4) table, DCT-8's (13, 4), k-means' mul8 (9, 9) and sqrt18 (20, 0);
+# two library instances stacked, as `library.stacked_lut` stacks them
+LUT_TABLES = [("mul8x4", 8, 4, 4), ("mul8x4", 8, 4, None),
+              ("mul8x4", 13, 4, None), ("mul8", 9, 9, None),
+              ("sqrt18", 20, 0, None)]
+
+
+@pytest.mark.parametrize("kind,ea,eb,column", LUT_TABLES)
+def test_lut_eval_ref_without_b_matches_pallas_with_zero_b(kind, ea, eb,
+                                                           column):
+    """``lut_eval_ref(lut, a, None, 0)`` against the reference kernel fed
+    a zero b (wb = 0), as the port's callers passed it before: bit-exact
+    over the whole table, a ragged M."""
+    import jax.numpy as jnp
+    from repro.accel import library as jlib
+    from repro.kernels import lut_eval as pallas_lut
+    lut = np.concatenate([np.asarray(inst.lut(ea, eb))
+                          for inst in jlib.instances(kind)[:2]])
+    if column is not None:
+        lut = np.ascontiguousarray(lut.reshape(-1, 1 << eb)[:, column])
+    rng = np.random.default_rng(lut.shape[0])
+    M = 4096 + 77
+    a = rng.integers(0, lut.shape[0], M).astype(np.int32)
+    want = np.asarray(pallas_lut.lut_eval(
+        jnp.asarray(lut), jnp.asarray(a), jnp.zeros(M, jnp.int32), wb=0,
+        block=1024, interpret=True))
+    got = ref.lut_eval_ref(torch.from_numpy(lut), torch.from_numpy(a),
+                           None, 0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(ops.lut_eval(torch.from_numpy(lut),
+                                    torch.from_numpy(a)), got)
+
+
+@pytest.mark.parametrize("table_bytes,path", [
+    (17 * 256 * 4, "shared"),                    # Gaussian's column
+    (lut_eval_kernel.STAGE_MAX_BYTES, "shared"),
+    (lut_eval_kernel.STAGE_MAX_BYTES + 4, "global"),
+    (17 << 14, "global"),                        # Gaussian's (8, 4), 272 KiB
+    (6 << 22, "global")])                        # k-means' sqrt18, 24 MiB
+def test_lut_eval_path_by_table_bytes(table_bytes, path):
+    """Small tables are staged in shared memory, the rest read through
+    the caches; a block's shared memory holds the largest staged one."""
+    assert lut_eval_kernel.path(table_bytes) == path
+    assert lut_eval_kernel.STAGE_MAX_BYTES <= 232448
+
+
+def test_lut_eval_refuses_no_b_with_b_bits():
+    """b=None stands for b = 0 and only means that with wb == 0."""
+    x = torch.zeros(4, dtype=torch.int32)
+    for fn in (lut_eval_kernel.lut_eval, ops.lut_eval, ref.lut_eval_ref):
+        with pytest.raises(ValueError, match="wb"):
+            fn(x, x, None, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        lut_eval_kernel.lut_eval(x, x)

@@ -136,6 +136,40 @@ def test_lm_kernel_wrappers_refuse_cpu_tensors():
         scan_kernel.ssm_scan(a, b, y0)
 
 
+@pytest.mark.parametrize("D", fa_kernel.HEAD_DIMS)
+def test_flash_attention_launch_plan_fits_the_card(D):
+    """The bf16 kernel's plan for every head dim: its shared memory (two
+    Q buffers, the K/V ring, the barriers, alignment slack) fits one
+    block; both products are legal wgmma shapes (M = 64, N a multiple of
+    8 up to 256, K = 16); a TMA box is at most one swizzle span wide (128
+    bytes at most) and the boxes cover D."""
+    plan = fa_kernel.plan(D)
+    assert plan.head_dim == D
+    assert plan.smem_bytes <= fa_kernel.SMEM_PER_BLOCK
+    assert plan.smem_bytes >= (1024 + plan.q_buffers * plan.bq * D * 2
+                               + 2 * plan.stages * plan.bk * D * 2
+                               + 8 * (2 * plan.q_buffers + 3 * plan.stages))
+    assert plan.q_buffers >= 1
+    assert plan.stages >= 2
+    for m_, n_, k_ in (plan.qk_wgmma, plan.pv_wgmma):
+        assert (m_, k_) == (64, 16) and n_ % 8 == 0 and 8 <= n_ <= 256
+    assert plan.qk_wgmma[1] == plan.bk and plan.pv_wgmma[1] == D
+    assert plan.warpgroups in (2, 3)
+    assert plan.bq == 64 * plan.warpgroups
+    assert plan.threads == 128 * plan.warpgroups + 128
+    assert plan.swizzle in fa_kernel.SWIZZLE_SPANS
+    assert plan.box_cols * 2 == plan.swizzle <= 128
+    assert plan.box_cols * plan.boxes == D and plan.box_cols % 16 == 0
+    assert plan.launch_args() == (plan.bq, plan.bk, plan.stages,
+                                  plan.threads, plan.smem_bytes)
+
+
+def test_flash_attention_plan_refuses_other_head_dims():
+    for D in (8, 48, 96, 256):
+        with pytest.raises(ValueError, match="head dim"):
+            fa_kernel.plan(D)
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
@@ -157,6 +191,8 @@ def test_cuda_flash_attention_matches_plain_version():
             (2, 25, 5, 1024, 64, torch.bfloat16, True),
             (2, 25, 5, 1025, 64, torch.bfloat16, True),
             (2, 4, 2, 200, 128, torch.bfloat16, False),
+            (2, 8, 1, 300, 128, torch.bfloat16, True),
+            (1, 8, 2, 333, 32, torch.bfloat16, True),
             (1, 4, 2, 77, 16, torch.bfloat16, True),
             (2, 25, 5, 300, 64, torch.float32, True),
             (1, 4, 1, 33, 32, torch.float32, False)]:
