@@ -47,8 +47,9 @@ ROOT = Path(__file__).resolve().parent
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
-GNN_TOL = 1e-4          # fp32 against cuBLAS fp32: another summation order
+GNN_TOL = 1e-4          # 3xTF32 against cuBLAS fp32: another summation order
 PARITY_ATOL = 2e-3      # the reference engine's kernel-vs-plain bar
 # the slice: Gaussian, paper-width GNN (Sec IV-A: 5 layers, hidden 300)
 N_SAMPLES, N_LAYERS, HIDDEN, CHUNK = 2048, 5, 300, 512
@@ -159,6 +160,35 @@ def ptxas_report(build) -> dict:
             for src, log in build.LOGS.items()}
 
 
+def sass_report(build) -> dict:
+    """Count of tensor-core instructions (HMMA, HGMMA) in each kernel
+    function's SASS, from cuobjdump beside nvcc; "not measured" where the
+    toolkit has none."""
+    import re
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return {"cuobjdump": "not measured: the toolkit has no cuobjdump"}
+    out = {}
+    for name in build.LOGS:
+        sass = subprocess.run([str(tool), "-sass",
+                               str(build.library_path(name))],
+                              capture_output=True, text=True).stdout
+        fns = {}
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = kernel_name(m.group(1))
+                fns[fn] = {"HMMA": 0, "HGMMA": 0}
+            elif fn is not None:
+                for op in ("HGMMA", "HMMA"):
+                    if re.search(rf"\b{op}\.", line):
+                        fns[fn][op] += 1
+                        break
+        out[name] = fns
+    return out
+
+
 def bound_ms(n_bytes: float, n_flops: float, peak=PEAK_FP32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_flops / peak * 1e3
@@ -181,15 +211,30 @@ def check(cond: bool, what: str) -> None:
 # kernel phases
 # --------------------------------------------------------------------------
 
+# K1's shapes: (B, N, F, Fo, scale of H). The first three are the
+# Gaussian engine's (the first layer, the hidden layers, a ragged chunk);
+# then N = 21, which does not divide the block's 64 rows, one graph of 64
+# a block, F = 1 with Fo = 8, and H x 1e3, where the lo terms of 3xTF32
+# decide the result.
+GNN_SHAPES = [(512, 32, 27, 300, 1.0), (512, 32, 300, 300, 1.0),
+              (37, 32, 300, 300, 1.0), (64, 21, 27, 300, 1.0),
+              (16, 64, 300, 300, 1.0), (40, 32, 1, 8, 1.0),
+              (512, 32, 300, 300, 1e3)]
+
+
 def gnn_mp_phase(gen):
+    """K1 against its fp32 plain version (cuBLAS, TF32 off) at GNN_TOL,
+    with the adjacency shared and batched. At H x s the bar is GNN_TOL in
+    units of s (both sides divided by s): the plain fp32 version itself
+    misses an absolute 1e-4 there against float64. Each row also reports
+    the kernel's and the plain version's error against float64."""
     import torch
     from repro_torch.kernels import gnn_mp, ref
     dev = torch.device("cuda")
     rows = []
-    for B, N, F, Fo in [(512, 32, 27, 300), (512, 32, 300, 300),
-                        (37, 32, 300, 300)]:
+    for B, N, F, Fo, scale in GNN_SHAPES:
         adj = torch.rand(N, N, device=dev, generator=gen)
-        h = torch.randn(B, N, F, device=dev, generator=gen)
+        h = torch.randn(B, N, F, device=dev, generator=gen) * scale
         ws = torch.randn(F, Fo, device=dev, generator=gen) * F ** -0.5
         wn = torch.randn(F, Fo, device=dev, generator=gen) * F ** -0.5
         b = torch.randn(Fo, device=dev, generator=gen) * 0.1
@@ -198,16 +243,28 @@ def gnn_mp_phase(gen):
             got = gnn_mp.gnn_mp(a, h, ws, wn, b)
             want = ref.gnn_mp_ref(a, h, ws, wn, b)
             torch.cuda.synchronize()
-            check(torch.allclose(got, want, rtol=GNN_TOL, atol=GNN_TOL),
-                  f"gnn_mp {B}x{N}x{F}->{Fo} disagrees with gnn_mp_ref")
+            check(torch.allclose(got / scale, want / scale, rtol=GNN_TOL,
+                                 atol=GNN_TOL),
+                  f"gnn_mp {B}x{N}x{F}->{Fo} (H x {scale:g}) disagrees with "
+                  f"gnn_mp_ref")
             err = max(err, float((got - want).abs().max()))
+        exact = ref.gnn_mp_ref(*(t.double() for t in (adj, h, ws, wn, b)))
+        f64_err = float((got.double() - exact).abs().max())
+        plain_f64_err = float((want.double() - exact).abs().max())
+        del got, want, exact
         ms = cuda_ms(lambda: gnn_mp.gnn_mp(adj, h, ws, wn, b), 20)
         plain = cuda_ms(lambda: ref.gnn_mp_ref(adj, h, ws, wn, b), 20)
         flops = 2 * B * N * F * Fo * 2 + 2 * B * N * N * Fo
         nbytes = 4 * (N * N + B * N * F + 2 * F * Fo + Fo + B * N * Fo)
-        bnd, by = bound_ms(nbytes, flops)
-        rows.append({"shape": [B, N, F, Fo], "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+        # on the TF32 tensor cores, each product issued three times
+        bnd, by = bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+        rows.append({"shape": [B, N, F, Fo], "h_scale": scale,
+                     "max_abs_err": err, "f64_err": f64_err,
+                     "plain_f64_err": plain_f64_err, "ms": ms,
+                     "plain_ms": plain, "bound_ms": bnd,
+                     "bound_by": "operations (3xTF32)"
+                     if by == "operations" else by,
+                     "fp32_simt_bound_ms": bound_ms(nbytes, flops)[0],
                      "gflop": flops / 1e9})
     return rows
 
@@ -428,7 +485,8 @@ def slice_phase(card: str, dev):
           f"engine backend {eng.backend}")
 
     known = set(ds.configs)
-    pool = [c for c in dataset.sample_configs(ctx.app, 4096, seed=1,
+    # the first 4096 draws are those of a sample of 4096 (same seed)
+    pool = [c for c in dataset.sample_configs(ctx.app, 5000, seed=1,
                                               lib_entries=ctx.entries)
             if c not in known]
     blocks = [pool[0:512], pool[512:1024], pool[1024:1536]]
@@ -510,6 +568,14 @@ def slice_phase(card: str, dev):
     eng.pipeline.collect(handle)
     phases["collect_ms"] = (time.perf_counter() - t) * 1e3
     report["fresh_chunk_breakdown"] = phases
+    # where one warm fresh chunk's device time goes, and how long the
+    # device idles in it (a request of 512 configurations the engine has
+    # not seen)
+    C = pool[2786 + CHUNK:2786 + 2 * CHUNK]
+    check(len(C) == CHUNK, "not enough fresh configurations")
+    if dev.type == "cuda":
+        report["fresh_chunk_device_profile"] = device_profile(
+            lambda: eng(C))
 
     # -- is it right? -------------------------------------------------------
     for key, r in list(rows.items()) + [("wave", np.concatenate(wave_rows))]:
@@ -574,7 +640,9 @@ def within(a, b, rtol: float, atol: float) -> bool:
                                atol=atol))
 
 
-KIND_OF_KERNEL = (  # device time of a prefill, by what the kernel does
+KIND_OF_KERNEL = (  # device time of a call, by what the kernel does
+    ("gnn_mp", ("gnn_mp",)),
+    ("lut_eval", ("lut_",)),
     ("flash_attention", ("flash_",)),
     ("ssm_scan", ("ssm_scan",)),
     ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass")),
@@ -584,7 +652,7 @@ KIND_OF_KERNEL = (  # device time of a prefill, by what the kernel does
 
 def device_profile(fn) -> dict:
     """Device time of one call of ``fn`` from torch.profiler: the busy
-    share of the call's wall time, the time by kind of kernel (K3, K4,
+    share of the call's wall time, the time by kind of kernel (K1-K4,
     matrix products, copies, the rest) and the kernels that take the
     most. A profiler that records no device activity is reported, not
     fatal: it measures, it checks nothing."""
@@ -835,6 +903,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
           f"{ {k: round(v, 1) for k, v in built.items()} }", flush=True)
     print("ptxas " + json.dumps(ptxas_report(build)), flush=True)
+    print("sass " + json.dumps(sass_report(build)), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     gnn_rows = gnn_mp_phase(gen)
@@ -859,7 +928,11 @@ def main() -> int:
          "replaces": "src/repro/kernels/gnn_mp.py:43",
          "launches": launches["gnn_mp"], "max_abs_err": g["max_abs_err"],
          "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
-         "bound_by": g["bound_by"], "library_ms": None},
+         # the bound on the TF32 tensor cores, each product issued three
+         # times (3xTF32); the fp32 SIMT units' bound beside it
+         "bound_by": g["bound_by"].split()[0],
+         "bound_basis": "TF32 tensor cores, 3 products each (3xTF32)",
+         "fp32_simt_bound_ms": g["fp32_simt_bound_ms"], "library_ms": None},
         {"name": "lut_eval", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lut_eval.cu",
          "replaces": "src/repro/kernels/lut_eval.py:28",

@@ -4,6 +4,7 @@ Run from the root of a checkout, on a host with a CUDA card:
 
     python3 scripts/kernel_variants.py flash_attention
     python3 scripts/kernel_variants.py lut_eval
+    python3 scripts/kernel_variants.py gnn_mp
 
 ``flash_attention`` builds the kernel's source as it is and in variants
 with parts taken out (the K/V loads, the exp2 of the softmax, the
@@ -14,7 +15,11 @@ with a part taken out computes a wrong result; the line reports its
 error and times it all the same. ``lut_eval`` times both of the kernel's
 paths (the table staged in shared memory, the table read through the
 caches) at tables from 17 KiB to 8.5 MiB beside torch.take, by moving the
-wrapper's staging threshold. Times are CUDA events around a CUDA graph
+wrapper's staging threshold. ``gnn_mp`` builds K1 as it is, without the
+small terms of 3xTF32 (one TF32 product), without the aggregation
+epilogue, with no products at all (the staging ring and the stores), and
+with other tile shapes, warp counts and ring depths, and times each at
+chip_smoke.py's main-path shapes beside the plain version. Times are CUDA events around a CUDA graph
 of the calls (chip_smoke.cuda_ms); one JSON line a variant or table.
 """
 from __future__ import annotations
@@ -66,6 +71,31 @@ FA_VARIANTS = {
     "loads_only": [*_SOFTMAX, *_PRODUCTS],
     "skeleton": [_KV_LOADS, *_SOFTMAX, *_PRODUCTS],
     "skeleton_no_stores": [_KV_LOADS, *_SOFTMAX, *_PRODUCTS, _STORES],
+}
+
+
+# (old, new) substitutions on csrc/gnn_mp.cu
+_LO_TERMS = [("      mma_tf32(small[i][j], al[i], bh[j]);\n", ""),
+             ("    for (int j = 0; j < kNT; ++j) mma_tf32(small[i][j], ah[i], "
+              "bl[j]);", "    for (int j = 0; j < kNT; ++j) {}")]
+_MMA = [("  asm(\"mma.sync.aligned.m16n8k8", "  if (0) asm(\"mma.sync.aligned.m16n8k8")]
+_EPILOGUE = [("  if (wr < rows) {", "  if (false) {")]
+
+
+def _const(name, old, new):
+    return [(f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")]
+
+
+GNN_VARIANTS = {
+    "kernel": [],
+    "no_lo_terms": _LO_TERMS,
+    "no_epilogue": _EPILOGUE,
+    "no_products": _MMA,
+    "cols128_warps8": _const("kCols", 64, 128) + _const("kWarpsN", 2, 4),
+    "warps8_16x32": _const("kWarpsM", 2, 4),
+    "rows128_warps8": _const("kRows", 64, 128) + _const("kWarpsM", 2, 4),
+    "stages2": _const("kStages", 3, 2),
+    "stages4": _const("kStages", 3, 4),
 }
 
 
@@ -161,9 +191,41 @@ def lut_eval(cs) -> None:
         le.STAGE_MAX_BYTES = threshold
 
 
+def gnn_mp(cs, build) -> None:
+    import torch
+    from repro_torch.kernels import gnn_mp as mp
+    from repro_torch.kernels import ref
+    libs = build_variants(build, "gnn_mp", GNN_VARIANTS,
+                          ROOT / "build" / "variants_gnn")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for B, N, F, Fo, scale in cs.GNN_SHAPES[:3]:
+        adj = torch.rand(N, N, device="cuda", generator=gen)
+        h = torch.randn(B, N, F, device="cuda", generator=gen) * scale
+        ws, wn = (torch.randn(F, Fo, device="cuda", generator=gen)
+                  * F ** -0.5 for _ in range(2))
+        b = torch.randn(Fo, device="cuda", generator=gen) * 0.1
+        args = (adj, h, ws, wn, b)
+        cases.append((f"{B}x{N}x{F}->{Fo}", args, ref.gnn_mp_ref(*args)))
+    print(json.dumps({"variant": "plain", "ms": {
+        label: cs.cuda_ms(lambda: ref.gnn_mp_ref(*args), 20)
+        for label, args, _ in cases}}), flush=True)
+    for var, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        mp._declare(lib)
+        build._libs["gnn_mp"] = lib
+        ms, err = {}, {}
+        for label, args, want in cases:
+            err[label] = float((mp.gnn_mp(*args) - want).abs().max())
+            ms[label] = cs.cuda_ms(lambda: mp.gnn_mp(*args), 20)
+        print(json.dumps({"variant": var, "ms": ms, "max_abs_err": err}),
+              flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("kernel", choices=("flash_attention", "lut_eval"))
+    parser.add_argument("kernel", choices=("flash_attention", "lut_eval",
+                                           "gnn_mp"))
     args = parser.parse_args()
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import torch
@@ -175,6 +237,8 @@ def main() -> int:
     print(cs.card_line(), flush=True)
     if args.kernel == "flash_attention":
         flash_attention(cs, build)
+    elif args.kernel == "gnn_mp":
+        gnn_mp(cs, build)
     else:
         lut_eval(cs)
     return 0
