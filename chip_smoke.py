@@ -139,7 +139,10 @@ def kernel_name(mangled: str) -> str:
     """``name<args>`` of a mangled template kernel, e.g.
     ``flash_wgmma_kernel<64>``; the mangled name if it is not one."""
     import re
-    end = mangled.find("_kernel") + len("_kernel")
+    m = re.search(r"_kernel(?=[IEv])", mangled)
+    if m is None:
+        return mangled
+    end = m.end()
     # the identifier is preceded by its length in digits
     for start in range(end - len("_kernel"), 0, -1):
         if mangled[:start].endswith(str(end - start)):

@@ -79,7 +79,31 @@ _LO_TERMS = [("      mma_tf32(small[i][j], al[i], bh[j]);\n", ""),
              ("    for (int j = 0; j < kNT; ++j) mma_tf32(small[i][j], ah[i], "
               "bl[j]);", "    for (int j = 0; j < kNT; ++j) {}")]
 _MMA = [("  asm(\"mma.sync.aligned.m16n8k8", "  if (0) asm(\"mma.sync.aligned.m16n8k8")]
-_EPILOGUE = [("  if (wr < rows) {", "  if (false) {")]
+_EPILOGUE = [("  if (busy) {\n    const int last", "  if (false) {\n    const int last")]
+# the staging of H or of the weights skipped: the products then run on
+# whatever the ring holds
+_H_LOADS = [("      copy(sh + j * kHRowStep * kHStride, ok ? h_row + j * h_step "
+             "+ k0 : h,\n           ok, kH16);", "")]
+_W_LOADS = [("      copy(sws + j * kWRowStep * kWStride, ws + off, ok, kW16);\n"
+             "      copy(sws + kWTile + j * kWRowStep * kWStride, wn + off, ok, "
+             "kW16);", "")]
+# the split through cvt.rna.tf32.f32 (with its inf/NaN guard)
+_CVT = [("  hi = tf32_rna(x);\n  lo = tf32_rna(x - __uint_as_float(hi));",
+         "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(hi) : \"f\"(x));\n"
+         "  const float rest = x - __uint_as_float(hi);\n"
+         "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(lo) : \"f\"(rest));")]
+# raw fp32 bits in place of the split (wrong, for timing the products)
+_RAW_SPLIT = [("  hi = tf32_rna(x);\n  lo = tf32_rna(x - __uint_as_float(hi));",
+               "  hi = lo = __float_as_uint(x);")]
+# the small terms summed into the hi*hi accumulators
+_ONE_SUM = [("mma_tf32(small[i][j], al[i], bh[j]);",
+             "mma_tf32(big[i][j], al[i], bh[j]);"),
+            ("mma_tf32(small[i][j], ah[i], bl[j]);",
+             "mma_tf32(big[i][j], ah[i], bl[j]);")]
+# the copies issued, never waited for: what the waits cost
+_NO_WAIT = [("    cp_async_wait<kStages - 2>();", "")]
+_BLOCKS3 = [("__global__ void __launch_bounds__(kThreads)",
+             "__global__ void __launch_bounds__(kThreads, 3)")]
 
 
 def _const(name, old, new):
@@ -88,15 +112,31 @@ def _const(name, old, new):
 
 GNN_VARIANTS = {
     "kernel": [],
+    "cvt_split": _CVT,
     "no_lo_terms": _LO_TERMS,
+    "one_accumulator": _ONE_SUM,
     "no_epilogue": _EPILOGUE,
     "no_products": _MMA,
     "cols128_warps8": _const("kCols", 64, 128) + _const("kWarpsN", 2, 4),
     "warps8_16x32": _const("kWarpsM", 2, 4),
     "rows128_warps8": _const("kRows", 64, 128) + _const("kWarpsM", 2, 4),
+    "no_h_loads": _H_LOADS,
+    "no_w_loads": _W_LOADS,
+    "no_loads": _H_LOADS + _W_LOADS,
+    # the products alone: no staging, no rounding (the fragments' LDS and
+    # the HMMAs)
+    "hmma_lds_only": _H_LOADS + _W_LOADS + _RAW_SPLIT,
+    "no_waits": _NO_WAIT,
     "stages2": _const("kStages", 3, 2),
+    "stages2_3_blocks": _const("kStages", 3, 2) + _BLOCKS3,
+    "step16_stages3_3_blocks": _const("kStep", 32, 16) + _BLOCKS3,
+    "step16_stages4_3_blocks": _const("kStep", 32, 16)
+    + _const("kStages", 3, 4) + _BLOCKS3,
     "stages4": _const("kStages", 3, 4),
 }
+
+
+LOGS = {}     # nvcc's output of each variant built in this process
 
 
 def build_variants(build, name: str, variants: dict, out: Path) -> dict:
@@ -122,6 +162,7 @@ def build_variants(build, name: str, variants: dict, out: Path) -> dict:
         if proc.returncode:
             raise SystemExit(f"{var}: nvcc exited {proc.returncode}\n{log}")
         libs[var] = out / f"{var}.so"
+        LOGS[var] = log
     return libs
 
 
@@ -191,11 +232,13 @@ def lut_eval(cs) -> None:
         le.STAGE_MAX_BYTES = threshold
 
 
-def gnn_mp(cs, build) -> None:
+def gnn_mp(cs, build, names=None) -> None:
     import torch
     from repro_torch.kernels import gnn_mp as mp
     from repro_torch.kernels import ref
-    libs = build_variants(build, "gnn_mp", GNN_VARIANTS,
+    libs = build_variants(build, "gnn_mp",
+                          {k: v for k, v in GNN_VARIANTS.items()
+                           if names is None or k in names},
                           ROOT / "build" / "variants_gnn")
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
@@ -218,7 +261,9 @@ def gnn_mp(cs, build) -> None:
         for label, args, want in cases:
             err[label] = float((mp.gnn_mp(*args) - want).abs().max())
             ms[label] = cs.cuda_ms(lambda: mp.gnn_mp(*args), 20)
-        print(json.dumps({"variant": var, "ms": ms, "max_abs_err": err}),
+        print(json.dumps({"variant": var, "ms": ms, "max_abs_err": err,
+                          "ptxas": {cs.kernel_name(fn): res for fn, res in
+                                    build.resources(LOGS[var]).items()}}),
               flush=True)
 
 
@@ -226,6 +271,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("kernel", choices=("flash_attention", "lut_eval",
                                            "gnn_mp"))
+    parser.add_argument("--variants", help="comma-separated names of the "
+                        "gnn_mp variants to build (default: all)")
     args = parser.parse_args()
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import torch
@@ -238,7 +285,7 @@ def main() -> int:
     if args.kernel == "flash_attention":
         flash_attention(cs, build)
     elif args.kernel == "gnn_mp":
-        gnn_mp(cs, build)
+        gnn_mp(cs, build, args.variants and args.variants.split(","))
     else:
         lut_eval(cs)
     return 0

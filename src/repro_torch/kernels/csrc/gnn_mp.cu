@@ -13,8 +13,9 @@
 // cores (495 TFLOP/s), with every product issued three times (below),
 // 0.0376 ms. The design puts all of it on the tensor cores:
 //   * arithmetic: mma.sync m16n8k8 TF32 with fp32 accumulators. Each
-//     operand x is split in registers into hi = cvt.rna.tf32(x) and
-//     lo = cvt.rna.tf32(x - hi), and a*b is lo_a*hi_b + hi_a*lo_b +
+//     operand x is split in registers into hi = tf32_rna(x) and
+//     lo = tf32_rna(x - hi) (rounded to nearest as cvt.rna.tf32.f32
+//     rounds, in two integer operations), and a*b is lo_a*hi_b + hi_a*lo_b +
 //     hi_a*hi_b (the lo*lo term is ~2^-22 of the product); the small terms
 //     are summed in accumulators of their own and added last. TF32
 //     products are exact in fp32, so the result keeps fp32's accuracy and
@@ -105,11 +106,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x: to nearest,
+// ties away from zero (add half of the 13 dropped bits, then drop them).
+// Two integer operations: cvt's guard for inf and NaN costs three more a
+// value on sm_90, and a non-finite x still gives a non-finite result here
+// (through x - hi).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
 // x = hi + lo, each a TF32 value rounded to nearest
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -139,7 +148,8 @@ __device__ __forceinline__ void load_a(const float* t, int r0, int k, int g,
 // and the (K, N) row-major tile t (rows k.., columns c0 + 8 j ..). The
 // small terms keep their own accumulator: an mma rounds its sum toward
 // zero at the accumulator's magnitude, so folding them into the large
-// sum would add two such roundings a step.
+// sum would add two such roundings a step. Every fragment runs, also past
+// Fo: skipping those (a warp-uniform branch a fragment) measured slower.
 template <int kStride>
 __device__ __forceinline__ void mma3(float (&big)[kMT][kNT][4],
                                      float (&small)[kMT][kNT][4],
@@ -167,59 +177,78 @@ __device__ __forceinline__ void mma3(float (&big)[kMT][kNT][4],
     for (int j = 0; j < kNT; ++j) mma_tf32(small[i][j], ah[i], bl[j]);
 }
 
-// One ring stage: H rows [row0, row0 + rows) x K [k0, k0 + kStep), and
-// both weight panels K [k0, k0 + kStep) x columns [c0, c0 + kCols).
+// One thread's share of a ring stage: H rows [row0, row0 + rows) x K
+// [k0, k0 + kStep), and both weight panels K [k0, k0 + kStep) x columns
+// [c0, c0 + kCols), in copies of 16 bytes (F, Fo % 4 == 0: a copy is all
+// in or all out) or 4. A thread's column in each tile is fixed and its
+// rows step by a fixed count, so the addresses are set up once a block
+// and a stage only adds its K offset.
 template <bool kH16, bool kW16>
-__device__ __forceinline__ void load_stage(float* st, const float* h,
-                                           const float* ws, const float* wn,
-                                           long long row0, int rows, int F,
-                                           int Fo, int k0, int c0, int tid) {
-  float* sh = st;
-  float* sws = st + kHTile;
-  float* swn = sws + kWTile;
-  if (kH16) {          // F % 4 == 0: a 4-float chunk is all in or all out
-    constexpr int kChunks = kStep / 4;
+struct Stager {
+  static constexpr int kHv = kH16 ? 4 : 1;                    // floats a copy
+  static constexpr int kHRowStep = kThreads / (kStep / kHv);  // rows apart
+  static constexpr int kHCopies = kRows / kHRowStep;
+  static constexpr int kWv = kW16 ? 4 : 1;
+  static constexpr int kWRowStep = kThreads / (kCols / kWv);
+  static constexpr int kWCopies = kStep / kWRowStep;
+  static_assert(kHCopies <= 32, "one bit a copy");
+
+  const float* h_row;    // the thread's first H row, at its column
+  long long h_step;      // kHRowStep rows of H
+  long long w_off;       // the thread's first weight element at K = 0
+  int h_col, h_dst, w_row, w_dst, F, Fo;
+  unsigned h_rows;       // bit j: the thread's j-th H row is < rows
+  bool w_col;            // the thread's weight columns are < Fo
+
+  __device__ __forceinline__ Stager(const float* h, long long row0, int rows,
+                                    int F_, int Fo_, int c0, int tid)
+      : F(F_), Fo(Fo_) {
+    h_col = (tid % (kStep / kHv)) * kHv;
+    const int hr = tid / (kStep / kHv);
+    h_row = h + (row0 + hr) * F + h_col;
+    h_step = (long long)kHRowStep * F;
+    h_dst = hr * kHStride + h_col;
+    h_rows = 0;
 #pragma unroll
-    for (int j = 0; j < kRows * kChunks / kThreads; ++j) {
-      const int i = tid + j * kThreads;
-      const int r = i / kChunks, kk = 4 * (i % kChunks), k = k0 + kk;
-      const bool ok = r < rows && k < F;
-      cp_async16(sh + r * kHStride + kk, ok ? h + (row0 + r) * F + k : h, ok);
+    for (int j = 0; j < kHCopies; ++j)
+      if (hr + j * kHRowStep < rows) h_rows |= 1u << j;
+    const int wc = (tid % (kCols / kWv)) * kWv;
+    w_row = tid / (kCols / kWv);
+    w_col = c0 + wc < Fo;
+    w_off = (long long)w_row * Fo + c0 + wc;
+    w_dst = w_row * kWStride + wc;
+  }
+
+  __device__ __forceinline__ void copy(float* dst, const float* src,
+                                       bool ok, bool wide) const {
+    if (wide)
+      cp_async16(dst, src, ok);
+    else
+      cp_async4(dst, src, ok);
+  }
+
+  __device__ __forceinline__ void load(float* st, const float* h,
+                                       const float* ws, const float* wn,
+                                       int k0) const {
+    float* sh = st + h_dst;
+    const bool h_k = k0 + h_col < F;
+#pragma unroll
+    for (int j = 0; j < kHCopies; ++j) {
+      const bool ok = h_k && (h_rows >> j & 1u);
+      copy(sh + j * kHRowStep * kHStride, ok ? h_row + j * h_step + k0 : h,
+           ok, kH16);
     }
-  } else {
-#pragma unroll 4
-    for (int j = 0; j < kRows * kStep / kThreads; ++j) {
-      const int i = tid + j * kThreads;
-      const int r = i / kStep, kk = i % kStep, k = k0 + kk;
-      const bool ok = r < rows && k < F;
-      cp_async4(sh + r * kHStride + kk, ok ? h + (row0 + r) * F + k : h, ok);
+    float* sws = st + kHTile + w_dst;
+    const long long w_k0 = w_off + (long long)k0 * Fo;
+#pragma unroll
+    for (int j = 0; j < kWCopies; ++j) {
+      const bool ok = w_col && k0 + w_row + j * kWRowStep < F;
+      const long long off = ok ? w_k0 + (long long)(j * kWRowStep) * Fo : 0;
+      copy(sws + j * kWRowStep * kWStride, ws + off, ok, kW16);
+      copy(sws + kWTile + j * kWRowStep * kWStride, wn + off, ok, kW16);
     }
   }
-  if (kW16) {          // Fo % 4 == 0
-    constexpr int kChunks = kCols / 4;
-#pragma unroll
-    for (int j = 0; j < kStep * kChunks / kThreads; ++j) {
-      const int i = tid + j * kThreads;
-      const int kk = i / kChunks, c = 4 * (i % kChunks);
-      const int k = k0 + kk, col = c0 + c;
-      const bool ok = k < F && col < Fo;
-      const long long off = ok ? (long long)k * Fo + col : 0;
-      cp_async16(sws + kk * kWStride + c, ws + off, ok);
-      cp_async16(swn + kk * kWStride + c, wn + off, ok);
-    }
-  } else {
-#pragma unroll 4
-    for (int j = 0; j < kStep * kCols / kThreads; ++j) {
-      const int i = tid + j * kThreads;
-      const int kk = i / kCols, c = i % kCols;
-      const int k = k0 + kk, col = c0 + c;
-      const bool ok = k < F && col < Fo;
-      const long long off = ok ? (long long)k * Fo + col : 0;
-      cp_async4(sws + kk * kWStride + c, ws + off, ok);
-      cp_async4(swn + kk * kWStride + c, wn + off, ok);
-    }
-  }
-}
+};
 
 template <bool kH16, bool kW16>
 __global__ void __launch_bounds__(kThreads)
@@ -242,6 +271,7 @@ gnn_mp_kernel(const float* __restrict__ adj, long long adj_batch_stride,
   const long long row0 = (long long)g0 * N;      // its first global row
   const int c0 = blockIdx.x * kCols;
   const int KT = (F + kStep - 1) / kStep;
+  const bool busy = wr < rows;     // a warp with no valid rows: no products
 
   // The block's adjacency as one block-diagonal (64, 64) tile, zero
   // between graphs and past `rows`; its copies join the first stage's
@@ -263,11 +293,11 @@ gnn_mp_kernel(const float* __restrict__ adj, long long adj_batch_stride,
         *dst = 0.f;
     }
   }
+  const Stager<kH16, kW16> stager(h, row0, rows, F, Fo, c0, tid);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < KT)
-      load_stage<kH16, kW16>(ring + s * kStageFloats, h, w_self, w_nbr, row0,
-                             rows, F, Fo, s * kStep, c0, tid);
+      stager.load(ring + s * kStageFloats, h, w_self, w_nbr, s * kStep);
     cp_async_commit();
   }
 
@@ -287,9 +317,8 @@ gnn_mp_kernel(const float* __restrict__ adj, long long adj_batch_stride,
     __syncthreads();                // ... everyone's; stage kt-1 is free
     const int next = kt + kStages - 1;
     if (next < KT)
-      load_stage<kH16, kW16>(ring + (next % kStages) * kStageFloats, h,
-                             w_self, w_nbr, row0, rows, F, Fo, next * kStep,
-                             c0, tid);
+      stager.load(ring + (next % kStages) * kStageFloats, h, w_self, w_nbr,
+                  next * kStep);
     cp_async_commit();
     const float* sh = ring + (kt % kStages) * kStageFloats;
     const float* sws = sh + kHTile;
@@ -297,7 +326,7 @@ gnn_mp_kernel(const float* __restrict__ adj, long long adj_batch_stride,
     const int k_valid = F - kt * kStep;   // k8 steps past it are all zero
 #pragma unroll
     for (int ks = 0; ks < kStep / 8; ++ks) {
-      if (8 * ks < k_valid) {
+      if (8 * ks < k_valid && busy) {
         uint32_t ah[kMT][4], al[kMT][4];
         load_a<kHStride>(sh, wr, 8 * ks, g, tq, ah, al);
         mma3<kWStride>(own, own_lo, ah, al, sws, 8 * ks, wc, g, tq);
@@ -326,7 +355,7 @@ gnn_mp_kernel(const float* __restrict__ adj, long long adj_batch_stride,
 
   // own += adjacency @ msg over the columns of the graphs of this warp's
   // rows (the rest of the tile's row is zero)
-  if (wr < rows) {
+  if (busy) {
     const int last = min(wr + kWarpRows, rows) - 1;
     const int q_begin = (wr / N) * N / 8 * 8;
     const int q_end = min(rows, (last / N + 1) * N);
