@@ -6,9 +6,11 @@ Run from the root of a checkout, on a host with a CUDA card:
 
 It builds the four CUDA kernels from src/repro_torch/kernels/csrc (one
 nvcc per source, in parallel, into build/kernels/) and prints ptxas's
-registers, shared memory and spills of each, holds each kernel against
-its plain PyTorch version at the main paths' shapes (flash_attention also
-at Granite-20B's and Qwen2.5-32B's D = 128 prefills, ragged, full and
+registers, shared memory and spills of each and the count of
+tensor-core instructions in each one's SASS, holds each kernel against
+its plain PyTorch version at the main paths' shapes (gnn_mp also at
+N = 21 and 64, F = 1, an odd Fo and H x 1e3; flash_attention also at
+Granite-20B's and Qwen2.5-32B's D = 128 prefills, ragged, full and
 D = 16/32 shapes) and times both, and the one PyTorch call that computes
 the same function where there is one, with CUDA events around a CUDA
 graph of the calls, then drives the port's two main paths:
@@ -17,7 +19,8 @@ graph of the calls, then drives the port's two main paths:
   configurations (SSIM through `lut_eval`) -> a paper-width two-stage
   GraphSAGE surrogate (5 layers, hidden 300, random weights from a seeded
   generator) served by `SurrogateEngine.from_gnn` (`gnn_mp` in every
-  layer) and an oracle engine;
+  layer) and an oracle engine, with a device profile of one fresh
+  512-configuration request;
 - the LM serving slice: Hymba-1.5B at full published width (32 layers,
   d_model 1600, 25 heads over 5 KV heads, SSM state 16, SWA window 1024)
   with random bf16 weights from a seeded generator, 8 prompts of 1024
@@ -217,12 +220,12 @@ def check(cond: bool, what: str) -> None:
 # K1's shapes: (B, N, F, Fo, scale of H). The first three are the
 # Gaussian engine's (the first layer, the hidden layers, a ragged chunk);
 # then N = 21, which does not divide the block's 64 rows, one graph of 64
-# a block, F = 1 with Fo = 8, and H x 1e3, where the lo terms of 3xTF32
-# decide the result.
+# a block, F = 1 with Fo = 8, an odd Fo (the weights staged by 4-byte
+# copies), and H x 1e3, where the lo terms of 3xTF32 decide the result.
 GNN_SHAPES = [(512, 32, 27, 300, 1.0), (512, 32, 300, 300, 1.0),
               (37, 32, 300, 300, 1.0), (64, 21, 27, 300, 1.0),
               (16, 64, 300, 300, 1.0), (40, 32, 1, 8, 1.0),
-              (512, 32, 300, 300, 1e3)]
+              (48, 7, 13, 37, 1.0), (512, 32, 300, 300, 1e3)]
 
 
 def gnn_mp_phase(gen):

@@ -15,12 +15,13 @@ with a part taken out computes a wrong result; the line reports its
 error and times it all the same. ``lut_eval`` times both of the kernel's
 paths (the table staged in shared memory, the table read through the
 caches) at tables from 17 KiB to 8.5 MiB beside torch.take, by moving the
-wrapper's staging threshold. ``gnn_mp`` builds K1 as it is, without the
-small terms of 3xTF32 (one TF32 product), without the aggregation
-epilogue, with no products at all (the staging ring and the stores), and
-with other tile shapes, warp counts and ring depths, and times each at
-chip_smoke.py's main-path shapes beside the plain version. Times are CUDA events around a CUDA graph
-of the calls (chip_smoke.cuda_ms); one JSON line a variant or table.
+wrapper's staging threshold. ``gnn_mp`` builds K1 as it is and with
+parts taken out or changed (the small terms of 3xTF32, the aggregation,
+the products, the loads, the rounding, the waits; other tiles, warp
+counts and ring depths), and times each at chip_smoke.py's main-path
+shapes beside the plain version, with its ptxas registers and spills.
+Times are CUDA events around a CUDA graph of the calls
+(chip_smoke.cuda_ms); one JSON line a variant or table.
 """
 from __future__ import annotations
 
@@ -78,23 +79,24 @@ FA_VARIANTS = {
 _LO_TERMS = [("      mma_tf32(small[i][j], al[i], bh[j]);\n", ""),
              ("    for (int j = 0; j < kNT; ++j) mma_tf32(small[i][j], ah[i], "
               "bl[j]);", "    for (int j = 0; j < kNT; ++j) {}")]
-_MMA = [("  asm(\"mma.sync.aligned.m16n8k8", "  if (0) asm(\"mma.sync.aligned.m16n8k8")]
-_EPILOGUE = [("  if (busy) {\n    const int last", "  if (false) {\n    const int last")]
-# the staging of H or of the weights skipped: the products then run on
-# whatever the ring holds
-_H_LOADS = [("      copy(sh + j * kHRowStep * kHStride, ok ? h_row + j * h_step "
-             "+ k0 : h,\n           ok, kH16);", "")]
-_W_LOADS = [("      copy(sws + j * kWRowStep * kWStride, ws + off, ok, kW16);\n"
-             "      copy(sws + kWTile + j * kWRowStep * kWStride, wn + off, ok, "
-             "kW16);", "")]
+_MMA = [("  asm(\"mma.sync.aligned.m16n8k8",
+         "  if (0) asm(\"mma.sync.aligned.m16n8k8")]
+_EPILOGUE = [("  if (busy) {\n    const int last",
+              "  if (false) {\n    const int last")]
+# the staging skipped: the products then run on whatever the ring holds
+_LOADS = [("      copy(sh + j * kHRowStep * kHStride, ok ? h_row + j * h_step "
+           "+ k0 : h,\n           ok, kH16);", ""),
+          ("      copy(sws + j * kWRowStep * kWStride, ws + off, ok, kW16);\n"
+           "      copy(sws + kWTile + j * kWRowStep * kWStride, wn + off, ok, "
+           "kW16);", "")]
 # the split through cvt.rna.tf32.f32 (with its inf/NaN guard)
-_CVT = [("  hi = tf32_rna(x);\n  lo = tf32_rna(x - __uint_as_float(hi));",
+_SPLIT = "  hi = tf32_rna(x);\n  lo = tf32_rna(x - __uint_as_float(hi));"
+_CVT = [(_SPLIT,
          "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(hi) : \"f\"(x));\n"
          "  const float rest = x - __uint_as_float(hi);\n"
          "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(lo) : \"f\"(rest));")]
 # raw fp32 bits in place of the split (wrong, for timing the products)
-_RAW_SPLIT = [("  hi = tf32_rna(x);\n  lo = tf32_rna(x - __uint_as_float(hi));",
-               "  hi = lo = __float_as_uint(x);")]
+_RAW_SPLIT = [(_SPLIT, "  hi = lo = __float_as_uint(x);")]
 # the small terms summed into the hi*hi accumulators
 _ONE_SUM = [("mma_tf32(small[i][j], al[i], bh[j]);",
              "mma_tf32(big[i][j], al[i], bh[j]);"),
@@ -102,12 +104,11 @@ _ONE_SUM = [("mma_tf32(small[i][j], al[i], bh[j]);",
              "mma_tf32(big[i][j], ah[i], bl[j]);")]
 # the copies issued, never waited for: what the waits cost
 _NO_WAIT = [("    cp_async_wait<kStages - 2>();", "")]
-_BLOCKS3 = [("__global__ void __launch_bounds__(kThreads)",
-             "__global__ void __launch_bounds__(kThreads, 3)")]
 
 
 def _const(name, old, new):
-    return [(f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")]
+    return [(f"constexpr int {name} = {old};",
+             f"constexpr int {name} = {new};")]
 
 
 GNN_VARIANTS = {
@@ -120,28 +121,20 @@ GNN_VARIANTS = {
     "cols128_warps8": _const("kCols", 64, 128) + _const("kWarpsN", 2, 4),
     "warps8_16x32": _const("kWarpsM", 2, 4),
     "rows128_warps8": _const("kRows", 64, 128) + _const("kWarpsM", 2, 4),
-    "no_h_loads": _H_LOADS,
-    "no_w_loads": _W_LOADS,
-    "no_loads": _H_LOADS + _W_LOADS,
+    "no_loads": _LOADS,
     # the products alone: no staging, no rounding (the fragments' LDS and
     # the HMMAs)
-    "hmma_lds_only": _H_LOADS + _W_LOADS + _RAW_SPLIT,
+    "hmma_lds_only": _LOADS + _RAW_SPLIT,
     "no_waits": _NO_WAIT,
     "stages2": _const("kStages", 3, 2),
-    "stages2_3_blocks": _const("kStages", 3, 2) + _BLOCKS3,
-    "step16_stages3_3_blocks": _const("kStep", 32, 16) + _BLOCKS3,
-    "step16_stages4_3_blocks": _const("kStep", 32, 16)
-    + _const("kStages", 3, 4) + _BLOCKS3,
     "stages4": _const("kStages", 3, 4),
 }
 
 
-LOGS = {}     # nvcc's output of each variant built in this process
-
-
 def build_variants(build, name: str, variants: dict, out: Path) -> dict:
     """One shared library per variant of ``csrc/<name>.cu``, compiled in
-    parallel with the port's flags; returns {variant: path}."""
+    parallel with the port's flags; returns {variant: (path, nvcc's
+    output)}."""
     src = (build.CSRC / build.SOURCES[name]).read_text()
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -161,8 +154,7 @@ def build_variants(build, name: str, variants: dict, out: Path) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"{var}: nvcc exited {proc.returncode}\n{log}")
-        libs[var] = out / f"{var}.so"
-        LOGS[var] = log
+        libs[var] = (out / f"{var}.so", log)
     return libs
 
 
@@ -186,7 +178,7 @@ def flash_attention(cs, build) -> None:
         label: cs.cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True), 20)
         for label, q, k, v, causal, _ in cases}}), flush=True)
-    for var, path in libs.items():
+    for var, (path, _) in libs.items():
         lib = ctypes.CDLL(str(path))
         fa._declare(lib)
         build._libs["flash_attention"] = lib
@@ -232,13 +224,11 @@ def lut_eval(cs) -> None:
         le.STAGE_MAX_BYTES = threshold
 
 
-def gnn_mp(cs, build, names=None) -> None:
+def gnn_mp(cs, build) -> None:
     import torch
     from repro_torch.kernels import gnn_mp as mp
     from repro_torch.kernels import ref
-    libs = build_variants(build, "gnn_mp",
-                          {k: v for k, v in GNN_VARIANTS.items()
-                           if names is None or k in names},
+    libs = build_variants(build, "gnn_mp", GNN_VARIANTS,
                           ROOT / "build" / "variants_gnn")
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
@@ -253,7 +243,7 @@ def gnn_mp(cs, build, names=None) -> None:
     print(json.dumps({"variant": "plain", "ms": {
         label: cs.cuda_ms(lambda: ref.gnn_mp_ref(*args), 20)
         for label, args, _ in cases}}), flush=True)
-    for var, path in libs.items():
+    for var, (path, log) in libs.items():
         lib = ctypes.CDLL(str(path))
         mp._declare(lib)
         build._libs["gnn_mp"] = lib
@@ -263,7 +253,7 @@ def gnn_mp(cs, build, names=None) -> None:
             ms[label] = cs.cuda_ms(lambda: mp.gnn_mp(*args), 20)
         print(json.dumps({"variant": var, "ms": ms, "max_abs_err": err,
                           "ptxas": {cs.kernel_name(fn): res for fn, res in
-                                    build.resources(LOGS[var]).items()}}),
+                                    build.resources(log).items()}}),
               flush=True)
 
 
@@ -271,8 +261,6 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("kernel", choices=("flash_attention", "lut_eval",
                                            "gnn_mp"))
-    parser.add_argument("--variants", help="comma-separated names of the "
-                        "gnn_mp variants to build (default: all)")
     args = parser.parse_args()
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import torch
@@ -285,7 +273,7 @@ def main() -> int:
     if args.kernel == "flash_attention":
         flash_attention(cs, build)
     elif args.kernel == "gnn_mp":
-        gnn_mp(cs, build, args.variants and args.variants.split(","))
+        gnn_mp(cs, build)
     else:
         lut_eval(cs)
     return 0

@@ -22,9 +22,10 @@
 //     the fp32 plain version's 1e-4 bar, which one TF32 product misses at
 //     F = 300 (tests/test_torch_kernels.py emulates both on the CPU);
 //   * tiles: a block owns the rows of whole graphs (64 rows: floor(64/N)
-//     graphs) and kCols output columns; kWarpsM x kWarpsN warps each hold
-//     a (64/kWarpsM) x (kCols/kWarpsN) tile of BOTH products (H@Ws, H@Wn),
-//     so the H fragment is split once and feeds both;
+//     graphs) and 64 output columns; its 4 warps, 2 x 2, each hold a
+//     32 x 32 tile (2 m16 x 4 n8 fragments) of BOTH products (H@Ws,
+//     H@Wn), so the H fragment is split once and feeds both. 128 columns
+//     or rows a block (8 warps), or 8 warps of 16 x 32, measured slower;
 //   * staging: H and the two weight panels stream in K-steps of 32 through
 //     a 3-stage cp.async ring (16-byte cp.async.cg where a row is 16-byte
 //     aligned, 4-byte cp.async.ca otherwise: the first layer's F = 27 rows
@@ -37,8 +38,12 @@
 //     adjacency, staged once as a block-diagonal 64x64 tile (zero between
 //     graphs), times the tile, added into the H@Ws accumulators; a warp
 //     runs only the k8 steps its rows' graphs touch. Bias, ReLU, store.
-// wgmma and TMA (K-major B would need a transposed weight copy in TF32)
-// and a persistent grid are later work.
+// What bounds this design on the card is the HMMAs themselves: mma.sync
+// issues TF32 at about half the tensor cores' peak, and 3xTF32 issues
+// three; then the rounding and the staging copies' issue cost (the ring's
+// waits cost nothing). scripts/kernel_variants.py gnn_mp measures each.
+// wgmma (the full rate; TF32 takes B K-major, so the weights would need a
+// transposed copy), TMA and a persistent grid are later work.
 
 #include <cuda_runtime.h>
 

@@ -112,22 +112,28 @@ def test_cuda_kernels_match_plain_versions():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
     # the engine's shapes; N = 21 (not a divisor of the block's 64 rows),
-    # one graph of 64 a block, F = 1 with Fo = 8; H x 1e3, where the small
+    # one graph of 64 a block, F = 1 with Fo = 8, an odd Fo (weights
+    # staged by 4-byte copies, scalar stores); H x 1e3, where the small
     # terms of 3xTF32 decide the result, held at the bar in units of the
     # scale (the fp32 plain version itself misses an absolute 1e-4 there)
     for B, N, F, Fo, scale in [(512, 32, 27, 300, 1), (512, 32, 300, 300, 1),
                                (37, 32, 300, 300, 1), (64, 21, 27, 300, 1),
                                (16, 64, 300, 300, 1), (40, 32, 1, 8, 1),
+                               (48, 7, 13, 37, 1),
                                (512, 32, 300, 300, 1e3),
                                *((*shape, 1) for shape in GNN_SHAPES)]:
         adj, h, ws, wn, b = (torch.from_numpy(x).to(dev)
                              for x in _gnn_inputs(B, N, F, Fo, seed=B + F))
         h = h * scale
-        for a in (adj, adj[0], adj[0].expand(B, N, N)):
-            got = gnn_mp_kernel.gnn_mp(a, h, ws, wn, b)
-            want = ref.gnn_mp_ref(a, h, ws, wn, b)
-            torch.testing.assert_close(got / scale, want / scale,
-                                       rtol=1e-4, atol=1e-4)
+        # h also from a start 4 bytes past a 16-byte boundary: the kernel
+        # then stages H by 4-byte copies
+        shifted = torch.empty(h.numel() + 1, device=dev)[1:].view_as(h)
+        for hh in (h, shifted.copy_(h)):
+            for a in (adj, adj[0], adj[0].expand(B, N, N)):
+                got = gnn_mp_kernel.gnn_mp(a, hh, ws, wn, b)
+                want = ref.gnn_mp_ref(a, hh, ws, wn, b)
+                torch.testing.assert_close(got / scale, want / scale,
+                                           rtol=1e-4, atol=1e-4)
     rng = np.random.default_rng(0)
     for n_lut, wb, M in [(17 << 8, 0, 1 << 20), (17 << 12, 4, 4096 + 700),
                          (6 << 20, 0, 1023)]:
