@@ -30,7 +30,7 @@
 //     a 3-stage cp.async ring (16-byte cp.async.cg where a row is 16-byte
 //     aligned, 4-byte cp.async.ca otherwise: the first layer's F = 27 rows
 //     are 108 bytes); ragged rows, columns and K are zero-filled through
-//     the source-size operand. Shared rows are padded (H +4, W +8 floats)
+//     the source-size operand. Shared rows are padded (H +8, W +4 floats)
 //     so that every fragment load is free of bank conflicts; weights are
 //     read row-major (K, N) as they lie, with no transposed copy;
 //   * epilogue: the H@Wn tile goes to shared memory (in place of the ring)
@@ -62,12 +62,15 @@ constexpr int kMaxN = 64;
 constexpr int kWarpRows = kRows / kWarpsM;
 constexpr int kMT = kWarpRows / 16;            // m16 fragments a warp
 constexpr int kNT = kCols / kWarpsN / 8;       // n8 fragments a warp
-// Padded rows in floats: an A fragment reads rows g = 0..7 at columns
-// t = 0..3 (a stride of 4 mod 32 banks spreads them), a B fragment rows
-// t at columns g (8 mod 32).
-constexpr int kHStride = kStep + 4;
-constexpr int kWStride = kCols + 8;
-constexpr int kAdjStride = kRows + 4;
+// The k8 step's columns are taken in the order 0, 2, 4, 6, 1, 3, 5, 7
+// (A's and B's alike, so the product is the same): a thread's two A
+// values of a row, k = 2t and 2t + 1, are then neighbours, read by one
+// 64-bit load. Padded rows in floats: A rows g = 0..7 at a stride of
+// 8 mod 32 banks, B rows 2t at a stride of 4 mod 32, columns g, make
+// every fragment load conflict-free.
+constexpr int kHStride = kStep + 8;
+constexpr int kWStride = kCols + 4;
+constexpr int kAdjStride = kRows + 8;
 constexpr int kHTile = kRows * kHStride;
 constexpr int kWTile = kStep * kWStride;
 constexpr int kStageFloats = kHTile + 2 * kWTile;
@@ -134,18 +137,21 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// A fragments (rows r0 + 16 i .., columns k ..) of a row-major tile.
+// A fragments (rows r0 + 16 i .., columns k .. in the order above) of a
+// row-major tile.
 template <int kStride>
 __device__ __forceinline__ void load_a(const float* t, int r0, int k, int g,
                                        int tq, uint32_t (&hi)[kMT][4],
                                        uint32_t (&lo)[kMT][4]) {
 #pragma unroll
   for (int i = 0; i < kMT; ++i) {
-    const float* p = t + (r0 + 16 * i + g) * kStride + k + tq;
-    split(p[0], hi[i][0], lo[i][0]);
-    split(p[8 * kStride], hi[i][1], lo[i][1]);
-    split(p[4], hi[i][2], lo[i][2]);
-    split(p[8 * kStride + 4], hi[i][3], lo[i][3]);
+    const float* p = t + (r0 + 16 * i + g) * kStride + k + 2 * tq;
+    const float2 top = *reinterpret_cast<const float2*>(p);
+    const float2 bot = *reinterpret_cast<const float2*>(p + 8 * kStride);
+    split(top.x, hi[i][0], lo[i][0]);
+    split(bot.x, hi[i][1], lo[i][1]);
+    split(top.y, hi[i][2], lo[i][2]);
+    split(bot.y, hi[i][3], lo[i][3]);
   }
 }
 
@@ -165,9 +171,9 @@ __device__ __forceinline__ void mma3(float (&big)[kMT][kNT][4],
   uint32_t bh[kNT][2], bl[kNT][2];
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
-    const float* p = t + (k + tq) * kStride + c0 + 8 * j + g;
+    const float* p = t + (k + 2 * tq) * kStride + c0 + 8 * j + g;
     split(p[0], bh[j][0], bl[j][0]);
-    split(p[4 * kStride], bh[j][1], bl[j][1]);
+    split(p[kStride], bh[j][1], bl[j][1]);
   }
 #pragma unroll
   for (int i = 0; i < kMT; ++i)
