@@ -21,6 +21,12 @@ graph of the calls, then drives the port's two main paths:
   generator) served by `SurrogateEngine.from_gnn` (`gnn_mp` in every
   layer) and an oracle engine, with a device profile of one fresh
   512-configuration request;
+- the other four accelerators (sobel, fir15, dct8, k-means) the same
+  way, each with 8 configurations also labeled through the scalar path
+  (`label_backend="loop"`) and held against the batched labels, then one
+  cross-app surrogate (`dataset.merge` of all five, the same paper-width
+  GraphSAGE over the 32-wide merged features) served per app by
+  `SurrogateEngine.from_gnn_shared` (`apps_slice` line);
 - the LM serving slice: Hymba-1.5B at full published width (32 layers,
   d_model 1600, 25 heads over 5 KV heads, SSM state 16, SWA window 1024)
   with random bf16 weights from a seeded generator, 8 prompts of 1024
@@ -276,11 +282,13 @@ def gnn_mp_phase(gen):
 
 
 def lut_eval_phase(gen):
-    """K2 on the five tables of the main paths, bit-exact at M, M + 777
-    and 1023 elements (and from a start off a 16-byte boundary), timed
-    in the form the main path calls: without b where wb = 0 (the
-    constant-coefficient column, sqrt), with b otherwise. The 17 KB
-    column is also timed with a zero b, its PR 12 form."""
+    """K2 on seven tables of the main paths (the Gaussian, FIR-15 and
+    DCT-8 constant-coefficient columns, two full multiplier tables and
+    k-means' two), bit-exact at M, M + 777 and 1023 elements (and from a
+    start off a 16-byte boundary), timed in the form the main path calls:
+    without b where wb = 0 (the columns, sqrt), with b otherwise. The
+    columns are also timed with a zero b, the form the kernel took
+    before b became optional."""
     import numpy as np
     import torch
     from repro_torch.accel import library as lib
@@ -289,13 +297,20 @@ def lut_eval_phase(gen):
     dev = torch.device("cuda")
     pruned, _ = pruning.prune_library()
     g17 = lib.stacked_lut(tuple(pruned["mul8x4"]), 8, 4)
+    f10 = lib.stacked_lut(tuple(pruned["mul8x4"]), 10, 4)
+    d13 = lib.stacked_lut(tuple(pruned["mul8x4"]), 13, 4)
     tables = {
         # (table, wb, operand a range per entry, entries)
         "gaussian_mul8x4_column": (g17.view(-1, 16)[:, 4].contiguous(), 0,
                                    8, len(pruned["mul8x4"])),
         "gaussian_mul8x4_8x4": (g17, 4, 8, len(pruned["mul8x4"])),
-        "dct8_mul8x4_13x4": (lib.stacked_lut(tuple(pruned["mul8x4"]), 13, 4),
-                             4, 13, len(pruned["mul8x4"])),
+        # the columns of fir15's (68 KiB) and dct8's (544 KiB) constant
+        # coefficients, which their functional models gather from
+        "fir15_mul8x4_column": (f10.view(-1, 16)[:, 5].contiguous(), 0, 10,
+                                len(pruned["mul8x4"])),
+        "dct8_mul8x4_column": (d13.view(-1, 16)[:, 12].contiguous(), 0, 13,
+                               len(pruned["mul8x4"])),
+        "dct8_mul8x4_13x4": (d13, 4, 13, len(pruned["mul8x4"])),
         "kmeans_mul8_9x9": (lib.stacked_lut(tuple(pruned["mul8"]), 9, 9), 9,
                             9, len(pruned["mul8"])),
         "kmeans_sqrt18_20x0": (lib.stacked_lut(tuple(pruned["sqrt18"]), 20,
@@ -305,6 +320,8 @@ def lut_eval_phase(gen):
     rng = np.random.default_rng(0)
     rows = []
     M = 256 * 4 * 64 * 64            # one labeling chunk of one unit node
+    # dct8's multipliers see one 8-pixel row of each block a call
+    ELEMS = {"dct8_mul8x4_column": 256 * 4 * 64 * 8}
 
     def operands(m, wb, ea, n_ent):
         e = rng.integers(0, n_ent, m)
@@ -317,7 +334,8 @@ def lut_eval_phase(gen):
     for name, (table, wb, ea, n_ent) in tables.items():
         lut = table.to(dev)
         forms = ["a", "a,b"] if wb == 0 else ["a,b"]
-        for m in (M, M + 777, 1023):
+        Mt = ELEMS.get(name, M)
+        for m in (Mt, Mt + 777, 1023):
             a, b = operands(m + 1, wb, ea, n_ent)
             for form in forms:
                 bb = b if form == "a,b" else None
@@ -329,7 +347,7 @@ def lut_eval_phase(gen):
                     check(torch.equal(got, ref.lut_eval_ref(lut, x, y, wb)),
                           f"lut_eval {name} ({form}) M={m} offset "
                           f"{x.storage_offset()} is not bit-exact")
-        a, b = operands(M, wb, ea, n_ent)
+        a, b = operands(Mt, wb, ea, n_ent)
         for form in forms:
             bb = b if form == "a,b" else None
             idx = ((a << wb) | b).long()
@@ -338,15 +356,15 @@ def lut_eval_phase(gen):
             plain = cuda_ms(lambda: ref.lut_eval_ref(lut, a, bb, wb), 50)
             library = cuda_ms(lambda: torch.take(lut, idx), 50)
             per_elem = 12 if bb is not None else 8
-            bnd, by = bound_ms(4 * lut.numel() + per_elem * M, 0)
+            bnd, by = bound_ms(4 * lut.numel() + per_elem * Mt, 0)
             rows.append({"table": name, "form": form,
                          "path": lut_eval.path(4 * lut.numel()),
-                         "table_kib": 4 * lut.numel() / 1024, "m": M,
+                         "table_kib": 4 * lut.numel() / 1024, "m": Mt,
                          "max_abs_err": 0, "ms": ms, "eager_ms": eager,
                          "plain_ms": plain, "library_ms": library,
                          "bound_ms": bnd,
                          "bound_by": by,
-                         "gb_per_s": (4 * lut.numel() + per_elem * M)
+                         "gb_per_s": (4 * lut.numel() + per_elem * Mt)
                          / ms / 1e6})
     return rows
 
@@ -460,18 +478,43 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def launch_counts() -> dict:
+    """The launch counts of the main slices' kernels, `lut_eval`'s by
+    route too."""
+    from repro_torch.kernels import gnn_mp, lut_eval
+    return {"gnn_mp": gnn_mp.LAUNCHES.value,
+            "lut_eval": lut_eval.LAUNCHES.value,
+            "lut_eval_routes": {r: c.value for r, c in
+                                lut_eval.ROUTE_LAUNCHES.items()}}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels import gnn_mp, lut_eval
+    for c in [gnn_mp.LAUNCHES, lut_eval.LAUNCHES,
+              *lut_eval.ROUTE_LAUNCHES.values()]:
+        c.reset()
+
+
+def counts_since(before: dict) -> dict:
+    now = launch_counts()
+    return {"gnn_mp": now["gnn_mp"] - before["gnn_mp"],
+            "lut_eval": now["lut_eval"] - before["lut_eval"],
+            "lut_eval_routes": {
+                r: n - before["lut_eval_routes"][r]
+                for r, n in now["lut_eval_routes"].items()}}
+
+
 def slice_phase(card: str, dev):
-    """Drive the main path on ``dev``; returns (report, launches)."""
+    """Drive the main path on ``dev``; returns (report, launches, (app
+    context, dataset))."""
     import numpy as np
     import torch
     from repro_torch.accel import apps, batch_oracle
     from repro_torch.core import dataset, gnn, models, pipeline
     from repro_torch.core.engine import SurrogateEngine
-    from repro_torch.kernels import gnn_mp, lut_eval
     report = {"card": card, "requests": []}
 
-    gnn_mp.LAUNCHES.reset()
-    lut_eval.LAUNCHES.reset()
+    reset_launch_counts()
     t0 = time.perf_counter()
     ctx = pipeline.app_context("gaussian", device=dev)
     ds = dataset.build("gaussian", n_samples=N_SAMPLES,
@@ -539,15 +582,14 @@ def slice_phase(card: str, dev):
                                          ctx.exact_out)
     oracle_rows = timed("oracle engine (256)",
                         lambda: oracle(ds.configs[:256]), 256)
-    launches = {"gnn_mp": gnn_mp.LAUNCHES.value,
-                "lut_eval": lut_eval.LAUNCHES.value}
+    launches = launch_counts()
     report["launches"] = launches
     report["engine_stats"] = {k: getattr(eng.stats, k) for k in (
         "calls", "configs", "cache_hits", "evaluated", "padded", "chunks",
         "submits", "drains", "featurize_s", "dispatch_s", "collect_s",
         "overlapped_s")}
-    for name, n in launches.items():
-        check(dev.type != "cuda" or n > 0,
+    for name in ("gnn_mp", "lut_eval"):
+        check(dev.type != "cuda" or launches[name] > 0,
               f"{name} was never launched on the main path")
 
     # where one fresh chunk's time goes, phase by phase (host clock; each
@@ -619,6 +661,225 @@ def slice_phase(card: str, dev):
     check(ssim_err <= 1e-6, f"card SSIM labels vs CPU: {ssim_err}")
     report["checks"] = {"engine_vs_plain_max_abs": gnn_err,
                         "ssim_card_vs_cpu_max_abs": ssim_err}
+    return report, launches, (ctx, ds)
+
+
+# the apps slice: the other four accelerators, each labeled at the
+# Gaussian slice's size; LOOP_CONFIGS of them also through the scalar
+# path. Sobel has only adders and subtractors (add8, add12, sub10), which
+# the functional model evaluates analytically: it has no table to gather.
+OTHER_APPS = ("sobel", "fir15", "dct8", "kmeans")
+NO_TABLE_APPS = {"sobel": "only add8, add12 and sub10 units: no truth "
+                          "table to gather"}
+LOOP_CONFIGS, RAGGED = 8, 300
+# scalar labels against batched ones: the reference's bars
+# (tests/test_batch_oracle.py, benchmarks/dataset_bench.py): PPA is the
+# same float64 arithmetic, SSIM float32 reductions in another order; the
+# probe feature columns at tests/test_feature_schema.py's 1e-4
+PPA_RTOL, SSIM_ATOL, PROBE_ATOL = 1e-9, 2e-5, 1e-4
+
+
+def apps_slice_phase(card: str, dev, gaussian, n_samples: int = N_SAMPLES,
+                     n_layers: int = N_LAYERS, hidden: int = HIDDEN,
+                     chunk: int = CHUNK):
+    """Label and serve sobel, fir15, dct8 and k-means on ``dev``, then the
+    cross-app surrogate's per-app views of all five (``gaussian`` is the
+    slice phase's (app context, dataset)); returns (report, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.accel import apps, batch_oracle, synth
+    from repro_torch.core import dataset, gnn, graph, models, pipeline
+    from repro_torch.core.engine import SurrogateEngine
+    cuda = dev.type == "cuda"
+    report = {"card": card, "apps": {}, "labeling": {}}
+    reset_launch_counts()
+    contexts, datasets, pools = {"gaussian": gaussian[0]}, \
+        {"gaussian": gaussian[1]}, {}
+
+    def fresh_pool(name, n):
+        known = set(datasets[name].configs)
+        pool = [c for c in dataset.sample_configs(
+            contexts[name].app, n_samples + n + 64, seed=1,
+            lib_entries=contexts[name].entries) if c not in known][:n]
+        check(len(pool) == n, f"{name}: not enough fresh configurations")
+        return pool
+
+    def wall_ms(fn):
+        sync(dev)
+        t = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, (time.perf_counter() - t) * 1e3
+
+    for name in OTHER_APPS:
+        rep = {}
+        app_start = before = launch_counts()
+        ctx = pipeline.app_context(name, device=dev)
+        contexts[name] = ctx
+        ds, ms = wall_ms(lambda: dataset.build(
+            name, n_samples=n_samples, lib_entries=ctx.entries, device=dev))
+        datasets[name] = ds
+        rep["build_launches"] = counts_since(before)
+        # -- labels: the scalar path on the first configurations ----------
+        loop, loop_ms = wall_ms(lambda: dataset.build(
+            name, n_samples=LOOP_CONFIGS, lib_entries=ctx.entries,
+            label_backend="loop", device=dev))
+        batched8 = dataset.build(name, n_samples=LOOP_CONFIGS,
+                                 lib_entries=ctx.entries, device=dev)
+        report["labeling"][name] = {
+            "batched_configs": len(ds.configs), "batched_s": ms / 1e3,
+            "batched_configs_per_s": len(ds.configs) / (ms / 1e3),
+            "loop_configs": LOOP_CONFIGS, "loop_s": loop_ms / 1e3,
+            "loop_configs_per_s": LOOP_CONFIGS / (loop_ms / 1e3)}
+        check(loop.configs == ds.configs[:LOOP_CONFIGS] == batched8.configs,
+              f"{name}: the loop build sampled other configurations")
+        C8 = np.asarray(loop.configs, np.int64)
+        choices = [{u.id: ctx.entries[u.kind][i]
+                    for u, i in zip(ctx.app.unit_nodes, cfg)}
+                   for cfg in loop.configs]
+        scalar_crit = [synth.synthesize(ctx.app, ch)["critical_nodes"]
+                       for ch in choices]
+        batch_crit = batch_oracle.crit_sets(
+            batch_oracle.synthesize_batch(ctx.app, ctx.entries, C8))
+        check(scalar_crit == batch_crit,
+              f"{name}: scalar and batched critical sets differ")
+        check(np.array_equal(loop.crit, ds.crit[:LOOP_CONFIGS]),
+              f"{name}: loop crit bits differ from the batched build's")
+        ppa_rel = float(np.max(np.abs(loop.y_raw[:, :3] / ds.y_raw[
+            :LOOP_CONFIGS, :3] - 1)))
+        ssim_err = float(np.max(np.abs(loop.y_raw[:, 3]
+                                       - ds.y_raw[:LOOP_CONFIGS, 3])))
+        check(ppa_rel <= PPA_RTOL, f"{name}: loop PPA off by {ppa_rel}")
+        check(ssim_err <= SSIM_ATOL, f"{name}: loop SSIM off by {ssim_err}")
+        probe = [loop.schema.col("timing", f) for f in apps.PROBE_FIELDS]
+        exact = np.ones(loop.x.shape[-1], bool)
+        exact[probe] = False
+        probe_err = float(np.abs(loop.x[..., probe]
+                                 - batched8.x[..., probe]).max())
+        check(np.array_equal(loop.x[..., exact], batched8.x[..., exact]),
+              f"{name}: loop features differ from batched features")
+        check(probe_err <= PROBE_ATOL,
+              f"{name}: loop probe features off by {probe_err}")
+        rep["label_checks"] = {
+            "ppa_max_rel": ppa_rel, "ssim_max_abs": ssim_err,
+            "crit_sets_equal": scalar_crit == batch_crit,
+            "features_identical_outside_probe": bool(np.array_equal(
+                loop.x[..., exact], batched8.x[..., exact])),
+            "probe_features_max_abs": probe_err,
+            "features_identical": bool(np.array_equal(loop.x, batched8.x))}
+        # one 256-configuration labeling chunk, as the build runs it
+        before = launch_counts()
+        apps.accuracy_ssim_batch(ctx.app, ctx.entries, ds.configs[:256],
+                                 ctx.inp, ctx.exact_out)
+        sync(dev)
+        rep["labeling_chunk_launches"] = counts_since(before)
+        # -- the GNN engine at paper width --------------------------------
+        cfg = models.TwoStageConfig(gnn=gnn.GNNConfig(
+            arch="gsae", n_layers=n_layers, hidden=hidden,
+            feature_dim=ds.x.shape[-1]))
+        params = models.init(torch.Generator(device=dev).manual_seed(0),
+                             cfg, device=dev)
+        eng = SurrogateEngine.from_gnn(cfg, params, ds, ctx.app,
+                                       ctx.entries, chunk_size=chunk,
+                                       device=dev)
+        pools[name] = pool = fresh_pool(name, 3 * chunk + RAGGED)
+        fresh, ragged = pool[:chunk], pool[chunk:chunk + RAGGED]
+        before = launch_counts()
+        y_fresh, fresh_ms = wall_ms(lambda: eng(fresh))
+        rep["engine_chunk_launches"] = counts_since(before)
+        y_memo, memo_ms = wall_ms(lambda: eng(fresh))
+        y_ragged, ragged_ms = wall_ms(lambda: eng(ragged))
+        rep["requests_ms"] = {f"fresh {chunk}": fresh_ms,
+                              f"memo repeat {chunk}": memo_ms,
+                              f"ragged {RAGGED}": ragged_ms}
+        check(np.array_equal(y_memo, y_fresh),
+              f"{name}: memo rows differ from the first evaluation")
+        err = 0.0
+        for cfgs, y in ((fresh, y_fresh), (ragged, y_ragged)):
+            check(y.shape == (len(cfgs), 4) and np.isfinite(y).all(),
+                  f"{name}: engine rows {y.shape} or non-finite")
+            A, X, M = dataset.features_for_configs(ds, ctx.app, ctx.entries,
+                                                   cfgs, device=dev)
+            with torch.no_grad():
+                plain = models.predict(cfg, params, *(
+                    torch.from_numpy(v).to(dev) for v in (A, X, M))
+                )[0].cpu().numpy()
+            yn = y.copy()
+            yn[:, 3] = 1 - yn[:, 3]
+            err = max(err, float(np.abs((yn - ds.y_mean) / ds.y_std
+                                        - plain).max()))
+        check(err <= PARITY_ATOL,
+              f"{name}: engine vs models.predict: {err} > {PARITY_ATOL}")
+        rep["engine_vs_plain_max_abs"] = err
+        rep["engine_stats"] = eng.stats.as_dict()
+        if cuda:
+            # a warm fresh request's device time and idle share
+            rep["fresh_chunk_device_profile"] = device_profile(
+                lambda: eng(pool[chunk + RAGGED:2 * chunk + RAGGED]))
+        rep["launches"] = counts_since(app_start)
+        n_lut = rep["launches"]["lut_eval"]
+        check(not cuda or rep["launches"]["gnn_mp"] > 0,
+              f"{name}: gnn_mp was never launched")
+        if name in NO_TABLE_APPS:
+            rep["lut_eval_none_because"] = NO_TABLE_APPS[name]
+            check(n_lut == 0, f"{name}: lut_eval launched {n_lut} times")
+        else:
+            check(not cuda or n_lut > 0,
+                  f"{name}: lut_eval was never launched")
+        report["apps"][name] = rep
+
+    # -- the cross-app surrogate: one model, a view per app ----------------
+    before = launch_counts()
+    merged = dataset.merge(datasets)
+    cfg = models.TwoStageConfig(gnn=gnn.GNNConfig(
+        arch="gsae", n_layers=n_layers, hidden=hidden,
+        feature_dim=graph.MERGED_FEATURE_DIM))
+    params = models.init(torch.Generator(device=dev).manual_seed(1), cfg,
+                         device=dev)
+    shared = {"merged_rows": len(merged.y), "n_pad": merged.n_pad,
+              "feature_dim": merged.x.shape[-1], "views": {}}
+    check(merged.app_names == tuple(graph.APP_VOCAB),
+          f"merged apps {merged.app_names}")
+    for name in graph.APP_VOCAB:
+        ctx = contexts[name]
+        eng = SurrogateEngine.from_gnn_shared(cfg, params, merged, name,
+                                              ctx.entries, chunk_size=chunk,
+                                              device=dev)
+        cfgs = (pools[name][2 * chunk + RAGGED:] if name in pools
+                else fresh_pool(name, chunk))
+        y, ms = wall_ms(lambda: eng(cfgs))
+        X = eng.pipeline.prepare(cfgs)
+        view = merged.view(name)
+        block = graph.app_block(name, view.mask[0])
+        check(np.array_equal(X[..., graph.FEATURE_DIM:],
+                             np.broadcast_to(block, X.shape[:1] + block.shape)),
+              f"{name}: the shared view's features lack the app block")
+        B = len(cfgs)
+        adj = torch.from_numpy(view.adj[:1]).to(dev).expand(B, -1, -1)
+        mask = torch.from_numpy(view.mask[:1]).to(dev).expand(B, -1)
+        with torch.no_grad():
+            plain = models.predict(cfg, params, adj,
+                                   torch.from_numpy(X).to(dev),
+                                   mask)[0].cpu().numpy()
+        ds = merged.per_app[name]
+        yn = y.copy()
+        yn[:, 3] = 1 - yn[:, 3]
+        err = float(np.abs((yn - ds.y_mean) / ds.y_std - plain).max())
+        check(y.shape == (B, 4) and np.isfinite(y).all(),
+              f"{name}: shared view rows {y.shape} or non-finite")
+        check(err <= PARITY_ATOL, f"{name}: shared view vs models.predict:"
+              f" {err} > {PARITY_ATOL}")
+        shared["views"][name] = {"backend": eng.backend, "configs": B,
+                                 "wall_ms": ms,
+                                 "vs_plain_max_abs": err,
+                                 "engine_stats": eng.stats.as_dict()}
+    shared["launches"] = counts_since(before)
+    check(not cuda or shared["launches"]["gnn_mp"] > 0,
+          "gnn_mp was never launched by the shared views")
+    report["shared"] = shared
+
+    launches = launch_counts()
+    report["launches"] = launches
     return report, launches
 
 
@@ -919,8 +1180,17 @@ def main() -> int:
     print("kernel_shapes " + json.dumps({
         "card": card, "gnn_mp": gnn_rows, "lut_eval": lut_rows,
         "flash_attention": fa_rows, "ssm_scan": scan_rows}), flush=True)
-    report, launches = slice_phase(card, torch.device("cuda"))
+    report, launches, gaussian = slice_phase(card, torch.device("cuda"))
     print("slice " + json.dumps(report), flush=True)
+    apps_report, apps_launches = apps_slice_phase(card, torch.device("cuda"),
+                                                  gaussian)
+    print("apps_slice " + json.dumps(apps_report), flush=True)
+    del gaussian
+    # the accelerator main path: the Gaussian slice and the apps slice
+    routes = {r: n + apps_launches["lut_eval_routes"][r]
+              for r, n in launches["lut_eval_routes"].items()}
+    launches = {k: launches[k] + apps_launches[k]
+                for k in ("gnn_mp", "lut_eval")}
     from repro_torch.configs import get_arch
     lm_report, lm_launches = lm_slice_phase(card, torch.device("cuda"),
                                             get_arch(LM_ARCH))
@@ -945,7 +1215,7 @@ def main() -> int:
          "launches": launches["lut_eval"], "max_abs_err": lt["max_abs_err"],
          "ms": lt["ms"], "plain_ms": lt["plain_ms"],
          "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
-         "library_ms": lt["library_ms"]},
+         "library_ms": lt["library_ms"], "routes_on_main_path": routes},
     ]
     fr = fa_rows[0]            # the prefill shape: bf16, causal, S = 1024
     sr = scan_rows[0]          # the prefill shape, decay compact per head

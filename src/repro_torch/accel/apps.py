@@ -378,6 +378,19 @@ def ssim(a: torch.Tensor, b: torch.Tensor, data_range: float = 255.0
     return s.mean((-3, -2, -1))
 
 
+def accuracy_ssim(app: AccelDef, choice: Dict[str, lib.LibEntry],
+                  images: torch.Tensor,
+                  exact_out: torch.Tensor | None = None) -> float:
+    """SSIM of one configuration: the scalar functional model (one unit
+    callable per node, `make_impls`) on ``images``' device against the
+    exact design's output. The reference path of the batched
+    `accuracy_ssim_batch`."""
+    approx = app.run(make_impls(app, choice), images)
+    if exact_out is None:
+        exact_out = app.run(make_impls(app, exact_choice(app)), images)
+    return float(ssim(approx, exact_out))
+
+
 # --------------------------------------------------------------------------
 # functional probe (schema-v2 dynamic features)
 # --------------------------------------------------------------------------
@@ -414,6 +427,19 @@ def probe_inputs(app_name: str, size: int, device=None
     """(images, exact_out) for the functional probe at one scale —
     deterministic (PROBE_SEED), computed once per (app, size, device)."""
     return _probe_inputs(app_name, size, str(device_lib.resolve(device)))
+
+
+def probe_scalar(app: AccelDef, choice: Dict[str, lib.LibEntry],
+                 device=None) -> Dict[str, float]:
+    """Probe distortions {probe_err8, probe_err16} of one configuration
+    through the scalar functional model on ``device`` (the loop labeling
+    backend; the batched path is `batch_oracle.probe_batch`)."""
+    out = {}
+    for size in PROBE_SIZES:
+        inp, exact_out = probe_inputs(app.name, size, device)
+        out[f"probe_err{size}"] = 1.0 - accuracy_ssim(app, choice, inp,
+                                                      exact_out)
+    return out
 
 
 # --------------------------------------------------------------------------

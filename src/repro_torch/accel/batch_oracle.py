@@ -245,6 +245,12 @@ def probe_batch(app: apps_lib.AccelDef, entries: Dict[str, Sequence],
     return out
 
 
+def crit_sets(rep: Dict[str, np.ndarray]) -> List[set]:
+    """Per-config critical-node id sets (the scalar oracle's format)."""
+    ids = np.asarray(rep["node_ids"])
+    return [set(ids[row]) for row in rep["crit"]]
+
+
 def label_configs(app: apps_lib.AccelDef, entries: Dict[str, Sequence],
                   configs, images, exact_out=None, *, chunk: int = 256
                   ) -> Dict[str, np.ndarray]:

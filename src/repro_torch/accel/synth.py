@@ -5,6 +5,8 @@ unit and fixed-component figures, latency is the longest path through the
 dataflow DAG (node delay = unit latency + fanout wire delay), the critical
 path is every node on a longest path, and a sha256 hash of the
 configuration gives the deterministic run-to-run synthesis jitter.
+`static_timing` is the timing-only analysis behind the schema-v2 dynamic
+feature columns.
 """
 from __future__ import annotations
 
@@ -68,6 +70,79 @@ def wire_delay(g: nx.DiGraph, nid: str) -> float:
     return WIRE_DELAY_PER_FANOUT * max(g.out_degree(nid), 1)
 
 
+def _sweeps(app: AccelDef, ppa: Dict[str, Dict[str, float]]):
+    """Arrival-time sweep and the critical-path back-propagation:
+    ``(acyclic, order, delay, arrive, tmax, creq)``, where a node is
+    critical iff ``creq[nid] > -1e29`` (on some path achieving tmax, with
+    1e-9 tolerances, so the bits do not depend on float noise)."""
+    acyclic = acyclic_dataflow(app)
+    delay = {nid: ppa[nid]["latency"] + wire_delay(acyclic, nid)
+             for nid in acyclic.nodes}
+    order = list(nx.topological_sort(acyclic))
+    arrive = {nid: delay[nid] for nid in order}
+    for nid in order:
+        for _, v in acyclic.out_edges(nid):
+            arrive[v] = max(arrive[v], arrive[nid] + delay[v])
+    tmax = max(arrive.values())
+    creq = {nid: -1e30 for nid in order}
+    for nid in order:
+        if abs(arrive[nid] - tmax) < 1e-9:
+            creq[nid] = tmax
+    for nid in reversed(order):
+        for _, v in acyclic.out_edges(nid):
+            if creq[v] > -1e29 and abs(
+                    arrive[nid] + delay[v] - creq[v]) < 1e-9:
+                creq[nid] = max(creq[nid], arrive[nid])
+    return acyclic, order, delay, arrive, tmax, creq
+
+
+def static_timing(app: AccelDef, choice: Dict[str, lib.LibEntry],
+                  device=None) -> Dict[str, object]:
+    """Timing-only static analysis of one configuration, for the
+    schema-v2 dynamic timing block: ``{tmax, nodes}`` where
+    ``nodes[nid]`` has
+
+      on_critical_path  the bit of ``synthesize()['critical_nodes']``;
+      slack             (required - arrival) / tmax, from a min-based
+                        required-time sweep (sinks required at tmax);
+      criticality       arrival / tmax;
+      err_mae, err_wce  unit error profiles accumulated along the DAG,
+                        raw (`graph.reduce_timing` compresses them);
+      probe_err8/16     the functional-probe distortion
+                        (`apps.probe_scalar` on ``device``), identical on
+                        every node.
+
+    The scalar reference of `batch_oracle.timing_batch` and
+    `batch_oracle.probe_batch`."""
+    from repro_torch.accel import apps as apps_lib
+    acyclic, order, delay, arrive, tmax, creq = _sweeps(
+        app, node_ppa(app, choice))
+    req = {nid: (tmax if acyclic.out_degree(nid) == 0 else float("inf"))
+           for nid in order}
+    for nid in reversed(order):
+        for _, v in acyclic.out_edges(nid):
+            req[nid] = min(req[nid], req[v] - delay[v])
+    # each edge forwards its source's accumulated error mass once;
+    # topological order finalizes a source before its out-edges fire
+    err = {}
+    for key in ("mae", "wce"):
+        acc = {n.id: (0.0 if n.fixed else float(getattr(choice[n.id], key)))
+               for n in app.nodes}
+        for nid in order:
+            for _, v in acyclic.out_edges(nid):
+                acc[v] += acc[nid]
+        err[key] = acc
+    probe = apps_lib.probe_scalar(app, choice, device)
+    nodes = {nid: {"on_critical_path": float(creq[nid] > -1e29),
+                   "slack": (req[nid] - arrive[nid]) / tmax,
+                   "criticality": arrive[nid] / tmax,
+                   "err_mae": err["mae"][nid],
+                   "err_wce": err["wce"][nid],
+                   **probe}
+             for nid in order}
+    return {"tmax": float(tmax), "nodes": nodes}
+
+
 def synthesize(app: AccelDef, choice: Dict[str, lib.LibEntry]
                ) -> Dict[str, object]:
     """Returns {area, power, latency, critical_nodes (set), node_delay}
@@ -80,29 +155,9 @@ def synthesize(app: AccelDef, choice: Dict[str, lib.LibEntry]
     area = sum(p["area"] for p in ppa.values()) * _jitter(cfg_key + "A")
     dyn = sum(p["power"] for p in ppa.values())
     power = dyn * (1 + LEAKAGE_FRAC) * _jitter(cfg_key + "P")
-
-    acyclic = acyclic_dataflow(app)
-    delay = {nid: ppa[nid]["latency"] + wire_delay(acyclic, nid)
-             for nid in acyclic.nodes}
-    order = list(nx.topological_sort(acyclic))
-    arrive = {nid: delay[nid] for nid in order}
-    for nid in order:
-        for _, v in acyclic.out_edges(nid):
-            arrive[v] = max(arrive[v], arrive[nid] + delay[v])
-    tmax = max(arrive.values())
+    _, order, delay, _, tmax, creq = _sweeps(app, ppa)
     latency = tmax * _jitter(cfg_key + "L")
-
-    # critical nodes: on some path achieving the max arrival
-    req = {nid: -1e30 for nid in order}
-    for nid in order:
-        if abs(arrive[nid] - tmax) < 1e-9:
-            req[nid] = tmax
-    for nid in reversed(order):
-        for _, v in acyclic.out_edges(nid):
-            if req[v] > -1e29 and abs(
-                    arrive[nid] + delay[v] - req[v]) < 1e-9:
-                req[nid] = max(req[nid], arrive[nid])
-    crit: Set[str] = {nid for nid in order if req[nid] > -1e29}
+    crit: Set[str] = {nid for nid in order if creq[nid] > -1e29}
     return {"area": float(area), "power": float(power),
             "latency": float(latency), "critical_nodes": crit,
             "node_delay": delay}

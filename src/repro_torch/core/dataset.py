@@ -4,12 +4,14 @@ Random sampling over the (pruned) design space with symmetric-structure
 deduplication (NumPy ``default_rng``, so the same configs as
 `repro.core.dataset`); labels from the batched synthesis oracle (PPA +
 critical path, NumPy) and the config-batched functional model (SSIM, on
-the requested device through the `lut_eval` kernel). Features and labels
-are NumPy arrays; `ConfigFeaturizer` caches every config-independent
-column.
+the requested device through the `lut_eval` kernel), or from the scalar
+reference path (``label_backend="loop"``). Features and labels are NumPy
+arrays; `ConfigFeaturizer` caches every config-independent column.
+`merge` joins per-app datasets into the cross-app `MergedDataset`.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import warnings
 from dataclasses import dataclass
@@ -21,6 +23,7 @@ from repro_torch import device as device_lib
 from repro_torch.accel import apps as apps_lib
 from repro_torch.accel import batch_oracle
 from repro_torch.accel import library as lib
+from repro_torch.accel import synth
 from repro_torch.core import graph as graph_lib
 from repro_torch.data import images as images_lib
 
@@ -57,8 +60,165 @@ class AccelDataset:
     def schema(self) -> graph_lib.FeatureSchema:
         return graph_lib.schema_for(self.schema_version)
 
+    # Every config of one accelerator shares the graph topology, so adj,
+    # mask and unit_mask are B identical rows: a pickle keeps one row and
+    # the count. The featurizer cache (`featurizer_for`) is keyed by a
+    # device and rebuilt on demand, so a pickle never carries it.
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state.pop("_featurizers", None)
+        for k in ("adj", "mask", "unit_mask"):
+            v = state[k]
+            if isinstance(v, np.ndarray) and v.shape[0] > 1 and \
+                    (v == v[:1]).all():
+                state[k] = ("__const_rows__", np.ascontiguousarray(v[0]),
+                            v.shape[0])
+        return state
+
+    def __setstate__(self, state):
+        for k, v in state.items():
+            if isinstance(v, tuple) and len(v) == 3 and \
+                    v[0] == "__const_rows__":
+                state[k] = np.broadcast_to(
+                    v[1], (v[2],) + v[1].shape).copy()
+        self.__dict__.update(state)
+
+    def split(self, frac: float = 0.9):
+        """(first ``frac`` of the rows, the rest)."""
+        n = int(len(self.y) * frac)
+
+        def take(sel):
+            return dataclasses.replace(
+                self, adj=self.adj[sel], x=self.x[sel], mask=self.mask[sel],
+                unit_mask=self.unit_mask[sel], y=self.y[sel],
+                y_raw=self.y_raw[sel], crit=self.crit[sel],
+                configs=self.configs[sel])
+        return take(slice(None, n)), take(slice(n, None))
+
     def denorm_y(self, y: np.ndarray) -> np.ndarray:
         return y * self.y_std + self.y_mean
+
+    def flat_features(self) -> np.ndarray:
+        """Flat per-graph vector of the masked unit-stats block: the
+        random-forest baseline's input."""
+        B = self.x.shape[0]
+        us = self.schema.sl("unit_stats")
+        return (self.x[..., us] * self.mask[..., None]).reshape(B, -1)
+
+
+@dataclass
+class MergedDataset:
+    """Union of per-app datasets on a common pad width, for the cross-app
+    unified surrogate.
+
+    Feature rows are each app's own-normalized features with the one-hot
+    app block of `graph.APP_VOCAB` appended, so the feature dim is
+    ``graph.MERGED_FEATURE_DIM`` for any app subset. Targets stay
+    normalized per app (`denorm_rows` and the engine's per-app views use
+    each app's y stats). Rows are shuffled at merge time, so `split`
+    gives app-mixed train and test sets; `app_ids` records provenance.
+    """
+    app_names: Tuple[str, ...]
+    adj: np.ndarray          # (B,N,N) normalized, N = common n_pad
+    x: np.ndarray            # (B,N,MERGED_FEATURE_DIM) crit bit zeroed
+    mask: np.ndarray         # (B,N)
+    unit_mask: np.ndarray    # (B,N)
+    y: np.ndarray            # (B,4) per-app normalized
+    y_raw: np.ndarray        # (B,4)
+    crit: np.ndarray         # (B,N)
+    app_ids: np.ndarray      # (B,) index into app_names
+    configs: List[Tuple[int, ...]]
+    per_app: Dict[str, AccelDataset]
+
+    _ROW_FIELDS = ("adj", "x", "mask", "unit_mask", "y", "y_raw", "crit",
+                   "app_ids")
+
+    def _take(self, sel) -> "MergedDataset":
+        """Rows by slice or boolean mask: the one place the per-row fields
+        are listed."""
+        kw = {k: getattr(self, k)[sel] for k in self._ROW_FIELDS}
+        if isinstance(sel, slice):
+            kw["configs"] = self.configs[sel]
+        else:
+            kw["configs"] = [c for c, keep in zip(self.configs, sel) if keep]
+        return dataclasses.replace(self, **kw)
+
+    def split(self, frac: float = 0.9):
+        n = int(len(self.y) * frac)
+        return self._take(slice(None, n)), self._take(slice(n, None))
+
+    def view(self, app_name: str) -> "MergedDataset":
+        """The rows of one app."""
+        return self._take(self.app_ids == self.app_names.index(app_name))
+
+    def denorm_rows(self, y: np.ndarray,
+                    app_ids: Optional[np.ndarray] = None) -> np.ndarray:
+        """Denormalize each row with its own app's y stats."""
+        ids = self.app_ids if app_ids is None else app_ids
+        mean = np.stack([self.per_app[a].y_mean for a in self.app_names])
+        std = np.stack([self.per_app[a].y_std for a in self.app_names])
+        return y * std[ids] + mean[ids]
+
+    @property
+    def n_pad(self) -> int:
+        return self.x.shape[1]
+
+
+def _pad_nodes(a: np.ndarray, n_pad: int, is_adj: bool = False
+               ) -> np.ndarray:
+    """Zero-pad the node axis (axis 1, and axis 2 when ``is_adj``) to
+    n_pad. The adjacency is flagged, not sniffed from the shape: a
+    (B, N, F) feature tensor may have N == F."""
+    n = a.shape[1]
+    if n == n_pad:
+        return a
+    if n > n_pad:
+        raise ValueError(f"cannot pad {n} nodes down to {n_pad}")
+    widths = [(0, 0), (0, n_pad - n)] + [(0, 0)] * (a.ndim - 2)
+    if is_adj:
+        widths[2] = (0, n_pad - n)
+    return np.pad(a, widths)
+
+
+def merge(datasets: Dict[str, AccelDataset], n_pad: Optional[int] = None,
+          shuffle_seed: int = 0) -> MergedDataset:
+    """Merge per-app datasets (any subset of `graph.APP_VOCAB`, one app
+    included) into one cross-app training set. All must share one feature
+    schema; node counts may differ and are padded to ``n_pad`` (default:
+    the widest input). The row order is ``default_rng(shuffle_seed)``'s
+    permutation, as in `repro.core.dataset.merge`."""
+    if not datasets:
+        raise ValueError("merge() needs at least one dataset")
+    names = tuple(sorted(datasets, key=graph_lib.APP_VOCAB.index))
+    versions = {datasets[a].schema_version for a in names}
+    if len(versions) != 1:
+        raise ValueError(f"merge() needs one feature-schema version, got "
+                         f"{sorted(versions)}: rebuild the stale datasets")
+    schema = graph_lib.schema_for(versions.pop())
+    dims = {datasets[a].x.shape[-1] for a in names}
+    if dims != {schema.dim}:
+        raise ValueError(f"merge() expects base feature dim {schema.dim} "
+                         f"(schema v{schema.version}), got {sorted(dims)}")
+    n_pad = n_pad or max(datasets[a].x.shape[1] for a in names)
+    parts = {k: [] for k in MergedDataset._ROW_FIELDS}
+    cfgs: List[Tuple[int, ...]] = []
+    for i, a in enumerate(names):
+        ds = datasets[a]
+        m = _pad_nodes(ds.mask, n_pad)
+        parts["adj"].append(_pad_nodes(ds.adj, n_pad, is_adj=True))
+        parts["x"].append(graph_lib.with_app_block(_pad_nodes(ds.x, n_pad),
+                                                   m, a))
+        parts["mask"].append(m)
+        parts["unit_mask"].append(_pad_nodes(ds.unit_mask, n_pad))
+        parts["y"].append(ds.y)
+        parts["y_raw"].append(ds.y_raw)
+        parts["crit"].append(_pad_nodes(ds.crit, n_pad))
+        parts["app_ids"].append(np.full(len(ds.y), i, np.int64))
+        cfgs.extend(ds.configs)
+    perm = np.random.default_rng(shuffle_seed).permutation(len(cfgs))
+    rows = {k: np.concatenate(v, 0)[perm] for k, v in parts.items()}
+    return MergedDataset(names, configs=[cfgs[j] for j in perm],
+                         per_app={a: datasets[a] for a in names}, **rows)
 
 
 def canonical(app: apps_lib.AccelDef, config: Dict[str, int]
@@ -266,10 +426,16 @@ def build(app_name: str, n_samples: int = 2000, seed: int = 0,
           n_images: int = 4, img_size: int = 64,
           lib_entries: Optional[Dict[str, Sequence]] = None,
           simplify_graph: bool = True, n_pad: int = 32,
-          label_chunk: int = 256, device=None) -> AccelDataset:
-    """Sample ``n_samples`` configurations and label them: synthesis PPA
-    and critical bits on the host, SSIM through the config-batched
-    functional model on ``device`` (default: the CUDA card)."""
+          label_backend: str = "batched", label_chunk: int = 256,
+          device=None) -> AccelDataset:
+    """Sample ``n_samples`` configurations and label them on ``device``
+    (default: the CUDA card).
+
+    ``label_backend="batched"`` labels the whole block at once: synthesis
+    PPA and critical bits in NumPy, SSIM through the config-batched
+    functional model (`lut_eval`). ``"loop"`` is the scalar reference: one
+    `synth.synthesize`, `apps.accuracy_ssim` and `synth.static_timing`
+    call per configuration, then `graph.pad_batch`."""
     dev = device_lib.resolve(device)
     app = apps_lib.APPS[app_name]
     g = graph_lib.build_graph(app, simplify=simplify_graph)
@@ -282,24 +448,45 @@ def build(app_name: str, n_samples: int = 2000, seed: int = 0,
                         inp)
 
     configs = sample_configs(app, n_samples, seed, lib_entries=entries)
-    C = np.asarray(configs, np.int64)
-    rep = batch_oracle.synthesize_batch(app, entries, C)
-    acc = apps_lib.accuracy_ssim_batch(app, entries, C, inp, exact_out,
-                                       chunk=label_chunk)
-    y_raw = np.stack([rep["area"], rep["power"], rep["latency"], acc],
-                     axis=1).astype(np.float32)
-    # map app-node critical bits onto the (possibly merged) graph nodes
-    pos = {nid: a for a, nid in enumerate(rep["node_ids"])}
-    memb = np.zeros((len(g.node_ids), len(rep["node_ids"])), np.float32)
-    for i, members in enumerate(g.merged_from):
-        for m in members:
-            memb[i, pos[m]] = 1.0
-    crit_graph = (rep["crit"].astype(np.float32)
-                  @ memb.T > 0).astype(np.float32)
-    feat = ConfigFeaturizer(g, app, entries, n_pad, device=dev)
-    X = feat.raw(C, crit=crit_graph)
-    A = np.broadcast_to(feat.adj, (len(configs),) + feat.adj.shape).copy()
-    M = np.broadcast_to(feat.mask, (len(configs),) + feat.mask.shape).copy()
+    if label_backend == "batched":
+        C = np.asarray(configs, np.int64)
+        rep = batch_oracle.synthesize_batch(app, entries, C)
+        acc = apps_lib.accuracy_ssim_batch(app, entries, C, inp, exact_out,
+                                           chunk=label_chunk)
+        y_raw = np.stack([rep["area"], rep["power"], rep["latency"], acc],
+                         axis=1).astype(np.float32)
+        # map app-node critical bits onto the (possibly merged) graph nodes
+        pos = {nid: a for a, nid in enumerate(rep["node_ids"])}
+        memb = np.zeros((len(g.node_ids), len(rep["node_ids"])), np.float32)
+        for i, members in enumerate(g.merged_from):
+            for m in members:
+                memb[i, pos[m]] = 1.0
+        crit_graph = (rep["crit"].astype(np.float32)
+                      @ memb.T > 0).astype(np.float32)
+        feat = ConfigFeaturizer(g, app, entries, n_pad, device=dev)
+        X = feat.raw(C, crit=crit_graph)
+        A = np.broadcast_to(feat.adj, (len(configs),) + feat.adj.shape).copy()
+        M = np.broadcast_to(feat.mask,
+                            (len(configs),) + feat.mask.shape).copy()
+    elif label_backend == "loop":
+        schema = graph_lib.ACTIVE_SCHEMA
+        feats, ys = [], []
+        for cfg in configs:
+            choice = {node.id: entries[node.kind][i]
+                      for node, i in zip(app.unit_nodes, cfg)}
+            rep = synth.synthesize(app, choice)
+            acc = apps_lib.accuracy_ssim(app, choice, inp, exact_out)
+            timing = (synth.static_timing(app, choice, dev)["nodes"]
+                      if schema.dynamic_fields else None)
+            feats.append(graph_lib.node_features(
+                g, app, choice, crit_nodes=rep["critical_nodes"],
+                timing=timing, schema=schema))
+            ys.append([rep["area"], rep["power"], rep["latency"], acc])
+        A, X, M = graph_lib.pad_batch([g.adj] * len(feats), feats, n_pad)
+        y_raw = np.asarray(ys, np.float32)
+    else:
+        raise ValueError(f"label_backend must be 'batched' or 'loop', "
+                         f"got {label_backend!r}")
 
     schema = graph_lib.ACTIVE_SCHEMA
     crit = X[..., schema.crit_index].copy()

@@ -20,13 +20,17 @@ that the search drives, as in `repro.core.engine`:
   and a NaN guard that re-evaluates non-finite rows and quarantines
   configs whose rows stay non-finite (served as +inf).
 
-On the card, the GNN engine runs every message-passing layer of the gcn
-and gsae architectures through the CUDA `gnn_mp` kernel; there is no
-fallback to another path. The engine serves one device; sharding a wave
-over several cards (``devices > 1``) comes later.
+On the card, the GNN engines (`from_gnn`, and `from_gnn_shared`, the
+per-app view of the cross-app surrogate) run every message-passing layer
+of the gcn and gsae architectures through the CUDA `gnn_mp` kernel; there
+is no fallback to another path. `from_rforest` serves the random-forest
+baseline and `from_oracle` the ground truth. The engine serves one
+device; sharding a wave over several cards (``devices > 1``) comes
+later.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import queue as queue_lib
 import threading
@@ -63,7 +67,8 @@ class EngineStats:
     retries and quarantined the fault handling; eval_time_s/wall_time_s
     the time in the backend and in the engine; featurize_s/dispatch_s/
     collect_s/overlapped_s the pipelined backend's phases (overlapped_s is
-    featurization hidden behind device work).
+    featurization hidden behind device work); devices the device count
+    the backend serves (kept across `SurrogateEngine.reset_stats`).
     """
     calls: int = 0
     configs: int = 0
@@ -78,6 +83,7 @@ class EngineStats:
     quarantined: int = 0
     eval_time_s: float = 0.0
     wall_time_s: float = 0.0
+    devices: int = 1
     featurize_s: float = 0.0
     dispatch_s: float = 0.0
     collect_s: float = 0.0
@@ -100,9 +106,45 @@ class EngineStats:
                     setattr(self, name, v)
 
     @property
+    def cache_hit_rate(self) -> float:
+        return self.cache_hits / self.configs if self.configs else 0.0
+
+    @property
+    def configs_per_sec(self) -> float:
+        return self.configs / self.wall_time_s if self.wall_time_s else 0.0
+
+    @property
     def batch_occupancy(self) -> float:
         """Mean submissions coalesced per drain wave."""
         return self.submits / self.drains if self.drains else 0.0
+
+    @property
+    def padded_fraction(self) -> float:
+        """Share of backend rows that were ragged-chunk padding."""
+        total = self.evaluated + self.padded
+        return self.padded / total if total else 0.0
+
+    @property
+    def overlap_fraction(self) -> float:
+        """Share of host featurization hidden behind device work."""
+        return self.overlapped_s / self.featurize_s \
+            if self.featurize_s else 0.0
+
+    def as_dict(self) -> Dict[str, float]:
+        """A snapshot of every counter (seconds rounded to 0.1 ms) and the
+        derived rates, with the keys of `repro.core.engine.EngineStats`."""
+        with self._lock:
+            snap = EngineStats(**{f.name: getattr(self, f.name)
+                                  for f in dataclasses.fields(self)})
+        out = {f.name: getattr(snap, f.name) for f in dataclasses.fields(snap)}
+        out = {k: round(v, 4) if isinstance(v, float) else v
+               for k, v in out.items()}
+        out.update(cache_hit_rate=round(snap.cache_hit_rate, 4),
+                   configs_per_sec=round(snap.configs_per_sec, 1),
+                   batch_occupancy=round(snap.batch_occupancy, 3),
+                   padded_fraction=round(snap.padded_fraction, 4),
+                   overlap_fraction=round(snap.overlap_fraction, 4))
+        return out
 
 
 # --------------------------------------------------------------------------
@@ -203,7 +245,9 @@ class SurrogateEngine:
         batch_fn:    ``configs -> (len(configs), n_obj)`` backend, or a
                      `PipelinedBackend` whose phases the engine overlaps.
         backend:     label for stats/reporting.
-        chunk_size:  maximum configs per backend call.
+        chunk_size:  maximum configs per backend call; ``None`` sends the
+                     whole miss list in one call (`queued_view`, whose
+                     coalescing belongs to the drain side).
         overlap:     pipeline multi-chunk calls when the backend is a
                      `PipelinedBackend` (``None`` = exactly then).
         fixed_shape: pad a ragged final chunk up to a power-of-two bucket.
@@ -219,13 +263,17 @@ class SurrogateEngine:
     """
 
     def __init__(self, batch_fn: BatchFn, *, backend: str = "generic",
-                 chunk_size: int = 512, fixed_shape: bool = False,
+                 chunk_size: Optional[int] = 512, fixed_shape: bool = False,
                  overlap: Optional[bool] = None, cache: bool = True,
                  max_cache: int = 1_000_000, retry=None,
                  nan_guard: bool = True, nan_retries: int = 2,
                  schema_version: Optional[int] = None):
-        if chunk_size < 1:
-            raise ValueError("chunk_size must be >= 1")
+        if chunk_size is not None and chunk_size < 1:
+            raise ValueError("chunk_size must be >= 1 (or None to "
+                             "disable chunking)")
+        if chunk_size is None and fixed_shape:
+            raise ValueError("fixed_shape needs chunking: power-of-two "
+                             "buckets are capped at chunk_size")
         self._batch_fn = batch_fn
         # the backend's phases, when it has them (None otherwise)
         self.pipeline = batch_fn if isinstance(batch_fn, PipelinedBackend) \
@@ -235,7 +283,7 @@ class SurrogateEngine:
         self._warned_padding = False
         self.backend = backend
         self.schema_version = schema_version
-        self.chunk_size = int(chunk_size)
+        self.chunk_size = None if chunk_size is None else int(chunk_size)
         self.fixed_shape = fixed_shape
         self.cache_enabled = cache
         self.max_cache = max_cache
@@ -244,7 +292,8 @@ class SurrogateEngine:
         self.nan_retries = int(nan_retries)
         self.quarantined: set = set()
         self._cache: Dict[Config, np.ndarray] = {}
-        self.stats = EngineStats()
+        self.devices = 1
+        self.stats = EngineStats(devices=self.devices)
         self._lock = threading.RLock()
         self._queue: List[Tuple[List[Config], Future]] = []
         self._queue_cv = threading.Condition()
@@ -289,6 +338,20 @@ class SurrogateEngine:
                 del self._cache[k]
         self.stats.update(wall_time_s=time.perf_counter() - t_wall)
         return out
+
+    def reset_stats(self) -> None:
+        """Zero the counters (the cache and the device count are kept)."""
+        with self._lock:
+            self.stats = EngineStats(devices=self.devices)
+
+    def clear_cache(self) -> None:
+        """Drop all memoized rows."""
+        with self._lock:
+            self._cache.clear()
+
+    @property
+    def cache_size(self) -> int:
+        return len(self._cache)
 
     # -- cross-request batching queue --------------------------------------
 
@@ -344,6 +407,32 @@ class SurrogateEngine:
             off += len(cfgs)
         return len(batch)
 
+    def abort_pending(self, exc: Optional[BaseException] = None) -> int:
+        """Fail every queued submission (service shutdown); returns how
+        many."""
+        with self._queue_cv:
+            batch, self._queue = self._queue, []
+        exc = exc or RuntimeError("engine queue aborted")
+        for _, fut in batch:
+            fut.set_exception(exc)
+        return len(batch)
+
+    def queued_view(self, *, cache: bool = True,
+                    timeout: Optional[float] = 120.0) -> "SurrogateEngine":
+        """A per-request engine whose backend is ``submit(...).result()``
+        on this shared engine: every holder of a view takes part in
+        cross-request batching while keeping its own stats and memo. The
+        view does no chunking or padding of its own (``chunk_size=None``),
+        so one query is one submission."""
+        parent = self
+
+        def batch_fn(configs: Sequence[Config]) -> np.ndarray:
+            return parent.submit(configs).result(timeout=timeout)
+
+        return SurrogateEngine(batch_fn, backend=f"queued:{self.backend}",
+                               chunk_size=None, fixed_shape=False,
+                               cache=cache)
+
     # -- chunking ----------------------------------------------------------
 
     def _bucket(self, n: int) -> int:
@@ -384,12 +473,14 @@ class SurrogateEngine:
 
     def _plan_chunks(self, configs: List[Config]
                      ) -> List[Tuple[int, int, List[Config]]]:
-        """``(start, take, padded_chunk)`` work items; fixed-shape padding
-        up to the power-of-two bucket is applied and counted here."""
+        """``(start, take, padded_chunk)`` work items (one for the whole
+        list when ``chunk_size`` is None); fixed-shape padding up to the
+        power-of-two bucket is applied and counted here."""
         plan: List[Tuple[int, int, List[Config]]] = []
         i, n = 0, len(configs)
+        size = n if self.chunk_size is None else self.chunk_size
         while i < n:
-            take = min(self.chunk_size, n - i)
+            take = min(size, n - i)
             chunk = configs[i:i + take]
             if self.fixed_shape and take < self.chunk_size:
                 b = self._bucket(take)
@@ -521,12 +612,8 @@ class SurrogateEngine:
         normalized outputs) raises.
         """
         from repro_torch.core import dataset as ds_lib
-        from repro_torch.core import models
 
-        if devices != 1:
-            raise NotImplementedError(
-                "SurrogateEngine serves one device; sharding a chunk over "
-                "several devices is not ported yet")
+        _one_device(devices)
         dev = device_lib.resolve(device)
         feat = ds_lib.featurizer_for(ds, app, entries, dev)
         sv = two_cfg.schema_version
@@ -535,45 +622,84 @@ class SurrogateEngine:
                 f"model was trained on feature schema v{sv} but the "
                 f"dataset featurizes with v{feat.schema.version} — "
                 f"rebuild the stale artifact")
-        params = models.TwoStageParams(*(_to_device(p, dev) for p in params))
-        predict = _make_predict(two_cfg, params, feat.adj, feat.mask, dev)
-        kernel_path = two_cfg.gnn.arch in ("gcn", "gsae")
-        backend = ("gnn_mp" if dev.type == "cuda" else "torch") \
-            if kernel_path else "torch"
-        if kernel_path:
-            Xp = torch.from_numpy(feat.normalized(
-                _probe_configs(feat.sizes))).to(dev)
-            B = Xp.shape[0]
-            adj = torch.from_numpy(feat.adj).to(dev).expand(B, -1, -1)
-            mask = torch.from_numpy(feat.mask).to(dev).expand(B, -1)
-            with torch.no_grad():
-                got = predict(Xp)
-                want = models.predict(two_cfg, params, adj, Xp, mask)[0]
-            err = float((got - want).abs().max())
-            if not err <= parity_atol:
-                raise RuntimeError(
-                    f"gnn_mp layer path disagrees with models.predict on "
-                    f"the probe batch: max |diff| {err} > {parity_atol}")
+        pb, backend = _gnn_backend(two_cfg, params, feat, feat.normalized,
+                                   ds.denorm_y, dev, parity_atol)
+        return cls(pb, backend=backend, chunk_size=chunk_size,
+                   fixed_shape=True, cache=cache, overlap=overlap,
+                   schema_version=sv)
 
-        def prepare(configs):
-            return feat.normalized(configs)     # host: lookup + dynamic sweep
+    @classmethod
+    def from_gnn_shared(cls, two_cfg, params, merged, app_name: str,
+                        entries: Dict[str, Sequence], *,
+                        chunk_size: int = 512, cache: bool = True,
+                        devices: int = 1, overlap: Optional[bool] = None,
+                        parity_atol: float = 2e-3, device=None
+                        ) -> "SurrogateEngine":
+        """Per-app view of the cross-app unified surrogate on ``device``.
 
-        def dispatch(X):
-            Xt = torch.from_numpy(X)
-            if dev.type == "cuda":
-                Xt = Xt.pin_memory().to(dev, non_blocking=True)
-            with torch.no_grad():
-                return predict(Xt)              # launches, does not wait
+        ``merged`` is the `dataset.MergedDataset` the shared ``params``
+        (one two-stage model over the merged feature layout) were fitted
+        on. The view featurizes with the app's own `ConfigFeaturizer` at
+        the merged pad width, appends the app-identity block and
+        denormalizes with the app's y stats; the model runs as in
+        `from_gnn` (`gnn_mp` in every gcn/gsae layer on the card, held
+        against `models.predict` at construction).
+        """
+        from repro_torch.accel import apps as apps_lib
+        from repro_torch.core import dataset as ds_lib
+        from repro_torch.core import graph as graph_lib
 
-        def collect(y_dev):
-            y = y_dev.cpu().numpy()             # waits for the device
-            y = ds.denorm_y(y)
-            y[:, 3] = 1 - y[:, 3]               # ssim -> 1-ssim (minimize)
-            return y
+        _one_device(devices)
+        if app_name not in merged.per_app:
+            raise ValueError(f"{app_name!r} not in merged dataset "
+                             f"{merged.app_names}")
+        dev = device_lib.resolve(device)
+        ds = merged.per_app[app_name]
+        feat = ds_lib.ConfigFeaturizer(ds.graph, apps_lib.APPS[app_name],
+                                       entries, merged.n_pad,
+                                       schema=ds.schema, device=dev)
+        feat.set_norm(ds.x_mean, ds.x_std)
+        block = graph_lib.app_block(app_name, feat.mask)      # (N, A)
 
-        return cls(PipelinedBackend(prepare, dispatch, collect),
-                   backend=backend, chunk_size=chunk_size, fixed_shape=True,
-                   cache=cache, overlap=overlap, schema_version=sv)
+        def featurize(configs):
+            X = feat.normalized(configs)
+            return np.concatenate(
+                [X, np.broadcast_to(block, (X.shape[0],) + block.shape)],
+                axis=-1)
+
+        pb, backend = _gnn_backend(two_cfg, params, feat, featurize,
+                                   ds.denorm_y, dev, parity_atol)
+        return cls(pb, backend=f"{backend}-shared", chunk_size=chunk_size,
+                   fixed_shape=True, cache=cache, overlap=overlap,
+                   schema_version=feat.schema.version)
+
+    @classmethod
+    def from_rforest(cls, rf_models: Dict[int, Any], ds, app,
+                     entries: Dict[str, Sequence], *,
+                     chunk_size: int = 4096, cache: bool = True,
+                     device=None) -> "SurrogateEngine":
+        """Random-forest engine (the AutoAX baseline): the per-target
+        forests (`core.rforest`, NumPy on the host) on the flat masked
+        unit-stats block of the dataset's featurizer, as
+        `AccelDataset.flat_features` lays it out. The featurizer's probe
+        runs on ``device`` (default: the CUDA card)."""
+        from repro_torch.core import dataset as ds_lib
+
+        feat = ds_lib.featurizer_for(ds, app, entries,
+                                     device_lib.resolve(device))
+        us = feat.schema.sl("unit_stats")
+
+        def batch_fn(configs):
+            X = feat.normalized(configs)[:, :, us].reshape(len(configs), -1)
+            preds = np.stack(
+                [rf_models[i].predict(X) * ds.y_std[i] + ds.y_mean[i]
+                 for i in range(4)], 1)
+            preds[:, 3] = 1 - preds[:, 3]
+            return preds
+
+        return cls(batch_fn, backend="rforest", chunk_size=chunk_size,
+                   fixed_shape=False, cache=cache,
+                   schema_version=feat.schema.version)
 
     @classmethod
     def from_oracle(cls, app, entries: Dict[str, Sequence], inp, exact_out,
@@ -589,6 +715,58 @@ class SurrogateEngine:
 
         return cls(batch_fn, backend="oracle", chunk_size=chunk_size,
                    cache=cache)
+
+
+def _one_device(devices: int) -> None:
+    if devices != 1:
+        raise NotImplementedError(
+            "SurrogateEngine serves one device; sharding a chunk over "
+            "several devices is not ported yet")
+
+
+def _gnn_backend(two_cfg, params, feat, featurize: Callable, denorm_y,
+                 dev: torch.device, parity_atol: float
+                 ) -> Tuple[PipelinedBackend, str]:
+    """The GNN engines' pipelined backend and its label: ``featurize``
+    on the host, the two-stage model on ``dev`` over ``feat``'s adjacency
+    and mask, ``denorm_y`` and the ssim flip on collect. For gcn/gsae the
+    `gnn_mp` layer path is first held against `models.predict` on a
+    small probe batch."""
+    from repro_torch.core import models
+
+    params = models.TwoStageParams(*(_to_device(p, dev) for p in params))
+    predict = _make_predict(two_cfg, params, feat.adj, feat.mask, dev)
+    kernel_path = two_cfg.gnn.arch in ("gcn", "gsae")
+    backend = ("gnn_mp" if dev.type == "cuda" else "torch") \
+        if kernel_path else "torch"
+    if kernel_path:
+        Xp = torch.from_numpy(featurize(_probe_configs(feat.sizes))).to(dev)
+        B = Xp.shape[0]
+        adj = torch.from_numpy(feat.adj).to(dev).expand(B, -1, -1)
+        mask = torch.from_numpy(feat.mask).to(dev).expand(B, -1)
+        with torch.no_grad():
+            got = predict(Xp)
+            want = models.predict(two_cfg, params, adj, Xp, mask)[0]
+        err = float((got - want).abs().max())
+        if not err <= parity_atol:
+            raise RuntimeError(
+                f"gnn_mp layer path disagrees with models.predict on "
+                f"the probe batch: max |diff| {err} > {parity_atol}")
+
+    def dispatch(X):
+        Xt = torch.from_numpy(X)
+        if dev.type == "cuda":
+            Xt = Xt.pin_memory().to(dev, non_blocking=True)
+        with torch.no_grad():
+            return predict(Xt)              # launches, does not wait
+
+    def collect(y_dev):
+        y = y_dev.cpu().numpy()             # waits for the device
+        y = denorm_y(y)
+        y[:, 3] = 1 - y[:, 3]               # ssim -> 1-ssim (minimize)
+        return y
+
+    return PipelinedBackend(featurize, dispatch, collect), backend
 
 
 def _probe_configs(sizes: Sequence[int], n: int = 4) -> List[Config]:

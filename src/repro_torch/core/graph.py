@@ -206,6 +206,13 @@ def app_block(app_name: str, mask: np.ndarray) -> np.ndarray:
     return block
 
 
+def with_app_block(x: np.ndarray, mask: np.ndarray,
+                   app_name: str) -> np.ndarray:
+    """Append the app-identity one-hot block to a feature tensor."""
+    return np.concatenate([x, app_block(app_name, mask)],
+                          axis=-1).astype(np.float32)
+
+
 @dataclass(frozen=True)
 class SimpleGraph:
     node_ids: Tuple[str, ...]
@@ -280,8 +287,8 @@ def normalized_adjacency(adj: np.ndarray) -> np.ndarray:
 # graph node: the merged node keeps its tightest slack (consistent with
 # the any-member crit bit: a zero-slack member makes the merge critical)
 # and the worst-case criticality / accumulated error mass of its members.
-# `ConfigFeaturizer` follows this table; the err fields are
-# log1p-compressed AFTER reduction.
+# `reduce_timing` (scalar) and `ConfigFeaturizer` (batched) follow this
+# table; the err fields are log1p-compressed AFTER reduction.
 DYNAMIC_REDUCE = {"slack": "min", "criticality": "max",
                   "err_mae": "max", "err_wce": "max",
                   # probe fields are graph-level (identical across
@@ -290,18 +297,29 @@ DYNAMIC_REDUCE = {"slack": "min", "criticality": "max",
 _LOG1P_FIELDS = ("err_mae", "err_wce")
 
 
+def reduce_timing(field: str, values: Sequence[float]) -> float:
+    """Reduce one dynamic-timing field over a merged node's members."""
+    v = min(values) if DYNAMIC_REDUCE[field] == "min" else max(values)
+    return float(np.log1p(v)) if field in _LOG1P_FIELDS else float(v)
+
+
 def node_features(graph: SimpleGraph, app: AccelDef,
                   choice: Dict[str, lib.LibEntry],
                   crit_nodes: set | None = None,
+                  timing: Dict[str, Dict[str, float]] | None = None,
                   schema: FeatureSchema | None = None) -> np.ndarray:
-    """(N, schema.dim) float32 static rows. crit_nodes=None -> crit bit
-    left at 0 (stage-1 input). The dynamic timing columns stay 0 here;
+    """(N, schema.dim) float32 rows. crit_nodes=None -> crit bit left at
+    0 (stage-1 input). ``timing`` maps app node id -> the per-node fields
+    of `synth.static_timing` and fills the schema's dynamic timing
+    columns (the loop labeling backend); without it they stay 0 and
     `dataset.ConfigFeaturizer` fills them batched."""
     from repro_torch.accel.synth import FIXED_PPA
     schema = schema or ACTIVE_SCHEMA
     out = np.zeros((len(graph.node_ids), schema.dim), np.float32)
     us = schema.sl("unit_stats")
     kind0 = schema.start("kind_onehot")
+    dyn_fields = schema.dynamic_fields
+    dyn0 = schema.dynamic_slice.start
     for i, nid in enumerate(graph.node_ids):
         k = graph.kinds[i]
         if graph.fixed[i]:
@@ -318,6 +336,10 @@ def node_features(graph: SimpleGraph, app: AccelDef,
             # merged fixed nodes: critical if any member is critical
             out[i, schema.crit_index] = float(
                 any(m in crit_nodes for m in members))
+        if timing is not None:
+            for f_idx, f in enumerate(dyn_fields):
+                out[i, dyn0 + f_idx] = np.float32(reduce_timing(
+                    f, [timing[m][f] for m in members]))
         out[i, kind0 + KIND_VOCAB.index(k)] = 1.0
     return out
 

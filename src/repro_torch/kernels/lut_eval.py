@@ -11,6 +11,9 @@ import torch
 from repro_torch.kernels import build
 
 LAUNCHES = build.LaunchCounter()
+# the same launches by where the kernel reads the table (`path`)
+ROUTE_LAUNCHES = {"shared": build.LaunchCounter(),
+                  "global": build.LaunchCounter()}
 # tables up to this size are staged into shared memory, one copy a block
 # of the persistent grid (the 17 KB constant-coefficient columns are);
 # the next size on the main paths, 272 KiB, exceeds a block's 227 KB
@@ -65,15 +68,16 @@ def lut_eval(lut: torch.Tensor, a: torch.Tensor,
     out = torch.empty_like(a)
     if a.shape[0] == 0:
         return out
-    staged = path(4 * lut.shape[0]) == "shared"
+    route = path(4 * lut.shape[0])
     lib = build.load("lut_eval", _declare)
     with torch.cuda.device(dev):
         err = lib.lut_eval_launch(
             lut.data_ptr(), lut.shape[0], a.data_ptr(),
             None if b is None else b.data_ptr(), out.data_ptr(),
-            a.shape[0], int(wb), int(staged),
+            a.shape[0], int(wb), int(route == "shared"),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lut_eval kernel launch failed: CUDA error {err}")
     LAUNCHES.add()
+    ROUTE_LAUNCHES[route].add()
     return out

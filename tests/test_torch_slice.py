@@ -1,7 +1,8 @@
-"""The Gaussian slice end to end at a small size, JAX package against the
-port on the CPU: app context -> labeled dataset -> two-stage gsae
-surrogate (2 layers, hidden 16) on the reference's initial weights ->
-`SurrogateEngine.from_gnn`, plus `from_oracle` on both sides."""
+"""The slice end to end at a small size for each of the five
+accelerators, JAX package against the port on the CPU: app context ->
+labeled dataset -> two-stage gsae surrogate (2 layers, hidden 16) on the
+reference's initial weights -> `SurrogateEngine.from_gnn`, plus
+`from_oracle` on both sides."""
 import jax
 import numpy as np
 import pytest
@@ -24,12 +25,14 @@ torch.backends.cudnn.allow_tf32 = False
 N_SAMPLES, N_LAYERS, HIDDEN = 64, 2, 16
 
 
-@pytest.fixture(scope="module")
-def both():
-    jctx = jpipeline.app_context("gaussian")
-    tctx = tpipeline.app_context("gaussian", device="cpu")
-    jd = jds.build("gaussian", n_samples=N_SAMPLES, lib_entries=jctx.entries)
-    td = tds.build("gaussian", n_samples=N_SAMPLES, lib_entries=tctx.entries,
+@pytest.fixture(scope="module",
+                params=["gaussian", "sobel", "fir15", "dct8", "kmeans"])
+def both(request):
+    app = request.param
+    jctx = jpipeline.app_context(app)
+    tctx = tpipeline.app_context(app, device="cpu")
+    jd = jds.build(app, n_samples=N_SAMPLES, lib_entries=jctx.entries)
+    td = tds.build(app, n_samples=N_SAMPLES, lib_entries=tctx.entries,
                    device="cpu")
     return jctx, tctx, jd, td
 
