@@ -27,6 +27,18 @@ graph of the calls, then drives the port's two main paths:
   cross-app surrogate (`dataset.merge` of all five, the same paper-width
   GraphSAGE over the 32-wide merged features) served per app by
   `SurrogateEngine.from_gnn_shared` (`apps_slice` line);
+- training (`train_slice` line): the Gaussian dataset split 0.9, the
+  paper-width gsae trained by `training.fit_two_stage` at
+  `TrainConfig()` (40 epochs of batch 64), held first against the CPU
+  (the first step's loss and gradients, two epochs' losses, dropout 0),
+  evaluated on the held-out rows, profiled over 20 warm steps and served
+  by `from_gnn`; then an 8-member `fit_ensemble` of 10 epochs against 8
+  sequential fits, served by `from_gnn_ensemble` with its uncertainty;
+- search (`search_slice` line): NSGA-III over the Gaussian design space
+  at a budget of 20,000 with the trained surrogate (twice, on fresh
+  engines, for determinism), the 4-island fleet at the same budget with
+  its ranks computed on the card and held against NumPy, and the oracle
+  on the NSGA-III front;
 - the LM serving slice: Hymba-1.5B at full published width (32 layers,
   d_model 1600, 25 heads over 5 KV heads, SSM state 16, SWA window 1024)
   with random bf16 weights from a seeded generator, 8 prompts of 1024
@@ -38,7 +50,7 @@ graph of the calls, then drives the port's two main paths:
   two-layer model in bf16.
 
 Launch counters are zeroed just before each main path and read just
-after. The last line of standard output is the device JSON; the line
+after; the `kernels` line sums the accelerator paths' counts. The last line of standard output is the device JSON; the line
 before it is the per-kernel JSON. Exits non-zero without a CUDA card,
 outside a checkout, or when any phase fails.
 """
@@ -883,6 +895,335 @@ def apps_slice_phase(card: str, dev, gaussian, n_samples: int = N_SAMPLES,
     return report, launches
 
 
+# the training slice: the Gaussian dataset of the slice phase, split 0.9,
+# a paper-width gsae (GNNConfig's dropout 0.1) trained at TrainConfig()
+# (Adam lr 1e-3, batch 64, 40 epochs, seed 0), then an 8-member ensemble
+# of 10 epochs
+TRAIN_SPLIT, ENS_MEMBERS, ENS_EPOCHS, PROFILE_STEPS = 0.9, 8, 10, 20
+# Training is held in float64, where only the arithmetic's order differs:
+# in float32 a pre-activation within rounding of a ReLU's kink (or a tie
+# in the max readout) flips on one side, a first-step gradient leaf moves
+# by up to ~2e-3 of its largest entry (relative L2 3e-4), and Adam turns
+# such flips into steps of up to lr that grow: on an H100 two float32
+# epochs on the card and the CPU drift past 1e-5 by step 4 and to 7e-2,
+# an ensemble member from its single fit likewise (the float32 readings
+# are reported beside the checks). float64: the first step's loss and
+# each gradient leaf to 1e-12 of the leaf's largest entry (sums of 2048
+# terms; an H100 reads 8e-16 against the CPU); per-step losses, kept
+# as float32, to 1e-6 relative, over two epochs card against CPU
+# (dropout 0) and for ensemble member 0 against the single fit with its
+# seed (dropout 0.1: the same plan and masks; vmapped products against
+# unbatched ones).
+STEP_RTOL, LOSS_RTOL, F64_EPOCHS = 1e-12, 1e-6, 2
+# the search slice: PipelineConfig.paper_faithful's budget, the paper's
+# population (Sec III-C); the island fleet at the same budget
+SEARCH_BUDGET, SEARCH_POP, N_ISLANDS = 20_000, 64, 4
+TRAIN_KEYS = ("adj", "x", "mask", "unit_mask", "y", "crit")
+
+
+def _fresh_configs(ctx, ds, n, seed):
+    from repro_torch.core import dataset
+    known = set(ds.configs)
+    pool = [c for c in dataset.sample_configs(ctx.app, n + len(known),
+                                              seed=seed,
+                                              lib_entries=ctx.entries)
+            if c not in known][:n]
+    check(len(pool) == n, "not enough fresh configurations")
+    return pool
+
+
+def train_slice_phase(card: str, dev, gaussian, n_layers: int = N_LAYERS,
+                      hidden: int = HIDDEN, tc=None,
+                      n_members: int = ENS_MEMBERS,
+                      ens_epochs: int = ENS_EPOCHS, chunk: int = CHUNK,
+                      profile_steps: int = PROFILE_STEPS):
+    """Train the Gaussian surrogate on ``dev`` through
+    `training.fit_two_stage` and an ensemble through `fit_ensemble`, and
+    serve both (``gaussian`` is the slice phase's (app context,
+    dataset)); returns (report, launches, (config, trained params))."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.core import gnn, models, training
+    from repro_torch.core.engine import SurrogateEngine
+    ctx, ds = gaussian
+    cpu = torch.device("cpu")
+    tc = tc or training.TrainConfig()
+    tr, te = ds.split(TRAIN_SPLIT)
+    n = len(tr.y)
+    bs = min(tc.batch_size, n)
+    cfg = models.TwoStageConfig(gnn=gnn.GNNConfig(
+        arch="gsae", n_layers=n_layers, hidden=hidden,
+        feature_dim=ds.x.shape[-1]))
+    cfg0 = dataclasses.replace(cfg, gnn=dataclasses.replace(cfg.gnn,
+                                                            dropout=0.0))
+    report = {"card": card, "train_rows": n, "held_out_rows": len(te.y),
+              "model": dataclasses.asdict(cfg.gnn),
+              "train_config": dataclasses.asdict(tc)}
+    checks = {}
+
+    def on(tree, d):
+        return pytree.tree_map(lambda a: a.to(d), tree)
+
+    def timed(fn):
+        sync(dev)
+        t = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, time.perf_counter() - t
+
+    reset_launch_counts()
+    # -- the card against the CPU, from the same parameters, dropout 0 -----
+    def f64(tree):
+        return pytree.tree_map(lambda a: a.double(), tree)
+
+    def rows_of(d, dt):
+        return {k: torch.from_numpy(np.asarray(getattr(tr, k), np.float64)
+                                    ).to(device=d, dtype=dt)
+                for k in TRAIN_KEYS}
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    p0 = models.init(torch.Generator().manual_seed(tc.seed), cfg0,
+                     device=cpu)
+    idx, w = training._plan_for(tc, n, bs)
+    for dt in (torch.float64, torch.float32):
+        batch = {k: v[idx[0, 0]] for k, v in rows_of(cpu, dt).items()}
+        batch["w"] = w[0, 0].to(dt)
+        p = pytree.tree_map(lambda a: a.to(dt), p0)
+        loss_c, grads_c = training.loss_and_grads(cfg0, p, batch)
+        loss_d, grads_d = training.loss_and_grads(cfg0, on(p, dev),
+                                                  on(batch, dev))
+        leaves = list(zip(pytree.tree_leaves(grads_d),
+                          pytree.tree_leaves(grads_c)))
+        checks[f"first_step_{str(dt)[6:]}"] = {
+            "loss_rel": abs(float(loss_d) - float(loss_c))
+            / abs(float(loss_c)),
+            "grad_max_of_leaf_max": max(
+                float((d.cpu() - c).abs().max() / c.abs().max())
+                for d, c in leaves if float(c.abs().max()) > 0),
+            "grad_max_rel_l2": max(
+                float((d.cpu() - c).norm() / c.norm())
+                for d, c in leaves if float(c.norm()) > 0)}
+    first = checks["first_step_float64"]
+    check(first["loss_rel"] <= STEP_RTOL
+          and first["grad_max_of_leaf_max"] <= STEP_RTOL,
+          f"first step in float64, card vs CPU: {first} > {STEP_RTOL}")
+    tc2 = dataclasses.replace(tc, epochs=F64_EPOCHS)
+    idx2, w2 = training._plan_for(tc2, n, bs)
+    for dt in (torch.float64, torch.float32):
+        p = pytree.tree_map(lambda a: a.to(dt), p0)
+        (_, (loss_cpu, _, _)), cpu_s = timed(lambda: training._fit(
+            cfg0, tc2, rows_of(cpu, dt), p, idx2, w2.to(dt), None))
+        (_, (loss_dev, _, _)), dev_s = timed(lambda: training._fit(
+            cfg0, tc2, rows_of(dev, dt), on(p, dev), idx2, w2.to(dt),
+            None))
+        r = np.abs(loss_dev - loss_cpu) / np.abs(loss_cpu)
+        checks[f"two_epochs_{str(dt)[6:]}"] = {
+            "loss_max_rel": float(r.max()),
+            "first_step_over_1e-5": int(np.argmax(r.ravel() > 1e-5))
+            if (r > 1e-5).any() else None,
+            "card_s": dev_s, "cpu_s": cpu_s}
+    epochs64 = checks["two_epochs_float64"]["loss_max_rel"]
+    check(epochs64 <= LOSS_RTOL, f"two epochs in float64, card vs CPU: "
+          f"per-step losses {epochs64} apart")
+    # ensemble member 0 against the single fit with its seed, float64,
+    # dropout on: the members' runs stacked as `fit_ensemble` stacks them
+    runs = [training._run_inputs(cfg, tc2, tc2.seed + m, n, dev)
+            for m in range(n_members)]
+    data64 = rows_of(dev, torch.float64)
+    _, (ens_loss, _, _) = training._fit(
+        cfg, tc2, data64, f64(pytree.tree_map(
+            lambda *xs: torch.stack(xs), *[r[0] for r in runs])),
+        torch.stack([r[1] for r in runs]),
+        torch.stack([r[2] for r in runs]).double(), [r[3] for r in runs])
+    one = training._run_inputs(cfg, tc2, tc2.seed, n, dev)
+    _, (one_loss, _, _) = training._fit(cfg, tc2, data64, f64(one[0]),
+                                        one[1], one[2].double(), one[3])
+    member64 = rel(ens_loss[0], one_loss)
+    check(member64 <= LOSS_RTOL, f"ensemble member 0 vs single fit in "
+          f"float64: per-step losses {member64} apart")
+    checks.update(member0_vs_single_float64_loss_max_rel=member64,
+                  tolerances={"first_step_float64": STEP_RTOL,
+                              "losses_float64": LOSS_RTOL})
+
+    # -- the fit ---------------------------------------------------------------
+    held = training._as_data(te, dev)
+    with torch.no_grad():
+        init_loss = float(models.losses(cfg, models.init(
+            torch.Generator().manual_seed(tc.seed), cfg, device=dev),
+            held)[0])
+    (params, hist), wall = timed(lambda: training.fit_two_stage(
+        cfg, tr, tc, return_history=True, device=dev))
+    with torch.no_grad():
+        held_loss = float(models.losses(cfg, params, held)[0])
+    steps = int(np.isfinite(hist.train_loss).sum())
+    report["fit"] = {
+        "wall_s": wall, "steps": steps, "steps_per_s": steps / wall,
+        "samples_per_s": n * hist.epochs_run / wall,
+        "first_epoch_mean_loss": float(np.nanmean(hist.train_loss[0])),
+        "last_epoch_mean_loss": float(np.nanmean(hist.train_loss[-1])),
+        "held_out_loss": {"init": init_loss, "trained": held_loss}}
+    check(np.isfinite(hist.train_loss).all() and held_loss < init_loss,
+          f"training did not lower the held-out loss: {init_loss} -> "
+          f"{held_loss}")
+    report["evaluate"] = training.evaluate(cfg, params, ds, te, device=dev)
+    if dev.type == "cuda":
+        # warm steps under the profiler: one epoch over profile_steps
+        # batches, through the entry point
+        sub = tr.split((profile_steps * bs + 0.5) / n)[0]
+        one = dataclasses.replace(tc, epochs=1)
+        training.fit_two_stage(cfg, sub, one, device=dev)
+        report["steps_device_profile"] = dict(
+            steps=-(-len(sub.y) // bs), **device_profile(
+                lambda: training.fit_two_stage(cfg, sub, one, device=dev)))
+
+    # -- serve the trained surrogate -------------------------------------------
+    fresh = _fresh_configs(ctx, ds, 2 * chunk, seed=7)
+    eng = SurrogateEngine.from_gnn(cfg, params, ds, ctx.app, ctx.entries,
+                                   chunk_size=chunk, device=dev)
+    y, s = timed(lambda: eng(fresh[:chunk]))
+    check(y.shape == (chunk, 4) and np.isfinite(y).all(),
+          f"trained engine rows {y.shape} or non-finite")
+    report["serve"] = {"backend": eng.backend, "fresh_ms": s * 1e3}
+
+    # -- the ensemble, against sequential single fits --------------------------
+    tce = dataclasses.replace(tc, epochs=ens_epochs)
+    (ens, ens_hist), ens_s = timed(lambda: training.fit_ensemble(
+        cfg, tr, tce, n_members=n_members, device=dev))
+    singles, seq_s = timed(lambda: [training.fit_two_stage(
+        cfg, tr, dataclasses.replace(tce, seed=tce.seed + m),
+        return_history=True, device=dev) for m in range(n_members)])
+    # float32: the two drift apart as the card and the CPU do
+    member_rel = rel(ens_hist["train_loss"][0], singles[0][1].train_loss)
+    member0 = pytree.tree_map(lambda a: a[0], ens.groups[0][1])
+    member_param = max(float((a - b).abs().max()) for a, b in zip(
+        pytree.tree_leaves(member0), pytree.tree_leaves(singles[0][0])))
+    eng_e = SurrogateEngine.from_gnn_ensemble(ens, ds, ctx.app, ctx.entries,
+                                              chunk_size=chunk, device=dev)
+    y, s = timed(lambda: eng_e(fresh[chunk:]))
+    evaluated, hits = eng_e.stats.evaluated, eng_e.stats.cache_hits
+    unc = eng_e.uncertainty(fresh[chunk:])
+    check(y.shape == (chunk, 4) and np.isfinite(y).all(),
+          f"ensemble engine rows {y.shape} or non-finite")
+    check(unc.shape == (chunk, 4) and bool((unc >= 0).all()),
+          "ensemble uncertainty negative or misshapen")
+    check(eng_e.stats.evaluated == evaluated
+          and eng_e.stats.cache_hits == hits + chunk,
+          "uncertainty was not served from the memo")
+    report["ensemble"] = {
+        "members": n_members, "epochs": ens_epochs, "wall_s": ens_s,
+        "sequential_wall_s": seq_s, "speedup": seq_s / ens_s,
+        "member0_vs_single_float32_loss_max_rel": member_rel,
+        "member0_vs_single_float32_param_max_abs": member_param,
+        "backend": eng_e.backend, "fresh_ms": s * 1e3,
+        "mean_std": [float(v) for v in unc.mean(0)]}
+    report["checks"] = checks
+    launches = launch_counts()
+    report["launches"] = launches
+    for name in ("gnn_mp", "lut_eval"):
+        check(dev.type != "cuda" or launches[name] > 0,
+              f"{name} was never launched in the training slice")
+    return report, launches, (cfg, params)
+
+
+def search_slice_phase(card: str, dev, gaussian, trained,
+                       budget: int = SEARCH_BUDGET, pop: int = SEARCH_POP,
+                       n_islands: int = N_ISLANDS, chunk: int = CHUNK):
+    """Search the Gaussian design space on ``dev`` with the trained
+    surrogate (``trained`` is the training slice's (config, params)):
+    NSGA-III twice on fresh engines, the island fleet with its ranks on
+    the card, then the oracle on the NSGA-III front; returns (report,
+    launches)."""
+    import numpy as np
+    from repro_torch.core import dse, islands
+    from repro_torch.core.engine import SurrogateEngine
+    ctx, ds = gaussian
+    cfg, params = trained
+    sizes = [len(ctx.entries[node.kind]) for node in ctx.app.unit_nodes]
+    report = {"card": card, "sizes": sizes, "budget": budget, "pop": pop,
+              "runs": {}}
+    reset_launch_counts()
+
+    def run(label, search):
+        eng = SurrogateEngine.from_gnn(cfg, params, ds, ctx.app,
+                                       ctx.entries, chunk_size=chunk,
+                                       device=dev)
+        before = launch_counts()
+        sync(dev)
+        t = time.perf_counter()
+        res = search(eng)
+        sync(dev)
+        wall = time.perf_counter() - t
+        report["runs"][label] = {
+            "wall_s": wall, "configs_per_s": res.evaluated / wall,
+            "requests": res.evaluated, "history_entries": len(res.history),
+            "front_size": len(res.pareto_configs),
+            "engine": {k: getattr(eng.stats, k) for k in (
+                "calls", "evaluated", "cache_hits", "chunks")},
+            "launches": counts_since(before)}
+        check(len(res.pareto_configs) > 0
+              and bool(dse.pareto_mask(res.pareto_objs).all()),
+              f"{label}: the front is empty or dominated")
+        check(np.isfinite(res.pareto_objs).all(),
+              f"{label}: non-finite front rows")
+        return res
+
+    def nsga3(eng):
+        return dse.run_nsga(sizes, eng, budget, seed=0, pop=pop,
+                            variant="nsga3")
+
+    res = run("nsga3", nsga3)
+    again = run("nsga3, rerun on a fresh engine", nsga3)
+    same = (again.pareto_configs == res.pareto_configs
+            and np.array_equal(again.pareto_objs, res.pareto_objs))
+    check(same, "the nsga3 rerun gave another front")
+    # the island fleet, each generation's rank stacks recorded as the
+    # fleet ranks them (PyTorch on the card) and held against NumPy
+    stacks = []
+    ranks_of = islands.fleet_ranks
+
+    def recorded(F, backend="auto", device=None):
+        r = ranks_of(F, backend, device)
+        stacks.append((np.array(F), r))
+        return r
+
+    islands.fleet_ranks = recorded
+    try:
+        run("islands", lambda eng: islands.run_islands(
+            sizes, eng, budget, seed=0, n_islands=n_islands, pop=pop,
+            nds_backend="torch", device=dev))
+    finally:
+        islands.fleet_ranks = ranks_of
+    differ = sum(not np.array_equal(r, ranks_of(F, "numpy"))
+                 for F, r in stacks)
+    check(stacks and differ == 0,
+          f"fleet ranks on {dev.type} differ from NumPy in {differ} of "
+          f"{len(stacks)} generations")
+    report["checks"] = {"rerun_identical": same,
+                        "fleet_rank_stacks": len(stacks),
+                        "fleet_rank_stacks_differing": differ}
+    # the oracle on the nsga3 front: the surrogate's error, a reading
+    oracle = SurrogateEngine.from_oracle(ctx.app, ctx.entries, ctx.inp,
+                                         ctx.exact_out)
+    t = time.perf_counter()
+    true = oracle(res.pareto_configs)
+    rel = np.abs(res.pareto_objs - true) / np.maximum(np.abs(true), 1e-6)
+    report["oracle_on_front"] = {
+        "points": len(true), "wall_s": time.perf_counter() - t,
+        "mean_rel_err": float(rel.mean()),
+        "per_obj": {k: float(rel[:, i].mean()) for i, k in enumerate(
+            ("area", "power", "latency", "1-ssim"))}}
+    launches = launch_counts()
+    report["launches"] = launches
+    for name in ("gnn_mp", "lut_eval"):
+        check(dev.type != "cuda" or launches[name] > 0,
+              f"{name} was never launched in the search slice")
+    return report, launches
+
+
 def finite(t) -> bool:
     import torch
     return bool(torch.isfinite(t).all())
@@ -1185,11 +1526,19 @@ def main() -> int:
     apps_report, apps_launches = apps_slice_phase(card, torch.device("cuda"),
                                                   gaussian)
     print("apps_slice " + json.dumps(apps_report), flush=True)
-    del gaussian
-    # the accelerator main path: the Gaussian slice and the apps slice
-    routes = {r: n + apps_launches["lut_eval_routes"][r]
-              for r, n in launches["lut_eval_routes"].items()}
-    launches = {k: launches[k] + apps_launches[k]
+    train_report, train_launches, trained = train_slice_phase(
+        card, torch.device("cuda"), gaussian)
+    print("train_slice " + json.dumps(train_report), flush=True)
+    search_report, search_launches = search_slice_phase(
+        card, torch.device("cuda"), gaussian, trained)
+    print("search_slice " + json.dumps(search_report), flush=True)
+    del gaussian, trained
+    # the accelerator main path: the Gaussian slice, the apps slice, the
+    # training slice and the search slice
+    counted = (launches, apps_launches, train_launches, search_launches)
+    routes = {r: sum(c["lut_eval_routes"][r] for c in counted)
+              for r in launches["lut_eval_routes"]}
+    launches = {k: sum(c[k] for c in counted)
                 for k in ("gnn_mp", "lut_eval")}
     from repro_torch.configs import get_arch
     lm_report, lm_launches = lm_slice_phase(card, torch.device("cuda"),

@@ -23,10 +23,11 @@ that the search drives, as in `repro.core.engine`:
 On the card, the GNN engines (`from_gnn`, and `from_gnn_shared`, the
 per-app view of the cross-app surrogate) run every message-passing layer
 of the gcn and gsae architectures through the CUDA `gnn_mp` kernel; there
-is no fallback to another path. `from_rforest` serves the random-forest
-baseline and `from_oracle` the ground truth. The engine serves one
-device; sharding a wave over several cards (``devices > 1``) comes
-later.
+is no fallback to another path. `from_gnn_ensemble` serves an ensemble's
+mean with its std as an uncertainty block, each member as `from_gnn`.
+`from_rforest` serves the random-forest baseline and `from_oracle` the
+ground truth. The engine serves one device; sharding a wave over several
+cards (``devices > 1``) comes later.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch import device as device_lib
 
@@ -260,6 +262,12 @@ class SurrogateEngine:
                      (``nan_retries`` attempts each); quarantine those
                      that stay non-finite as +inf rows.
         schema_version: feature-schema version prefixed to memo keys.
+        obj_cols:    when the backend returns extra columns beyond the
+                     objectives (`from_gnn_ensemble` appends a
+                     per-objective std), the first ``obj_cols`` are the
+                     objectives ``__call__`` serves and the rest the
+                     block ``uncertainty`` serves; None = all columns are
+                     objectives.
     """
 
     def __init__(self, batch_fn: BatchFn, *, backend: str = "generic",
@@ -267,7 +275,8 @@ class SurrogateEngine:
                  overlap: Optional[bool] = None, cache: bool = True,
                  max_cache: int = 1_000_000, retry=None,
                  nan_guard: bool = True, nan_retries: int = 2,
-                 schema_version: Optional[int] = None):
+                 schema_version: Optional[int] = None,
+                 obj_cols: Optional[int] = None):
         if chunk_size is not None and chunk_size < 1:
             raise ValueError("chunk_size must be >= 1 (or None to "
                              "disable chunking)")
@@ -285,6 +294,7 @@ class SurrogateEngine:
         self.schema_version = schema_version
         self.chunk_size = None if chunk_size is None else int(chunk_size)
         self.fixed_shape = fixed_shape
+        self.obj_cols = obj_cols
         self.cache_enabled = cache
         self.max_cache = max_cache
         self.retry = retry
@@ -304,7 +314,25 @@ class SurrogateEngine:
         """Evaluate a batch of configs; rows align with the input order.
         Concurrent callers are serialized on an internal lock."""
         with self._lock:
-            return self._call_locked(configs)
+            out = self._call_locked(configs)
+        return out[:, :self.obj_cols] if self.obj_cols else out
+
+    def uncertainty(self, configs: Sequence[Config]) -> np.ndarray:
+        """Per-config, per-objective uncertainty (ensemble std) rows,
+        served from the same memoized rows as ``__call__``. Raises unless
+        the backend produces them (`from_gnn_ensemble`)."""
+        return self.predict_with_uncertainty(configs)[1]
+
+    def predict_with_uncertainty(self, configs: Sequence[Config]
+                                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """(objectives (n, obj_cols), std (n, obj_cols)) in one pass."""
+        if not self.obj_cols:
+            raise ValueError(
+                f"engine backend {self.backend!r} does not produce an "
+                f"uncertainty column (build it with from_gnn_ensemble)")
+        with self._lock:
+            out = self._call_locked(configs)
+        return out[:, :self.obj_cols], out[:, self.obj_cols:]
 
     def _call_locked(self, configs: Sequence[Config]) -> np.ndarray:
         t_wall = time.perf_counter()
@@ -361,7 +389,7 @@ class SurrogateEngine:
         fut: Future = Future()
         cfgs = list(configs)
         if not cfgs:
-            fut.set_result(np.zeros((0, 0), np.float64))
+            fut.set_result(np.zeros((0, self.obj_cols or 0), np.float64))
             return fut
         with self._queue_cv:
             self._queue.append((cfgs, fut))
@@ -716,6 +744,56 @@ class SurrogateEngine:
         return cls(batch_fn, backend="oracle", chunk_size=chunk_size,
                    cache=cache)
 
+    @classmethod
+    def from_gnn_ensemble(cls, ens, ds, app, entries: Dict[str, Sequence],
+                          *, chunk_size: int = 512, cache: bool = True,
+                          devices: int = 1, overlap: Optional[bool] = None,
+                          parity_atol: float = 2e-3, device=None
+                          ) -> "SurrogateEngine":
+        """Ensemble-GNN engine on ``device`` (default: the CUDA card):
+        objectives are the denormalized ensemble MEAN (ssim flipped to
+        ``1 - ssim``), followed by a per-objective ensemble-std block
+        (columns ``[obj_cols:]``, the std times ``y_std``) that
+        ``uncertainty`` serves.
+
+        ``ens`` is a `training.EnsembleParams`. Each member runs as in
+        `from_gnn`: for gcn/gsae every layer goes through `gnn_mp` on the
+        card, held against `models.predict` at construction."""
+        from repro_torch.core import dataset as ds_lib
+        from repro_torch.core import models
+
+        _one_device(devices)
+        dev = device_lib.resolve(device)
+        feat = ds_lib.featurizer_for(ds, app, entries, dev)
+        predicts, labels = [], set()
+        for g_cfg, stacked in ens.groups:
+            n = len(stacked.stage1["ro_b2"])
+            for m in range(n):
+                member = pytree.tree_map(lambda a, m=m: a[m], stacked)
+                fn, label = _checked_predict(g_cfg, member, feat,
+                                             feat.normalized, dev,
+                                             parity_atol)
+                predicts.append(fn)
+                labels.add(label)
+
+        def dispatch(X):
+            Xt = _to_input(X, dev)
+            with torch.no_grad():
+                return [fn(Xt) for fn in predicts]
+
+        def collect(handles):
+            Y = np.stack([h.cpu().numpy() for h in handles], 0)
+            mean = ds.denorm_y(Y.mean(0))
+            std = Y.std(0) * np.asarray(ds.y_std)
+            mean[:, 3] = 1 - mean[:, 3]     # ssim -> 1-ssim (minimize)
+            return np.concatenate([mean, std], 1)
+
+        pb = PipelinedBackend(feat.normalized, dispatch, collect)
+        return cls(pb, backend="-".join(sorted(labels)) + "-ensemble",
+                   chunk_size=chunk_size, fixed_shape=True, cache=cache,
+                   overlap=overlap, schema_version=feat.schema.version,
+                   obj_cols=len(models.TARGETS))
+
 
 def _one_device(devices: int) -> None:
     if devices != 1:
@@ -724,41 +802,52 @@ def _one_device(devices: int) -> None:
             "several devices is not ported yet")
 
 
-def _gnn_backend(two_cfg, params, feat, featurize: Callable, denorm_y,
-                 dev: torch.device, parity_atol: float
-                 ) -> Tuple[PipelinedBackend, str]:
-    """The GNN engines' pipelined backend and its label: ``featurize``
-    on the host, the two-stage model on ``dev`` over ``feat``'s adjacency
-    and mask, ``denorm_y`` and the ssim flip on collect. For gcn/gsae the
-    `gnn_mp` layer path is first held against `models.predict` on a
-    small probe batch."""
+def _checked_predict(two_cfg, params, feat, featurize: Callable,
+                     dev: torch.device, parity_atol: float):
+    """``(predict, backend label)`` of one two-stage model on ``dev``
+    over ``feat``'s adjacency and mask. For gcn/gsae the `gnn_mp` layer
+    path is first held against `models.predict` on a small probe batch
+    and a mismatch beyond ``parity_atol`` (normalized outputs) raises."""
     from repro_torch.core import models
 
     params = models.TwoStageParams(*(_to_device(p, dev) for p in params))
     predict = _make_predict(two_cfg, params, feat.adj, feat.mask, dev)
-    kernel_path = two_cfg.gnn.arch in ("gcn", "gsae")
-    backend = ("gnn_mp" if dev.type == "cuda" else "torch") \
-        if kernel_path else "torch"
-    if kernel_path:
-        Xp = torch.from_numpy(featurize(_probe_configs(feat.sizes))).to(dev)
-        B = Xp.shape[0]
-        adj = torch.from_numpy(feat.adj).to(dev).expand(B, -1, -1)
-        mask = torch.from_numpy(feat.mask).to(dev).expand(B, -1)
-        with torch.no_grad():
-            got = predict(Xp)
-            want = models.predict(two_cfg, params, adj, Xp, mask)[0]
-        err = float((got - want).abs().max())
-        if not err <= parity_atol:
-            raise RuntimeError(
-                f"gnn_mp layer path disagrees with models.predict on "
-                f"the probe batch: max |diff| {err} > {parity_atol}")
+    if two_cfg.gnn.arch not in ("gcn", "gsae"):
+        return predict, "torch"
+    Xp = torch.from_numpy(featurize(_probe_configs(feat.sizes))).to(dev)
+    B = Xp.shape[0]
+    adj = torch.from_numpy(feat.adj).to(dev).expand(B, -1, -1)
+    mask = torch.from_numpy(feat.mask).to(dev).expand(B, -1)
+    with torch.no_grad():
+        got = predict(Xp)
+        want = models.predict(two_cfg, params, adj, Xp, mask)[0]
+    err = float((got - want).abs().max())
+    if not err <= parity_atol:
+        raise RuntimeError(
+            f"gnn_mp layer path disagrees with models.predict on "
+            f"the probe batch: max |diff| {err} > {parity_atol}")
+    return predict, ("gnn_mp" if dev.type == "cuda" else "torch")
+
+
+def _to_input(X, dev: torch.device) -> torch.Tensor:
+    Xt = torch.from_numpy(X)
+    if dev.type == "cuda":
+        Xt = Xt.pin_memory().to(dev, non_blocking=True)
+    return Xt
+
+
+def _gnn_backend(two_cfg, params, feat, featurize: Callable, denorm_y,
+                 dev: torch.device, parity_atol: float
+                 ) -> Tuple[PipelinedBackend, str]:
+    """The GNN engines' pipelined backend and its label: ``featurize``
+    on the host, the two-stage model on ``dev`` (`_checked_predict`),
+    ``denorm_y`` and the ssim flip on collect."""
+    predict, backend = _checked_predict(two_cfg, params, feat, featurize,
+                                        dev, parity_atol)
 
     def dispatch(X):
-        Xt = torch.from_numpy(X)
-        if dev.type == "cuda":
-            Xt = Xt.pin_memory().to(dev, non_blocking=True)
         with torch.no_grad():
-            return predict(Xt)              # launches, does not wait
+            return predict(_to_input(X, dev))   # launches, does not wait
 
     def collect(y_dev):
         y = y_dev.cpu().numpy()             # waits for the device

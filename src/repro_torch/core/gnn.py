@@ -109,18 +109,27 @@ def readout(cfg: GNNConfig, params: Dict, h, mask):
     return g @ params["ro_w2"] + params["ro_b2"]
 
 
+def draw_keep(cfg: GNNConfig, generator: torch.Generator, B: int, N: int,
+              lead: tuple = ()) -> torch.Tensor:
+    """Dropout keep masks for one training forward pass, drawn from
+    ``generator`` on its device: (*lead, n_layers, B, N, hidden)
+    booleans, True where an activation is kept."""
+    shape = lead + (cfg.n_layers, B, N, cfg.hidden)
+    return torch.rand(shape, generator=generator,
+                      device=generator.device) >= cfg.dropout
+
+
 def apply(cfg: GNNConfig, params: Dict, adj, x, mask, *,
-          generator: Optional[torch.Generator] = None):
+          keep: Optional[torch.Tensor] = None):
     """Returns (B, N, out) for node-level or (B, out) for graph-level.
 
-    ``generator`` gates dropout: training passes one, inference passes
+    ``keep`` gates dropout: training passes one boolean mask per layer,
+    ``(n_layers, B, N, hidden)`` (`draw_keep`); inference passes
     nothing and is deterministic regardless of ``cfg.dropout``. Inverted
     scaling (``/ (1 - p)``) keeps activations unbiased."""
     h = x * mask[..., None]
-    for lp in params["layers"]:
+    for i, lp in enumerate(params["layers"]):
         h = _layer(cfg, lp, adj, h, mask)
-        if generator is not None and cfg.dropout > 0:
-            keep = torch.rand(h.shape, generator=generator,
-                              device=generator.device) >= cfg.dropout
-            h = h * keep.to(h.device) / (1 - cfg.dropout)
+        if keep is not None and cfg.dropout > 0:
+            h = h * keep[i] / (1 - cfg.dropout)
     return readout(cfg, params, h, mask)

@@ -156,7 +156,8 @@ def test_engine_predict_path_matches_models_predict(arch):
 
 
 def test_dropout_follows_the_generator():
-    """Dropout only with a generator; the same seed gives the same mask."""
+    """Dropout only with masks drawn from a generator (`draw_keep`); the
+    same seed gives the same mask."""
     cfg = tgnn.GNNConfig(arch="gsae", n_layers=2, hidden=16, feature_dim=8,
                          dropout=0.5)
     p = tgnn.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
@@ -164,10 +165,11 @@ def test_dropout_follows_the_generator():
     plain = tgnn.apply(cfg, p, adj, x, mask)
     torch.testing.assert_close(tgnn.apply(cfg, p, adj, x, mask), plain,
                                rtol=0, atol=0)
-    d1 = tgnn.apply(cfg, p, adj, x, mask,
-                    generator=torch.Generator().manual_seed(5))
-    d2 = tgnn.apply(cfg, p, adj, x, mask,
-                    generator=torch.Generator().manual_seed(5))
+    B, N = x.shape[:2]
+    d1 = tgnn.apply(cfg, p, adj, x, mask, keep=tgnn.draw_keep(
+        cfg, torch.Generator().manual_seed(5), B, N))
+    d2 = tgnn.apply(cfg, p, adj, x, mask, keep=tgnn.draw_keep(
+        cfg, torch.Generator().manual_seed(5), B, N))
     torch.testing.assert_close(d1, d2, rtol=0, atol=0)
     assert not torch.allclose(d1, plain)
 
@@ -361,3 +363,5 @@ def test_port_imports_neither_jax_nor_the_reference():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert len(modules) >= 20
+    assert {"repro_torch.core.training", "repro_torch.core.dse",
+            "repro_torch.core.islands"} <= set(modules)
