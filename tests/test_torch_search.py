@@ -29,18 +29,6 @@ from repro_torch.core.engine import SurrogateEngine
 
 SPACE = [10] * 6
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for this module's tiny tensors: with the
-    default (a thread per core) in each of several test workers, the
-    threads of every small op contend for the cores and a step that
-    takes a millisecond alone takes a hundred."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 
 def _toy_eval(configs):
     a = np.asarray(configs, np.float64)

@@ -45,20 +45,22 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 CPU = torch.device("cpu")
+TC = dict(epochs=3, batch_size=16, seed=0)
+KEYS = ("adj", "x", "mask", "unit_mask", "y", "crit")
 
-@pytest.fixture(scope="module", autouse=True)
+
+@pytest.fixture(autouse=True)
 def one_thread():
-    """One intra-op thread for this module's tiny tensors: with the
-    default (a thread per core) in each of several test workers, the
-    threads of every small op contend for the cores and a step that
-    takes a millisecond alone takes a hundred."""
+    """One intra-op thread for each test's tiny tensors: with the default
+    (a thread per core) in each of several test workers, the threads of
+    every small op contend for the cores and a step that takes a
+    millisecond alone takes a hundred. Per test, so that the module's
+    datasets and the cached library are built on the default threads
+    (the library's float32 metrics depend on the thread count)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-TC = dict(epochs=3, batch_size=16, seed=0)
-KEYS = ("adj", "x", "mask", "unit_mask", "y", "crit")
 
 
 def _as_reference(td, app):
