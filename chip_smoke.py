@@ -39,6 +39,13 @@ graph of the calls, then drives the port's two main paths:
   engines, for determinism), the 4-island fleet at the same budget with
   its ranks computed on the card and held against NumPy, and the oracle
   on the NSGA-III front;
+- the staged pipeline (`pipeline_slice` line): `run_staged` at
+  `PipelineConfig.paper_faithful("gaussian")` (2,048 samples and 20
+  epochs for the time limit) on an on-disk artifact store, cold, resumed
+  on a new store and swept to the island sampler, `validate_pareto` on 10
+  Pareto points with the card's oracle rows held against the CPU's, and
+  an `EvalService` warmed from the store serving 8 client threads, each
+  response held bit for bit against the same request served one by one;
 - the LM serving slice: Hymba-1.5B at full published width (32 layers,
   d_model 1600, 25 heads over 5 KV heads, SSM state 16, SWA window 1024)
   with random bf16 weights from a seeded generator, 8 prompts of 1024
@@ -1224,6 +1231,253 @@ def search_slice_phase(card: str, dev, gaussian, trained,
     return report, launches
 
 
+# the pipeline slice: PipelineConfig.paper_faithful("gaussian") with two
+# cuts for the time limit; the service run's clients and requests
+PIPE_SAMPLES, PIPE_EPOCHS = 2048, 20
+SERVE_CLIENTS, SERVE_PREDICTS, SERVE_CONFIGS = 8, 4, 64
+SERVE_DSE_BUDGET, SERVE_DSE_SEEDS, SERVE_LABELS = 2_000, (1, 2), 16
+# 1 - SSIM of the oracle on the card against the CPU: the window sums of
+# integer pixels are exact in float32 in any order, but the variances'
+# squared deviations round at 2^-24 and the card sums them in another
+# order; the two packages on the CPU read up to 5.4e-7 apart
+ORACLE_SSIM_ATOL = 1e-5
+
+
+def _max_abs(a, b) -> float:
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return float("inf")
+    return float(np.abs(a - b).max()) if a.size else 0.0
+
+
+def _serve_run(card: str, dev, cfg, store, engine, ctx):
+    """`EvalService` warmed from the store: 8 client threads of predict,
+    dse and label requests, each response held bit for bit against the
+    same request served one by one on a fresh engine."""
+    import numpy as np
+    from repro_torch.accel import batch_oracle
+    from repro_torch.core import dse
+    from repro_torch.core import pipeline as P
+    from repro_torch.core.artifacts import ArtifactStore
+    from repro_torch.launch.serve import EvalService, ServeRequest
+    sizes = [len(ctx.entries[n.kind]) for n in ctx.app.unit_nodes]
+
+    def configs(seed, n):
+        rng = np.random.default_rng(seed)
+        return [tuple(int(rng.integers(0, k)) for k in sizes)
+                for _ in range(n)]
+
+    script = []           # per client: [(kind, payload), ...]
+    for c in range(SERVE_CLIENTS):
+        reqs = [("predict", configs(1000 + 10 * c + r, SERVE_CONFIGS))
+                for r in range(SERVE_PREDICTS)]
+        reqs += [("dse", s) for s in SERVE_DSE_SEEDS]
+        reqs.append(("label", configs(2000 + c, SERVE_LABELS)))
+        script.append(reqs)
+    out = {"clients": SERVE_CLIENTS, "requests": sum(map(len, script))}
+    svc = EvalService(store, max_workers=2 * SERVE_CLIENTS)
+    try:
+        name = svc.warm_start(cfg, device=dev)
+        same = svc._tenants[name].engine is engine
+        check(same, "warm_start's tenant does not serve the run_staged "
+              "engine")
+        stats0 = engine.stats.as_dict()
+        got = [None] * SERVE_CLIENTS
+        barrier = threading.Barrier(SERVE_CLIENTS)
+
+        def client(c):
+            barrier.wait()
+            rids = []
+            for kind, payload in script[c]:
+                if kind == "dse":
+                    req = ServeRequest("dse", name, sampler="nsga3",
+                                       budget=SERVE_DSE_BUDGET, seed=payload,
+                                       dse_kwargs={"pop": cfg.dse_pop})
+                else:
+                    req = ServeRequest(kind, name, configs=payload)
+                rids.append(svc.submit(req))
+            got[c] = svc.results(rids, timeout=600.0)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t
+        health = svc.health()
+    finally:
+        svc.close()
+    stats1 = engine.stats.as_dict()
+    resps = [r for rs in got if rs for r in rs]
+    check(len(resps) == out["requests"] and all(r.ok for r in resps),
+          "service requests failed: " + "; ".join(
+              str(r.error) for r in resps if not r.ok)[:500])
+    lat = sorted(r.latency_s for r in resps)
+    drains = stats1["drains"] - stats0["drains"]
+    submits = stats1["submits"] - stats0["submits"]
+    waved = stats1["configs"] - stats0["configs"]
+    out.update({
+        "tenant_is_run_staged_engine": same, "wall_s": wall,
+        "requests_per_s": len(resps) / wall,
+        "p50_ms": lat[len(lat) // 2] * 1e3,
+        "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3,
+        "drains": drains, "submits": submits,
+        "mean_wave_configs": waved / max(drains, 1),
+        "mean_wave_submits": submits / max(drains, 1),
+        "health": {k: health[k] for k in (
+            "ok", "inflight", "requests_tracked", "batchers",
+            "queue_depth", "retries", "quarantined", "checkpoint_gc")}})
+    # the same requests one by one, on a fresh engine
+    ds = P.stage_dataset(cfg, store, ctx, device=dev)
+    art = P.stage_train(cfg, store, ds, device=dev)
+    fresh = P.stage_engine(cfg, ArtifactStore(None), ctx, ds, art,
+                           device=dev)
+    one_shot = {s: dse.run_nsga(sizes, P.stage_engine(
+        cfg, ArtifactStore(None), ctx, ds, art, device=dev),
+        SERVE_DSE_BUDGET, seed=s, pop=cfg.dse_pop, variant="nsga3")
+        for s in SERVE_DSE_SEEDS}
+    differ = {"predict": [], "dse": [], "label": []}
+    for c, rs in enumerate(got):
+        for (kind, payload), r in zip(script[c], rs or ()):
+            if not r.ok:
+                continue
+            if kind == "predict":
+                want = fresh(payload)
+                if not np.array_equal(r.value, want):
+                    differ[kind].append(_max_abs(r.value, want))
+            elif kind == "label":
+                want = batch_oracle.objective_rows(
+                    ctx.app, ctx.entries, payload, ctx.inp, ctx.exact_out)
+                if not np.array_equal(r.value, want):
+                    differ[kind].append(_max_abs(r.value, want))
+            else:
+                want = one_shot[payload]
+                if not (r.value.pareto_configs == want.pareto_configs
+                        and np.array_equal(r.value.pareto_objs,
+                                           want.pareto_objs)
+                        and r.value.history == want.history):
+                    differ[kind].append(
+                        _max_abs(r.value.pareto_objs, want.pareto_objs))
+    out["serial_differing"] = {k: len(v) for k, v in differ.items()}
+    out["serial_max_abs"] = {k: max(v) for k, v in differ.items() if v}
+    out["dse_front_sizes"] = {s: len(r.pareto_configs)
+                              for s, r in one_shot.items()}
+    for kind, v in differ.items():
+        check(not v, f"{len(v)} {kind} responses differ from the serial "
+              f"one-shot path (max |diff| {max(v) if v else 0})")
+    return out
+
+
+def pipeline_slice_phase(card: str, dev, n_samples: int = PIPE_SAMPLES,
+                         epochs: int = PIPE_EPOCHS):
+    """The staged pipeline on ``dev`` at `PipelineConfig.paper_faithful(
+    "gaussian")` with an on-disk store in a temporary directory: a cold
+    `run_staged`, a resume on a new store, an islands sweep, the oracle on
+    10 Pareto points (also against the CPU's oracle rows), then an
+    `EvalService` warmed from the store; returns (report, launches)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import dse
+    from repro_torch.core import pipeline as P
+    from repro_torch.core.artifacts import ArtifactStore
+    paper = P.PipelineConfig.paper_faithful("gaussian")
+    root = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    cfg = dataclasses.replace(paper, n_samples=n_samples, epochs=epochs,
+                              artifact_dir=root)
+    report = {"card": card, "config": {
+        k: getattr(cfg, k) for k in (
+            "app", "gnn_arch", "n_layers", "hidden", "sampler",
+            "dse_budget", "dse_pop", "eval_chunk", "n_samples", "epochs")},
+        "reduced": {"n_samples": [paper.n_samples, n_samples],
+                    "epochs": [paper.epochs, epochs]}}
+    reset_launch_counts()
+
+    def staged(label, c, store):
+        before = launch_counts()
+        sync(dev)
+        t = time.perf_counter()
+        res = P.run_staged(c, store, device=dev)
+        sync(dev)
+        wall = time.perf_counter() - t
+        check(len(res.pareto_configs) > 0
+              and bool(dse.pareto_mask(res.pareto_objs).all())
+              and bool(np.isfinite(res.pareto_objs).all()),
+              f"{label}: the front is empty, dominated or not finite")
+        report[label] = {
+            "wall_s": wall, "stage_s": res.timings,
+            "store": res.metrics["store"],
+            "front_size": len(res.pareto_configs),
+            "engine": {k: res.metrics["engine"][k] for k in (
+                "backend", "calls", "configs", "evaluated", "cache_hits",
+                "chunks", "configs_per_sec")},
+            "launches": counts_since(before)}
+        return res
+
+    try:
+        cold = staged("cold", cfg, ArtifactStore(root))
+        report["cold"]["r2"] = {t: cold.metrics[t]["r2"] for t in (
+            "area", "power", "latency", "ssim")}
+        report["cold"]["crit_accuracy"] = \
+            cold.metrics["critical_path"]["accuracy"]
+        check(cold.engine.backend == ("gnn_mp" if dev.type == "cuda"
+                                      else "torch"),
+              f"the engine runs {cold.engine.backend}")
+        check(cold.metrics["store"]["misses"] == {
+            s: 1 for s in ("prune", "dataset", "train", "engine", "search")},
+              f"cold run: {cold.metrics['store']}")
+
+        store = ArtifactStore(root)              # a new process's store
+        res = staged("resume", cfg, store)
+        hits = {s: store.stats.hits.get(s, 0)
+                for s in ("dataset", "train", "search")}
+        check(hits == {"dataset": 1, "train": 1, "search": 1},
+              f"resume: disk hits {hits}")
+        same = (res.pareto_configs == cold.pareto_configs
+                and np.array_equal(res.pareto_objs, cold.pareto_objs))
+        check(same, "resume: the front differs from the cold run's")
+        report["resume"]["front_identical"] = same
+
+        sweep = staged("islands_sweep",
+                       dataclasses.replace(cfg, sampler="islands"), store)
+        check(sweep.metrics["store"]["misses"] == {"search": 1},
+              f"islands sweep: {sweep.metrics['store']}")
+
+        t = time.perf_counter()
+        val = P.validate_pareto(res, k=10, store=store, device=dev)
+        report["validate"] = {"wall_s": time.perf_counter() - t, **val}
+        ctx = P.stage_prune(cfg, store, device=dev)
+        sel = res.pareto_configs[:10]
+        card_rows = P._oracle_eval(ctx.app, ctx.entries, ctx.inp,
+                                   ctx.exact_out)(sel)
+        cpu = P.app_context("gaussian", cfg.theta, device="cpu")
+        cpu_rows = P._oracle_eval(cpu.app, cpu.entries, cpu.inp,
+                                  cpu.exact_out)(sel)
+        ppa_equal = bool(np.array_equal(card_rows[:, :3], cpu_rows[:, :3]))
+        ssim_gap = _max_abs(card_rows[:, 3], cpu_rows[:, 3])
+        report["validate"]["oracle_card_vs_cpu"] = {
+            "points": len(sel), "ppa_equal": ppa_equal,
+            "ssim_max_abs": ssim_gap, "ssim_bar": ORACLE_SSIM_ATOL}
+        check(len(sel) == 10 and ppa_equal and ssim_gap <= ORACLE_SSIM_ATOL,
+              f"oracle rows on the card against the CPU: PPA equal "
+              f"{ppa_equal}, 1-ssim gap {ssim_gap}")
+
+        report["serve"] = _serve_run(card, dev, cfg, store, res.engine, ctx)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = launch_counts()
+    report["launches"] = launches
+    for name in ("gnn_mp", "lut_eval"):
+        check(dev.type != "cuda" or launches[name] > 0,
+              f"{name} was never launched in the pipeline slice")
+    return report, launches
+
+
 def finite(t) -> bool:
     import torch
     return bool(torch.isfinite(t).all())
@@ -1533,9 +1787,13 @@ def main() -> int:
         card, torch.device("cuda"), gaussian, trained)
     print("search_slice " + json.dumps(search_report), flush=True)
     del gaussian, trained
+    pipe_report, pipe_launches = pipeline_slice_phase(card,
+                                                      torch.device("cuda"))
+    print("pipeline_slice " + json.dumps(pipe_report), flush=True)
     # the accelerator main path: the Gaussian slice, the apps slice, the
-    # training slice and the search slice
-    counted = (launches, apps_launches, train_launches, search_launches)
+    # training slice, the search slice and the pipeline slice
+    counted = (launches, apps_launches, train_launches, search_launches,
+               pipe_launches)
     routes = {r: sum(c["lut_eval_routes"][r] for c in counted)
               for r in launches["lut_eval_routes"]}
     launches = {k: sum(c[k] for c in counted)

@@ -15,7 +15,9 @@ that the search drives, as in `repro.core.engine`:
 * **config-key memoization** with keys prefixed by the feature-schema
   version, and duplicates inside one batch evaluated once;
 * **cross-request batching** — `submit` enqueues a query, `drain` fuses
-  every pending query into one engine call;
+  every pending query into one engine call; the GNN engines run their
+  readouts at the chunk's row count, so a config's row does not depend
+  on the wave it is served in;
 * **fault handling** — an optional retry policy around every backend call
   and a NaN guard that re-evaluates non-finite rows and quarantines
   configs whose rows stay non-finite (served as +inf).
@@ -178,8 +180,18 @@ class PipelinedBackend:
 # GNN predict functions
 # --------------------------------------------------------------------------
 
+def _at_rows(fn, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``fn(x)`` with ``x``'s leading axis zero-padded to ``rows`` (when
+    shorter), cut back to ``x``'s rows."""
+    B = x.shape[0]
+    if B >= (rows or 0):
+        return fn(x)
+    return fn(torch.cat([x, x.new_zeros((rows - B,) + x.shape[1:])]))[:B]
+
+
 def _make_predict(two_cfg, params, adj_row: np.ndarray,
-                  mask_row: np.ndarray, device: torch.device):
+                  mask_row: np.ndarray, device: torch.device,
+                  rows: int = 0):
     """X (B,N,F) on ``device`` -> normalized (B, 4) targets.
 
     gcn and gsae run each message-passing layer through
@@ -189,6 +201,14 @@ def _make_predict(two_cfg, params, adj_row: np.ndarray,
     the adjacency commutes with the product). One (N,N) adjacency serves
     the whole batch. gat and mpnn, which have no kernel, run
     `models.predict`.
+
+    The readouts' dense products run at ``rows`` rows at least (zero rows
+    appended): cuBLAS picks its algorithm by shape, and on the card the
+    graph-level head's rows differ in their last bits between a batch of
+    64 and one of 512. At one shape a config's row does not depend on the
+    batch it came in, so a fused cross-request wave gives the rows a
+    request alone would. The layers (`gnn_mp`) are per graph already;
+    gat and mpnn run the whole model at ``rows`` rows.
     """
     from repro_torch.core import gnn, models
     from repro_torch.kernels import ops
@@ -197,12 +217,12 @@ def _make_predict(two_cfg, params, adj_row: np.ndarray,
     adj = torch.from_numpy(adj_row).to(device)
 
     if two_cfg.gnn.arch not in ("gcn", "gsae"):
-        def predict_plain(X):
+        def plain(X):
             B = X.shape[0]
             return models.predict(two_cfg, params,
                                   adj.expand(B, *adj.shape), X,
                                   mask.expand(B, *mask.shape))[0]
-        return predict_plain
+        return lambda X: _at_rows(plain, X, rows)
 
     a = np.asarray(adj_row, np.float32)
     if two_cfg.gnn.arch == "gsae":
@@ -217,13 +237,17 @@ def _make_predict(two_cfg, params, adj_row: np.ndarray,
             h = h * mask_col
         return h
 
+    def readout(s, p, h):
+        return _at_rows(lambda hr: gnn.readout(
+            s, p, hr, mask.expand(hr.shape[0], *mask.shape)), h, rows)
+
     def predict(X):
         m = mask.expand(X.shape[0], *mask.shape)
         s1, s2 = two_cfg.stage1, two_cfg.stage2
-        crit_logits = gnn.readout(s1, params.stage1,
-                                  stack(params.stage1, X), m)[..., 0]
+        crit_logits = readout(s1, params.stage1,
+                              stack(params.stage1, X))[..., 0]
         x2 = models.with_crit_bit(two_cfg, X, m, crit_logits)
-        return gnn.readout(s2, params.stage2, stack(params.stage2, x2), m)
+        return readout(s2, params.stage2, stack(params.stage2, x2))
 
     return predict
 
@@ -651,7 +675,8 @@ class SurrogateEngine:
                 f"dataset featurizes with v{feat.schema.version} — "
                 f"rebuild the stale artifact")
         pb, backend = _gnn_backend(two_cfg, params, feat, feat.normalized,
-                                   ds.denorm_y, dev, parity_atol)
+                                   ds.denorm_y, dev, parity_atol,
+                                   chunk_size)
         return cls(pb, backend=backend, chunk_size=chunk_size,
                    fixed_shape=True, cache=cache, overlap=overlap,
                    schema_version=sv)
@@ -696,7 +721,8 @@ class SurrogateEngine:
                 axis=-1)
 
         pb, backend = _gnn_backend(two_cfg, params, feat, featurize,
-                                   ds.denorm_y, dev, parity_atol)
+                                   ds.denorm_y, dev, parity_atol,
+                                   chunk_size)
         return cls(pb, backend=f"{backend}-shared", chunk_size=chunk_size,
                    fixed_shape=True, cache=cache, overlap=overlap,
                    schema_version=feat.schema.version)
@@ -772,7 +798,7 @@ class SurrogateEngine:
                 member = pytree.tree_map(lambda a, m=m: a[m], stacked)
                 fn, label = _checked_predict(g_cfg, member, feat,
                                              feat.normalized, dev,
-                                             parity_atol)
+                                             parity_atol, chunk_size)
                 predicts.append(fn)
                 labels.add(label)
 
@@ -803,15 +829,16 @@ def _one_device(devices: int) -> None:
 
 
 def _checked_predict(two_cfg, params, feat, featurize: Callable,
-                     dev: torch.device, parity_atol: float):
+                     dev: torch.device, parity_atol: float, rows: int):
     """``(predict, backend label)`` of one two-stage model on ``dev``
-    over ``feat``'s adjacency and mask. For gcn/gsae the `gnn_mp` layer
-    path is first held against `models.predict` on a small probe batch
-    and a mismatch beyond ``parity_atol`` (normalized outputs) raises."""
+    over ``feat``'s adjacency and mask, its readouts at ``rows`` rows
+    (`_make_predict`). For gcn/gsae the `gnn_mp` layer path is first held
+    against `models.predict` on a small probe batch and a mismatch beyond
+    ``parity_atol`` (normalized outputs) raises."""
     from repro_torch.core import models
 
     params = models.TwoStageParams(*(_to_device(p, dev) for p in params))
-    predict = _make_predict(two_cfg, params, feat.adj, feat.mask, dev)
+    predict = _make_predict(two_cfg, params, feat.adj, feat.mask, dev, rows)
     if two_cfg.gnn.arch not in ("gcn", "gsae"):
         return predict, "torch"
     Xp = torch.from_numpy(featurize(_probe_configs(feat.sizes))).to(dev)
@@ -837,13 +864,14 @@ def _to_input(X, dev: torch.device) -> torch.Tensor:
 
 
 def _gnn_backend(two_cfg, params, feat, featurize: Callable, denorm_y,
-                 dev: torch.device, parity_atol: float
+                 dev: torch.device, parity_atol: float, rows: int
                  ) -> Tuple[PipelinedBackend, str]:
     """The GNN engines' pipelined backend and its label: ``featurize``
-    on the host, the two-stage model on ``dev`` (`_checked_predict`),
-    ``denorm_y`` and the ssim flip on collect."""
+    on the host, the two-stage model on ``dev`` (`_checked_predict`, its
+    readouts at ``rows`` rows), ``denorm_y`` and the ssim flip on
+    collect."""
     predict, backend = _checked_predict(two_cfg, params, feat, featurize,
-                                        dev, parity_atol)
+                                        dev, parity_atol, rows)
 
     def dispatch(X):
         with torch.no_grad():

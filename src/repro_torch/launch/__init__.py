@@ -1,1 +1,1 @@
-"""Step builders of the LM serving slice."""
+"""Step builders of the LM serving slice and the evaluation service."""

@@ -2,6 +2,12 @@
 the batched adder/subtractor, library metrics and pruning, the batched
 synthesis oracle and the config-batched functional model, all on the CPU
 with the same NumPy-made inputs on both sides."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -216,3 +222,37 @@ def test_stacked_lut_layout(pruned):
     np.testing.assert_array_equal(
         tab.numpy(), np.asarray(jlib.stacked_lut(
             tuple(pruned[0]["mul8x4"][:3]), 8, 4)))
+
+
+_LIBRARY_UNDER_THREADS = """
+import json, sys, torch
+torch.set_num_threads(int(sys.argv[1]))
+from repro_torch.accel import library as tlib
+from repro_torch.core import pruning as tpruning
+metrics = {e.inst.name: [e.mae, e.mre, e.mse, e.wce]
+           for kind in tlib.TABLE_III for e in tlib.build_library(kind)}
+pruned = {k: [e.inst.name for e in v]
+          for k, v in tpruning.prune_library()[0].items()}
+print(json.dumps({"threads": torch.get_num_threads(), "metrics": metrics,
+                  "pruned": pruned}))
+"""
+
+
+def test_library_metrics_do_not_follow_the_thread_count(pruned):
+    """The library built under 1 and under 4 intra-op threads, each in a
+    fresh interpreter: every error metric identical, and the pruned sets
+    of all 7 kinds equal to the reference's at both."""
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    runs = []
+    for n in (1, 4):
+        r = subprocess.run([sys.executable, "-c", _LIBRARY_UNDER_THREADS,
+                            str(n)], env=env, capture_output=True,
+                           text=True, timeout=300)
+        assert r.returncode == 0, r.stderr
+        runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
+    assert [r["threads"] for r in runs] == [1, 4]
+    assert runs[0]["metrics"] == runs[1]["metrics"]
+    want = {k: [e.inst.name for e in v] for k, v in pruned[0].items()}
+    for r in runs:
+        assert r["pruned"] == want, r["threads"]

@@ -364,4 +364,44 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert r.returncode == 0, r.stderr
     assert len(modules) >= 20
     assert {"repro_torch.core.training", "repro_torch.core.dse",
-            "repro_torch.core.islands"} <= set(modules)
+            "repro_torch.core.islands", "repro_torch.core.artifacts",
+            "repro_torch.core.pipeline",
+            "repro_torch.launch.serve"} <= set(modules)
+
+
+def _imported_names(path: Path):
+    """(line, module) of every import in a source file, those inside
+    functions included, and of every `importlib.import_module` /
+    `__import__` call on a string constant."""
+    import ast
+    out = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            out += [(node.lineno, a.name) for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.append((node.lineno, node.module))
+        elif isinstance(node, ast.Call) and node.args and isinstance(
+                node.args[0], ast.Constant) and isinstance(
+                node.args[0].value, str):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else \
+                getattr(fn, "id", "")
+            if name in ("import_module", "__import__"):
+                out.append((node.lineno, node.args[0].value))
+    return out
+
+
+def test_no_port_source_names_jax_or_the_reference_in_any_import():
+    """Importing a module runs only its top-level imports; this reads
+    every import statement of every port source and of chip_smoke.py,
+    the lazy ones inside functions too: none names jax or repro."""
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += [ROOT / "chip_smoke.py", ROOT / "examples" /
+              "quickstart_torch.py"]
+    bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
+           for p in files for line, mod in _imported_names(p)
+           if mod.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+    lazy = [mod for line, mod in _imported_names(
+        ROOT / "src" / "repro_torch" / "core" / "pipeline.py")]
+    assert "repro_torch.accel" in lazy      # `_oracle_eval`'s lazy import

@@ -54,9 +54,8 @@ def one_thread():
     """One intra-op thread for each test's tiny tensors: with the default
     (a thread per core) in each of several test workers, the threads of
     every small op contend for the cores and a step that takes a
-    millisecond alone takes a hundred. Per test, so that the module's
-    datasets and the cached library are built on the default threads
-    (the library's float32 metrics depend on the thread count)."""
+    millisecond alone takes a hundred. The pin is for the training
+    steps' speed only: no result here depends on the thread count."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
