@@ -514,13 +514,17 @@ def reset_launch_counts() -> None:
         c.reset()
 
 
-def counts_since(before: dict) -> dict:
-    now = launch_counts()
-    return {"gnn_mp": now["gnn_mp"] - before["gnn_mp"],
-            "lut_eval": now["lut_eval"] - before["lut_eval"],
+def counts_sum(a: dict, b: dict, sign: int = 1) -> dict:
+    """``a + sign * b`` of two `launch_counts` readings."""
+    return {"gnn_mp": a["gnn_mp"] + sign * b["gnn_mp"],
+            "lut_eval": a["lut_eval"] + sign * b["lut_eval"],
             "lut_eval_routes": {
-                r: n - before["lut_eval_routes"][r]
-                for r, n in now["lut_eval_routes"].items()}}
+                r: n + sign * b["lut_eval_routes"][r]
+                for r, n in a["lut_eval_routes"].items()}}
+
+
+def counts_since(before: dict) -> dict:
+    return counts_sum(launch_counts(), before, -1)
 
 
 def slice_phase(card: str, dev):
@@ -1330,7 +1334,9 @@ def _serve_run(card: str, dev, cfg, store, engine, ctx):
         "health": {k: health[k] for k in (
             "ok", "inflight", "requests_tracked", "batchers",
             "queue_depth", "retries", "quarantined", "checkpoint_gc")}})
-    # the same requests one by one, on a fresh engine
+    # the same requests one by one, on a fresh engine; its launches are
+    # the check's, not the main path's
+    before = launch_counts()
     ds = P.stage_dataset(cfg, store, ctx, device=dev)
     art = P.stage_train(cfg, store, ds, device=dev)
     fresh = P.stage_engine(cfg, ArtifactStore(None), ctx, ds, art,
@@ -1361,6 +1367,7 @@ def _serve_run(card: str, dev, cfg, store, engine, ctx):
                         and r.value.history == want.history):
                     differ[kind].append(
                         _max_abs(r.value.pareto_objs, want.pareto_objs))
+    out["serial_check_launches"] = counts_since(before)
     out["serial_differing"] = {k: len(v) for k, v in differ.items()}
     out["serial_max_abs"] = {k: max(v) for k, v in differ.items() if v}
     out["dse_front_sizes"] = {s: len(r.pareto_configs)
@@ -1453,8 +1460,10 @@ def pipeline_slice_phase(card: str, dev, n_samples: int = PIPE_SAMPLES,
         report["validate"] = {"wall_s": time.perf_counter() - t, **val}
         ctx = P.stage_prune(cfg, store, device=dev)
         sel = res.pareto_configs[:10]
+        before = launch_counts()
         card_rows = P._oracle_eval(ctx.app, ctx.entries, ctx.inp,
                                    ctx.exact_out)(sel)
+        oracle_check = counts_since(before)
         cpu = P.app_context("gaussian", cfg.theta, device="cpu")
         cpu_rows = P._oracle_eval(cpu.app, cpu.entries, cpu.inp,
                                   cpu.exact_out)(sel)
@@ -1470,8 +1479,13 @@ def pipeline_slice_phase(card: str, dev, n_samples: int = PIPE_SAMPLES,
         report["serve"] = _serve_run(card, dev, cfg, store, res.engine, ctx)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    launches = launch_counts()
+    # the main path's launches: all but those of the comparisons (the
+    # card's oracle rows against the CPU's, the serial one-shot calls)
+    checks = counts_sum(oracle_check,
+                        report["serve"]["serial_check_launches"])
+    launches = counts_sum(launch_counts(), checks, -1)
     report["launches"] = launches
+    report["check_launches"] = checks
     for name in ("gnn_mp", "lut_eval"):
         check(dev.type != "cuda" or launches[name] > 0,
               f"{name} was never launched in the pipeline slice")

@@ -3,10 +3,12 @@
 ``SurrogateEngine`` is the ``evaluate(configs) -> (n, n_obj)`` callable
 that the search drives, as in `repro.core.engine`:
 
-* **fixed-shape chunked inference** — batches are split into chunks of
-  ``chunk_size`` and a ragged final chunk is padded up to the next
-  power-of-two bucket, so the backend sees at most ``log2(chunk_size)+1``
-  shapes;
+* **chunked inference** — batches are split into chunks of
+  ``chunk_size``; with ``fixed_shape`` a ragged final chunk is padded up
+  to the next power-of-two bucket, so the backend sees at most
+  ``log2(chunk_size)+1`` shapes (the reference's XLA compiles one program
+  per shape; the port compiles none, and its GNN engines run a ragged
+  chunk as it is);
 * **featurize/compute overlap** — the GNN backend is a `PipelinedBackend`
   (prepare → dispatch → collect): with ≥ 2 chunks a worker thread
   featurizes chunk *k+1* on the host (timing sweep + functional probe)
@@ -180,13 +182,10 @@ class PipelinedBackend:
 # GNN predict functions
 # --------------------------------------------------------------------------
 
-def _at_rows(fn, x: torch.Tensor, rows: int) -> torch.Tensor:
-    """``fn(x)`` with ``x``'s leading axis zero-padded to ``rows`` (when
-    shorter), cut back to ``x``'s rows."""
-    B = x.shape[0]
-    if B >= (rows or 0):
-        return fn(x)
-    return fn(torch.cat([x, x.new_zeros((rows - B,) + x.shape[1:])]))[:B]
+# architectures whose layers' rows change with the batch's size on the card
+# (cuBLAS's algorithm for their products; scripts/readout_rows.py): their
+# engines run the whole model at the chunk's rows, not the readouts only
+WHOLE_MODEL_AT_ROWS = frozenset({"mpnn"})
 
 
 def _make_predict(two_cfg, params, adj_row: np.ndarray,
@@ -200,15 +199,17 @@ def _make_predict(two_cfg, params, adj_row: np.ndarray,
     ``A' = adj`` (gcn) or ``A' = adj / deg`` (GraphSAGE-mean: row-scaling
     the adjacency commutes with the product). One (N,N) adjacency serves
     the whole batch. gat and mpnn, which have no kernel, run
-    `models.predict`.
+    `gnn.layers`.
 
-    The readouts' dense products run at ``rows`` rows at least (zero rows
-    appended): cuBLAS picks its algorithm by shape, and on the card the
+    The readouts run at ``rows`` rows at least (zero rows appended, cut
+    off after): cuBLAS picks its algorithm by shape, and on the card the
     graph-level head's rows differ in their last bits between a batch of
     64 and one of 512. At one shape a config's row does not depend on the
     batch it came in, so a fused cross-request wave gives the rows a
-    request alone would. The layers (`gnn_mp`) are per graph already;
-    gat and mpnn run the whole model at ``rows`` rows.
+    request alone would. The layers run at the batch's own rows, as
+    `gnn_mp` computes each graph alone and gat's rows agree across batch
+    sizes; mpnn's message products do not, so mpnn runs the whole model
+    at ``rows`` rows (`WHOLE_MODEL_AT_ROWS`).
     """
     from repro_torch.core import gnn, models
     from repro_torch.kernels import ops
@@ -216,38 +217,46 @@ def _make_predict(two_cfg, params, adj_row: np.ndarray,
     mask = torch.from_numpy(mask_row).to(device)
     adj = torch.from_numpy(adj_row).to(device)
 
-    if two_cfg.gnn.arch not in ("gcn", "gsae"):
-        def plain(X):
-            B = X.shape[0]
-            return models.predict(two_cfg, params,
-                                  adj.expand(B, *adj.shape), X,
-                                  mask.expand(B, *mask.shape))[0]
-        return lambda X: _at_rows(plain, X, rows)
+    if two_cfg.gnn.arch in ("gcn", "gsae"):
+        a = np.asarray(adj_row, np.float32)
+        if two_cfg.gnn.arch == "gsae":
+            a = a / np.maximum(a.sum(-1, keepdims=True), 1e-6)
+        adj_k = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        mask_col = mask[None, :, None]
 
-    a = np.asarray(adj_row, np.float32)
-    if two_cfg.gnn.arch == "gsae":
-        a = a / np.maximum(a.sum(-1, keepdims=True), 1e-6)
-    adj_k = torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    mask_col = mask[None, :, None]
+        def stack(s, p, x):
+            h = x * mask_col
+            for lp in p["layers"]:
+                h = ops.gnn_mp(adj_k, h, lp["w_self"], lp["w_nbr"], lp["b"])
+                h = h * mask_col
+            return h
+    else:
+        def stack(s, p, x):
+            B = x.shape[0]
+            return gnn.layers(s, p, adj.expand(B, *adj.shape), x,
+                              mask.expand(B, *mask.shape))
 
-    def stack(p, x):
-        h = x * mask_col
-        for lp in p["layers"]:
-            h = ops.gnn_mp(adj_k, h, lp["w_self"], lp["w_nbr"], lp["b"])
-            h = h * mask_col
-        return h
+    whole = two_cfg.gnn.arch in WHOLE_MODEL_AT_ROWS
+
+    def pad(t):
+        n = rows - t.shape[0]
+        return torch.cat([t, t.new_zeros((n,) + t.shape[1:])]) if n > 0 else t
 
     def readout(s, p, h):
-        return _at_rows(lambda hr: gnn.readout(
-            s, p, hr, mask.expand(hr.shape[0], *mask.shape)), h, rows)
+        hr = pad(h)
+        return gnn.readout(s, p, hr, mask.expand(hr.shape[0],
+                                                 *mask.shape))[:h.shape[0]]
 
     def predict(X):
+        B = X.shape[0]
+        if whole:
+            X = pad(X)
         m = mask.expand(X.shape[0], *mask.shape)
         s1, s2 = two_cfg.stage1, two_cfg.stage2
         crit_logits = readout(s1, params.stage1,
-                              stack(params.stage1, X))[..., 0]
+                              stack(s1, params.stage1, X))[..., 0]
         x2 = models.with_crit_bit(two_cfg, X, m, crit_logits)
-        return readout(s2, params.stage2, stack(params.stage2, x2))
+        return readout(s2, params.stage2, stack(s2, params.stage2, x2))[:B]
 
     return predict
 
@@ -655,9 +664,10 @@ class SurrogateEngine:
         (default: the CUDA card).
 
         Featurizes by table lookup plus the schema-v2 timing sweep and
-        functional probe, runs the two-stage model with power-of-two
-        bucketed chunk shapes, denormalizes and flips ssim to the
-        minimized ``1 - ssim``. For gcn/gsae every message-passing layer
+        functional probe, runs the two-stage model on chunks of up to
+        ``chunk_size`` configs, its readouts at ``chunk_size`` rows
+        (`_make_predict`), denormalizes and flips ssim to the minimized
+        ``1 - ssim``. For gcn/gsae every message-passing layer
         goes through `kernels.ops.gnn_mp` (the CUDA kernel on the card);
         at construction that path is held against `models.predict` on a
         small probe batch and a mismatch beyond ``parity_atol`` (on
@@ -678,7 +688,7 @@ class SurrogateEngine:
                                    ds.denorm_y, dev, parity_atol,
                                    chunk_size)
         return cls(pb, backend=backend, chunk_size=chunk_size,
-                   fixed_shape=True, cache=cache, overlap=overlap,
+                   cache=cache, overlap=overlap,
                    schema_version=sv)
 
     @classmethod
@@ -724,7 +734,7 @@ class SurrogateEngine:
                                    ds.denorm_y, dev, parity_atol,
                                    chunk_size)
         return cls(pb, backend=f"{backend}-shared", chunk_size=chunk_size,
-                   fixed_shape=True, cache=cache, overlap=overlap,
+                   cache=cache, overlap=overlap,
                    schema_version=feat.schema.version)
 
     @classmethod
@@ -816,7 +826,7 @@ class SurrogateEngine:
 
         pb = PipelinedBackend(feat.normalized, dispatch, collect)
         return cls(pb, backend="-".join(sorted(labels)) + "-ensemble",
-                   chunk_size=chunk_size, fixed_shape=True, cache=cache,
+                   chunk_size=chunk_size, cache=cache,
                    overlap=overlap, schema_version=feat.schema.version,
                    obj_cols=len(models.TARGETS))
 

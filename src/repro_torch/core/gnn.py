@@ -119,9 +119,10 @@ def draw_keep(cfg: GNNConfig, generator: torch.Generator, B: int, N: int,
                       device=generator.device) >= cfg.dropout
 
 
-def apply(cfg: GNNConfig, params: Dict, adj, x, mask, *,
-          keep: Optional[torch.Tensor] = None):
-    """Returns (B, N, out) for node-level or (B, out) for graph-level.
+def layers(cfg: GNNConfig, params: Dict, adj, x, mask, *,
+           keep: Optional[torch.Tensor] = None):
+    """The message-passing stack: (B, N, hidden) node states before the
+    readout.
 
     ``keep`` gates dropout: training passes one boolean mask per layer,
     ``(n_layers, B, N, hidden)`` (`draw_keep`); inference passes
@@ -132,4 +133,12 @@ def apply(cfg: GNNConfig, params: Dict, adj, x, mask, *,
         h = _layer(cfg, lp, adj, h, mask)
         if keep is not None and cfg.dropout > 0:
             h = h * keep[i] / (1 - cfg.dropout)
-    return readout(cfg, params, h, mask)
+    return h
+
+
+def apply(cfg: GNNConfig, params: Dict, adj, x, mask, *,
+          keep: Optional[torch.Tensor] = None):
+    """Returns (B, N, out) for node-level or (B, out) for graph-level:
+    `layers` (``keep`` as there), then `readout`."""
+    return readout(cfg, params, layers(cfg, params, adj, x, mask, keep=keep),
+                   mask)

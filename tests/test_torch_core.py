@@ -137,7 +137,7 @@ def test_two_stage_predict_matches_on_carried_params(arch):
 def test_engine_predict_path_matches_models_predict(arch):
     """The engine's predict: gcn/gsae layers through `ops.gnn_mp` (the
     kernel's plain version here; gsae via the degree-scaled adjacency),
-    gat/mpnn through `models.predict` — all within fp32 reordering of
+    gat/mpnn through `gnn.layers` — all within fp32 reordering of
     `models.predict` (rtol/atol 1e-5)."""
     from repro_torch.core.engine import _make_predict
     F = tgraph.ACTIVE_SCHEMA.dim
@@ -152,6 +152,45 @@ def test_engine_predict_path_matches_models_predict(arch):
     got = _make_predict(cfg, p, adj, mask, torch.device("cpu"))(X)
     want = tmodels.predict(cfg, p, torch.from_numpy(adj).expand(6, 12, 12),
                            X, torch.from_numpy(mask).expand(6, 12))[0]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["gsae", "gat", "mpnn"])
+def test_engine_predict_runs_its_readouts_at_rows(arch, monkeypatch):
+    """With ``rows``, the engine's predict runs both readouts at ``rows``
+    rows, its layers at the batch's own rows, or at ``rows`` too for the
+    architectures in `WHOLE_MODEL_AT_ROWS` (mpnn), and returns the
+    batch's rows within fp32 reordering of the unpadded path (rtol/atol
+    1e-5)."""
+    from repro_torch.core.engine import WHOLE_MODEL_AT_ROWS, _make_predict
+    from repro_torch.kernels import ops
+    seen = {"layers": set(), "readout": set()}
+
+    def spy(kind, fn, at):
+        def wrapped(*a, **k):
+            seen[kind].add(a[at].shape[0])
+            return fn(*a, **k)
+        return wrapped
+    monkeypatch.setattr(tgnn, "layers", spy("layers", tgnn.layers, 3))
+    monkeypatch.setattr(ops, "gnn_mp", spy("layers", ops.gnn_mp, 1))
+    monkeypatch.setattr(tgnn, "readout", spy("readout", tgnn.readout, 2))
+    F = tgraph.ACTIVE_SCHEMA.dim
+    cfg = tmodels.TwoStageConfig(gnn=tgnn.GNNConfig(
+        arch=arch, n_layers=2, hidden=16, feature_dim=F))
+    p = tmodels.init(torch.Generator().manual_seed(3), cfg, device="cpu")
+    adj, _, mask = _graph_batch(B=2, N=12, F=F, seed=4)
+    adj, mask = adj[1], mask[1]
+    X = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (6, 12, F)).astype(np.float32) * mask[:, None])
+    X[..., tgraph.CRIT_IDX] = 0.0
+    dev = torch.device("cpu")
+    want = _make_predict(cfg, p, adj, mask, dev)(X)
+    assert seen == {"layers": {6}, "readout": {6}}
+    seen = {"layers": set(), "readout": set()}
+    got = _make_predict(cfg, p, adj, mask, dev, rows=16)(X)
+    assert got.shape == (6, 4)
+    assert seen == {"readout": {16}, "layers": {
+        16 if arch in WHOLE_MODEL_AT_ROWS else 6}}
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 

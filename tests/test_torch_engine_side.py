@@ -94,8 +94,10 @@ def test_shared_view_rows_match_the_reference(side, app):
     assert ty.shape == (len(fresh), 4) and np.isfinite(ty).all()
     np.testing.assert_allclose(_norm(ty, td), _norm(jy, jd), atol=1e-4)
     np.testing.assert_allclose(ty, jy, rtol=1e-5, atol=1e-5)
-    assert (teng.stats.chunks, teng.stats.padded) == \
-        (jeng.stats.chunks, jeng.stats.padded)
+    # the same chunks; the port runs a ragged chunk as it is, where the
+    # reference pads it to a power-of-two bucket for XLA
+    assert teng.stats.chunks == jeng.stats.chunks
+    assert teng.stats.padded == 0
 
     view = tm.view(app)
     X = teng.pipeline.prepare(view.configs)
