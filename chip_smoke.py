@@ -54,7 +54,16 @@ graph of the calls, then drives the port's two main paths:
   prefill/decode consistency checks (float32 compute over all 32
   layers, bf16 over two), the float32 gap of a short prompt on the card
   against the CPU's plain path, and a card-against-CPU check of a
-  two-layer model in bf16.
+  two-layer model in bf16;
+- the mixture-of-experts slice (`moe_slice` line): Moonlight-16B-A3B at
+  full width and depth (48 layers, d_model 2048, 64 experts top-6,
+  expert d_ff 1408, vocab 163,840; 28.06 B random bf16 parameters from
+  a seeded generator, drawn in bounded pieces) on one card, the same
+  prompts and steps as the LM slice (`flash_attention` in every prefill
+  layer), the share of assignments dropped by capacity, the device time
+  by MoE stage, a no-drop prefill/decode consistency check over two
+  layers, a routing witness of two layers on the card against the CPU,
+  and the LM `BatchServer` serving 8 requests through 4 slots.
 
 Launch counters are zeroed just before each main path and read just
 after; the `kernels` line sums the accelerator paths' counts. The last line of standard output is the device JSON; the line
@@ -68,6 +77,7 @@ import subprocess
 import sys
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -110,6 +120,12 @@ CARD_CPU_TOL = (5e-2, 5e-2)
 # the SSM state: float32 sums of bf16 inputs that may differ by an ulp;
 # an absolute bar at 1% of the state's largest entry
 CARD_CPU_SSM_ATOL = 1e-2
+# the MoE slice: Moonlight-16B-A3B at full width and depth (48 layers,
+# 64 experts top-6) on one card, the LM slice's prompts and steps; its
+# BatchServer serves 8 requests of 16 prompt tokens and 16 new tokens
+# through 4 slots
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_SERVE = dict(requests=8, slots=4, prompt=16, max_new=16)
 
 
 def card_line() -> str:
@@ -389,10 +405,13 @@ def lut_eval_phase(gen):
 
 
 # K3's shapes: (label, B, H, KV, S, D, dtype, causal). The first is the
-# Hymba-1.5B prefill (the kernels line reports it); the D = 128 rows are
-# Granite-20B (MQA) and Qwen2.5-32B (GQA) prefills of 1024 tokens.
+# Hymba-1.5B prefill (the kernels line reports it), the second the
+# Moonlight-16B-A3B prefill (MHA: one query head per KV head); the other
+# D = 128 rows are Granite-20B (MQA) and Qwen2.5-32B (GQA) prefills of
+# 1024 tokens.
 FA_SHAPES = [
     ("hymba_prefill", 8, 25, 5, 1024, 64, "bfloat16", True),
+    ("moonshot_prefill_mha_d128", 8, 16, 16, 1024, 128, "bfloat16", True),
     ("hymba_ragged_1025", 8, 25, 5, 1025, 64, "bfloat16", True),
     ("hymba_float32", 8, 25, 5, 1024, 64, "float32", True),
     ("granite20b_mqa_d128", 2, 48, 1, 1024, 128, "bfloat16", True),
@@ -1526,12 +1545,18 @@ KIND_OF_KERNEL = (  # device time of a call, by what the kernel does
 )
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, spans=()) -> dict:
     """Device time of one call of ``fn`` from torch.profiler: the busy
     share of the call's wall time, the time by kind of kernel (K1-K4,
     matrix products, copies, the rest) and the kernels that take the
-    most. A profiler that records no device activity is reported, not
-    fatal: it measures, it checks nothing."""
+    most; with ``spans``, also the device time of the kernels inside each
+    ``record_function`` span of those names. The profiler marks a span on
+    the device as an event of the span's name from its first kernel's
+    start to its last kernel's end (idle gaps included): it is left out
+    of the kernel sums, and a span's time is the sum of the kernels that
+    start inside its marks. A profiler that records no device activity
+    is reported, not fatal: it measures, it checks nothing."""
+    import bisect
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1542,10 +1567,26 @@ def device_profile(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     by_name = {}
+    marks, starts = [], []
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if e.name in spans:
+            marks.append(e)
+            continue
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3)
+        starts.append((e.time_range.start, e.time_range.elapsed_us()))
+    starts.sort()
+    at = [t for t, _ in starts]
+    run = [0.0]
+    for _, us in starts:
+        run.append(run[-1] + us)
+    by_span = dict.fromkeys(spans, 0.0)
+    for m in marks:
+        lo = bisect.bisect_left(at, m.time_range.start)
+        hi = bisect.bisect_right(at, m.time_range.end)
+        by_span[m.name] += (run[hi] - run[lo]) / 1e3
     if not by_name:
         return {"wall_ms": wall_ms, "device_ms": "not measured: the "
                 "profiler recorded no device activity"}
@@ -1556,10 +1597,40 @@ def device_profile(fn) -> dict:
                      if any(s in name.lower() for s in keys)), "other")
         by_kind[kind] += ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / wall_ms,
-            "device_ms_by_kind": by_kind, "kernels": len(by_name),
-            "top_ms": {name[:80]: ms for name, ms in top}}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "device_idle_share": 1.0 - busy / wall_ms,
+           "device_ms_by_kind": by_kind, "kernels": len(by_name),
+           "top_ms": {name[:80]: ms for name, ms in top}}
+    if spans:
+        out["device_ms_by_span"] = by_span
+    return out
+
+
+def timed_ms(dev, fn):
+    """(fn's result, its wall ms), the device synchronized around it."""
+    sync(dev)
+    t = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def first_layers(params, n: int):
+    """An LM's parameters with its first ``n`` layers (views)."""
+    from repro_torch.models.layers import tree_map
+    return dict(params, blocks=tree_map(lambda a: a[:n], params["blocks"]))
+
+
+def stepped_and_longer(cfg, params, toks, S: int, max_len: int):
+    """Last logits of prefill(S) + decode_step(S), and of one
+    prefill(S + 1), through `make_prefill_step` / `make_decode_step`."""
+    from repro_torch.launch import steps
+    pre = steps.make_prefill_step(cfg, max_len=max_len)
+    _, cache = pre(params, {"tokens": toks[:, :S]})
+    stepped, _ = steps.make_decode_step(cfg)(params, cache,
+                                             toks[:, S:S + 1], S)
+    longer, _ = pre(params, {"tokens": toks[:, :S + 1]})
+    return stepped[:, 0], longer
 
 
 def lm_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
@@ -1583,16 +1654,9 @@ def lm_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
     per_run = cfg.n_layers if dev.type == "cuda" else 0
     checks = {}
 
-    def timed(fn):
-        sync(dev)
-        t = time.perf_counter()
-        out = fn()
-        sync(dev)
-        return out, (time.perf_counter() - t) * 1e3
-
     gen = torch.Generator(device=dev).manual_seed(0)
-    params, ms = timed(lambda: transformer.build_param_table(cfg).init(
-        gen, device=dev, dtype=torch.bfloat16))
+    params, ms = timed_ms(dev, lambda: transformer.build_param_table(
+        cfg).init(gen, device=dev, dtype=torch.bfloat16))
     report["init_ms"] = ms
     n_params = []
     tree_map(lambda a: n_params.append(a.numel()), params)
@@ -1603,21 +1667,9 @@ def lm_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
     prefill = steps.make_prefill_step(cfg, max_len=max_len)
     decode = steps.make_decode_step(cfg)
 
-    def first_layers(p, n):
-        return dict(p, blocks=tree_map(lambda a: a[:n], p["blocks"]))
-
-    def stepped_and_longer(c, p, toks, S):
-        """Last logits of prefill(S) + decode_step(S), and of one
-        prefill(S + 1)."""
-        pre = steps.make_prefill_step(c, max_len=max_len)
-        _, cache = pre(p, {"tokens": toks[:, :S]})
-        stepped, _ = steps.make_decode_step(c)(p, cache, toks[:, S:S + 1], S)
-        longer, _ = pre(p, {"tokens": toks[:, :S + 1]})
-        return stepped[:, 0], longer
-
     with torch.inference_mode():
-        (last, cache), report["prefill_cold_ms"] = timed(
-            lambda: prefill(params, prompt))
+        (last, cache), report["prefill_cold_ms"] = timed_ms(
+            dev, lambda: prefill(params, prompt))
         check(tuple(last.shape) == (batch, cfg.vocab_size)
               and finite(last), "prefill logits: shape or values")
         del cache
@@ -1627,7 +1679,7 @@ def lm_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
             torch.cuda.reset_peak_memory_stats(dev)
         fa.LAUNCHES.reset()
         sc.LAUNCHES.reset()
-        (last, cache), warm = timed(lambda: prefill(params, prompt))
+        (last, cache), warm = timed_ms(dev, lambda: prefill(params, prompt))
         launches = {"flash_attention": fa.LAUNCHES.value,
                     "ssm_scan": sc.LAUNCHES.value}
         for name, n in launches.items():
@@ -1636,8 +1688,8 @@ def lm_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
         tok = last.argmax(-1, keepdim=True).to(torch.int32)
         step_ms = []
         for i in range(n_steps):
-            (logits, cache), ms = timed(
-                lambda: decode(params, cache, tok, prompt_len + i))
+            (logits, cache), ms = timed_ms(
+                dev, lambda: decode(params, cache, tok, prompt_len + i))
             step_ms.append(ms)
             tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
         check(finite(logits) and tuple(logits.shape)
@@ -1674,13 +1726,13 @@ def lm_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
         # test_bf16_decode_gap_at_depth_is_rounding_order).
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         p32 = tree_map(lambda a: a.float(), params)
-        a, b = stepped_and_longer(cfg32, p32, tokens, prompt_len)
+        a, b = stepped_and_longer(cfg32, p32, tokens, prompt_len, max_len)
         checks["decode_vs_longer_prefill_f32"] = gap(a, b)
         check(within(a, b, LM_RTOL, LM_ATOL),
               "float32 prefill+decode vs prefill(S+1) beyond the bar")
         cfg2 = dataclasses.replace(cfg, n_layers=2)
         a, b = stepped_and_longer(cfg2, first_layers(params, 2), tokens,
-                                  prompt_len)
+                                  prompt_len, max_len)
         checks["decode_vs_longer_prefill_bf16_2_layers"] = gap(a, b)
         check(within(a, b, LM_RTOL, LM_ATOL),
               "bf16 two-layer prefill+decode vs prefill(S+1) beyond the bar")
@@ -1691,11 +1743,12 @@ def lm_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
         # k/v rounded, the longer prefill does not), the same on both
         # devices; a kernel fault would make the card's gap its own.
         toks_w = tokens[:, :witness_len + 1]
-        card_s, card_l = stepped_and_longer(cfg32, p32, toks_w, witness_len)
+        card_s, card_l = stepped_and_longer(cfg32, p32, toks_w, witness_len,
+                                            max_len)
         del p32
         p32_cpu = tree_map(lambda a: a.float().cpu(), params)
         cpu_s, cpu_l = stepped_and_longer(cfg32, p32_cpu, toks_w.cpu(),
-                                          witness_len)
+                                          witness_len, max_len)
         del p32_cpu
         w = {"prompt": witness_len, "card": gap(card_s, card_l),
              "cpu": gap(cpu_s, cpu_l),
@@ -1748,6 +1801,276 @@ def lm_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
                            "witness_share": WITNESS_SHARE,
                            "card_vs_cpu": list(CARD_CPU_TOL),
                            "card_vs_cpu_ssm_atol": ssm_atol}
+    return report, launches
+
+
+@contextmanager
+def recorded_routes():
+    """While open, record each `moe.moe_ffn` call's routing: a list of
+    (idx (T, k), keep (T, k)) per call, from `moe.route` on the call's
+    input. `transformer` and `decoding` call the function through the
+    module, so the recording sees every layer; it measures, and the
+    layer's result is unchanged."""
+    from repro_torch.models import moe
+    real = moe.moe_ffn
+    seen = []
+
+    def recording(cfg, p, x, deterministic_capacity=0):
+        r = moe.route(cfg, p["router"], x.reshape(-1, x.shape[-1]),
+                      deterministic_capacity)
+        seen.append((r.idx, r.keep.view(r.idx.shape)))
+        return real(cfg, p, x, deterministic_capacity)
+    moe.moe_ffn = recording
+    try:
+        yield seen
+    finally:
+        moe.moe_ffn = real
+
+
+def dropped_share(routes) -> float:
+    """The share of assignments dropped by capacity over recorded calls."""
+    kept = sum(float(keep.float().sum()) for _, keep in routes)
+    return 1.0 - kept / sum(keep.numel() for _, keep in routes)
+
+
+def moe_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
+                    prompt_len: int = LM_PROMPT, max_len: int = LM_MAX_LEN,
+                    n_steps: int = LM_STEPS, cpu_len: int = 128,
+                    witness_len: int = LM_WITNESS_PROMPT, serve=MOE_SERVE):
+    """Drive the mixture-of-experts family on ``dev``: `make_prefill_step`
+    and `make_decode_step` at full width and depth in bf16, then the LM
+    `BatchServer`; returns (report, launches of the counted prefill). On
+    the CPU (a rehearsal at reduced size) the kernels' plain versions run
+    and nothing is launched."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.layers import tree_map
+    report = {"card": card, "arch": cfg.name, "batch": batch,
+              "prompt": prompt_len, "max_len": max_len,
+              "decode_steps": n_steps, "n_layers": cfg.n_layers,
+              "experts": cfg.n_experts, "top_k": cfg.top_k,
+              "capacity_factor": cfg.capacity_factor}
+    per_run = cfg.n_layers if dev.type == "cuda" else 0
+    checks = {}
+
+    def peak_gib():
+        return (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                if dev.type == "cuda" else "not measured: no card")
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, report["init_ms"] = timed_ms(
+        dev, lambda: transformer.build_param_table(cfg).init(
+            gen, device=dev, dtype=torch.bfloat16))
+    report["peak_gib_after_init"] = peak_gib()
+    n_params = []
+    tree_map(lambda a: n_params.append(a.numel()), params)
+    report["params"] = sum(n_params)
+    report["params_gib_bf16"] = 2 * sum(n_params) / 2 ** 30
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len + 1),
+                           generator=gen, device=dev, dtype=torch.int32)
+    prompt = {"tokens": tokens[:, :prompt_len]}
+    prefill = steps.make_prefill_step(cfg, max_len=max_len)
+    decode = steps.make_decode_step(cfg)
+    report["capacity"] = {
+        "prefill": moe.capacity(cfg, batch * prompt_len),
+        "decode_step": moe.capacity(cfg, batch)}
+
+    with torch.inference_mode():
+        (last, cache), report["prefill_cold_ms"] = timed_ms(
+            dev, lambda: prefill(params, prompt))
+        check(tuple(last.shape) == (batch, cfg.vocab_size)
+              and finite(last), "moe prefill logits: shape or values")
+        del cache
+
+        # the counted run: one warm prefill, then greedy decoding
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        fa.LAUNCHES.reset()
+        (last, cache), warm = timed_ms(dev, lambda: prefill(params, prompt))
+        launches = {"flash_attention": fa.LAUNCHES.value}
+        check(launches["flash_attention"] == per_run,
+              f"flash_attention: {launches['flash_attention']} launches in "
+              f"the moe prefill, not {per_run} (one per layer on the card)")
+        report["peak_gib_prefill"] = peak_gib()
+        tok = last.argmax(-1, keepdim=True).to(torch.int32)
+        step_ms = []
+        for i in range(n_steps):
+            (logits, cache), ms = timed_ms(
+                dev, lambda: decode(params, cache, tok, prompt_len + i))
+            step_ms.append(ms)
+            tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+        check(finite(logits) and tuple(logits.shape)
+              == (batch, 1, cfg.vocab_size), "moe decode logits")
+        report["peak_gib_decode"] = peak_gib()
+        report["prefill_warm_ms"] = warm
+        report["prefill_tokens_per_s"] = batch * prompt_len / warm * 1e3
+        report["decode_ms_per_step"] = sum(step_ms) / len(step_ms)
+        report["decode_ms_per_step_median"] = sorted(step_ms)[n_steps // 2]
+        report["decode_tokens_per_s"] = (batch * 1e3
+                                         / report["decode_ms_per_step"])
+        report["launches"] = launches
+
+        # the share of assignments that capacity drops: over a prefill's
+        # 48 layers, and over one decode step's (C = 1 at batch 8)
+        with recorded_routes() as seen:
+            decode(params, cache, tok, prompt_len + n_steps)
+        report["dropped_share_decode_step"] = dropped_share(seen)
+        del cache
+        with recorded_routes() as seen:
+            prefill(params, prompt)
+        report["dropped_share_prefill"] = dropped_share(seen)
+        del seen
+
+        # where one warm prefill's and one decode step's device time goes;
+        # the MoE layer's stages by their record_function spans
+        if dev.type == "cuda":
+            report["prefill_device_profile"] = device_profile(
+                lambda: prefill(params, prompt), spans=moe.SPANS)
+            _, cache = prefill(params, prompt)
+            report["decode_step_device_profile"] = device_profile(
+                lambda: decode(params, cache, tok, prompt_len),
+                spans=moe.SPANS)
+            del cache
+
+        # consistency: prefill(S) + one decode step at S against one
+        # prefill(S + 1), at test_models.py's bar, over two layers at full
+        # width, in bf16 (the served types) and float32. As configured
+        # the two orders differ: a decode step of B rows has C = 1 and
+        # drops assignments the longer prefill keeps. With capacity_factor
+        # = n_experts, C = k T >= T places per expert and nothing is
+        # dropped in either order.
+        cfg_nd = dataclasses.replace(cfg, n_layers=2,
+                                     capacity_factor=float(cfg.n_experts))
+        p2 = first_layers(params, 2)
+        toks_w = tokens[:2, :witness_len + 1]
+        a, b = stepped_and_longer(cfg_nd, p2, toks_w, witness_len,
+                                  max_len)
+        checks["decode_vs_longer_prefill_bf16_2_layers_no_drop"] = gap(a, b)
+        check(within(a, b, LM_RTOL, LM_ATOL),
+              "moe bf16 two-layer prefill+decode vs prefill(S+1) beyond the "
+              "bar (no drops)")
+        cfg_nd32 = dataclasses.replace(cfg_nd, dtype="float32")
+        p2_32 = tree_map(lambda t: t.float(), p2)
+        a, b = stepped_and_longer(cfg_nd32, p2_32, toks_w, witness_len,
+                                  max_len)
+        del p2_32
+        checks["decode_vs_longer_prefill_f32_2_layers_no_drop"] = gap(a, b)
+        check(within(a, b, LM_RTOL, LM_ATOL),
+              "moe float32 two-layer prefill+decode vs prefill(S+1) beyond "
+              "the bar (no drops)")
+
+        # routing witness, card against CPU: the first two layers at full
+        # width in bf16 on the same tokens. A router product summed in
+        # another order, or a layer-1 output rounded after another order,
+        # may flip a near-tie of the top k; a flip moves the places of
+        # the later assignments to both experts, and where capacity drops
+        # assignments their keep flags with them. The share of tokens
+        # whose experts or keep mask differ in either layer is reported,
+        # not held. A token routed otherwise gets other experts' output
+        # altogether, and through causal attention it reaches every later
+        # token of its sequence in layer 2. So the logits are held at the
+        # Hymba card-against-CPU bar over the tokens routed alike that
+        # see only tokens routed alike (each sequence up to its first
+        # token routed otherwise): the same experts' products, rounded to
+        # bf16 after another summation order (cuBLAS, oneDNN), as there.
+        # Every token routed alike is reported beside them.
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        batch2 = {"tokens": tokens[:2, :cpu_len]}
+        with recorded_routes() as seen_d:
+            logits_d, aux_d, _ = transformer.forward(cfg2, p2, batch2)
+        p2_cpu = tree_map(lambda t: t.cpu(), p2)
+        with recorded_routes() as seen_c:
+            logits_c, aux_c, _ = transformer.forward(
+                cfg2, p2_cpu, {"tokens": batch2["tokens"].cpu()})
+        del p2_cpu
+        logits_d = logits_d.cpu()
+        shape = logits_c.shape[:2]
+        differ = torch.zeros(shape, dtype=torch.bool)
+        w = {"tokens": int(differ.numel()), "layers": []}
+        for (idx_d, keep_d), (idx_c, keep_c) in zip(seen_d, seen_c):
+            # a token's experts as a set, each with its keep flag: two
+            # experts swapped in the order of their gates route alike
+            idx_d, order = idx_d.cpu().sort(-1)
+            keep_d = keep_d.cpu().gather(-1, order)
+            idx_c, order = idx_c.sort(-1)
+            keep_c = keep_c.gather(-1, order)
+            idx_differs = (idx_d != idx_c).any(-1).view(shape)
+            keep_differs = (keep_d != keep_c).any(-1).view(shape)
+            w["layers"].append({
+                "experts_differ_share": float(idx_differs.float().mean()),
+                "keep_differs_share": float(keep_differs.float().mean()),
+                "dropped_share_card": 1 - float(keep_d.float().mean()),
+                "dropped_share_cpu": 1 - float(keep_c.float().mean())})
+            differ |= idx_differs | keep_differs
+        alike = ~differ
+        prefix = alike.int().cumprod(dim=1).bool()
+        w.update({"routing_differs_share": float(differ.float().mean()),
+                  "alike_prefix_tokens": int(prefix.sum()),
+                  "aux_card": float(aux_d), "aux_cpu": float(aux_c)})
+        check(bool(prefix.any()), "moe routing witness: no token routed "
+              "alike from the start of its sequence")
+        if bool(prefix.any()):
+            w["logits_alike_prefix"] = gap(logits_d[prefix],
+                                           logits_c[prefix])
+            check(within(logits_d[prefix], logits_c[prefix],
+                         *CARD_CPU_TOL),
+                  "moe two-layer logits over the tokens routed alike from "
+                  "the start of their sequence, card vs CPU, beyond the bar")
+        for name, mask in (("logits_routed_alike", alike),
+                           ("logits_routed_otherwise", differ)):
+            if bool(mask.any()):
+                w[name] = gap(logits_d[mask], logits_c[mask])
+        checks["routing_card_vs_cpu"] = w
+        del logits_d, logits_c, seen_d, seen_c, p2
+
+        # the LM BatchServer at full width: requests through its slots,
+        # then request 0 alone in a fresh server with the same weights.
+        # On a dense model the two token lists are equal; here the other
+        # rows take expert capacity (C = 1 a step), so they may differ,
+        # which is the model's semantics: reported, not held.
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, serve["prompt"])
+                   for _ in range(serve["requests"])]
+        reqs = [serve_lib.Request(i, p, serve["max_new"])
+                for i, p in enumerate(prompts)]
+        server = serve_lib.BatchServer(cfg, params, slots=serve["slots"],
+                                       device=dev)
+        served, ms = timed_ms(dev, lambda: server.run(reqs))
+        n_tokens = sum(len(r.out) for r in reqs)
+        check(sorted(served) == list(range(serve["requests"]))
+              and n_tokens == serve["requests"] * serve["max_new"],
+              "BatchServer did not serve every request in full")
+        alone = serve_lib.Request(0, prompts[0], serve["max_new"])
+        fresh = serve_lib.BatchServer(cfg, params, slots=serve["slots"],
+                                      device=dev)
+        _, alone_ms = timed_ms(dev, lambda: fresh.run([alone]))
+        if dev.type == "cuda":
+            # one step of the warm fresh server, slot 0 (its state is
+            # thrown away after)
+            server_step = device_profile(
+                lambda: fresh._step_slot(0, int(prompts[0][0])),
+                spans=moe.SPANS)
+        report["batch_server"] = {
+            **serve, "wall_ms": ms, "tokens": n_tokens,
+            "decode_steps": server.steps,
+            "tokens_per_s": n_tokens / ms * 1e3,
+            "ms_per_step": ms / server.steps,
+            "alone_wall_ms": alone_ms, "alone_steps": fresh.steps,
+            "request0_tokens": reqs[0].out, "alone_tokens": alone.out,
+            "alone_matches_shared": alone.out == reqs[0].out}
+        if dev.type == "cuda":
+            report["batch_server"]["step_device_profile"] = server_step
+        del server, fresh
+    report["checks"] = checks
+    report["tolerance"] = {"consistency": [LM_RTOL, LM_ATOL],
+                           "card_vs_cpu_alike_prefix": list(CARD_CPU_TOL)}
     return report, launches
 
 
@@ -1816,6 +2139,12 @@ def main() -> int:
     lm_report, lm_launches = lm_slice_phase(card, torch.device("cuda"),
                                             get_arch(LM_ARCH))
     print("lm_slice " + json.dumps(lm_report), flush=True)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_report, moe_launches = moe_slice_phase(card, torch.device("cuda"),
+                                               get_arch(MOE_ARCH))
+    print("moe_slice " + json.dumps(moe_report), flush=True)
 
     g = gnn_rows[1]            # 512 x 32 x 300 -> 300: 8 of the 10 layers
     lt = lut_rows[0]           # the labeling gather: 17 KB column table
@@ -1844,7 +2173,9 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:67",
-         "launches": lm_launches["flash_attention"],
+         # the Hymba prefill's and the Moonlight prefill's
+         "launches": lm_launches["flash_attention"]
+         + moe_launches["flash_attention"],
          "max_abs_err": fr["max_abs_err"], "ms": fr["ms"],
          "plain_ms": fr["plain_ms"], "bound_ms": fr["bound_ms"],
          "bound_by": fr["bound_by"], "library_ms": fr["library_ms"]},

@@ -20,9 +20,21 @@ device, and drains feed the union of queued configs through the
 unchanged ``engine.__call__`` path, so responses are bit-identical to
 one-shot `run_staged` or direct engine calls however requests interleave.
 
+The second half is the reference's LM continuous-batching server,
+`BatchServer` (``--demo lm``): a fixed decode batch of slots, prompts
+admitted by stepping the shared decode step one token at a time, one
+decode wave per loop, slots freed at ``max_new``. Unlike the reference's,
+a step writes only the stepped slot's cache rows and admission empties
+the slot's rows, so a request's tokens do not depend on the requests
+served beside it or before it in its slot (for a dense model; a
+mixture-of-experts layer routes every row of the batch, and the other
+rows take expert capacity).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --demo lm \
+        --arch moonshot-v1-16b-a3b [--device cpu]
+
 The engine serves one device; splitting the config axis over several
-cards, and the reference's LM `BatchServer` demo (``--demo lm``), are not
-ported yet.
+cards is not ported yet.
 """
 from __future__ import annotations
 
@@ -698,7 +710,111 @@ class EvalService:
 
 
 # ==========================================================================
-# demo
+# the LM continuous-batching server
+# ==========================================================================
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray
+    max_new: int
+    out: List[int] = field(default_factory=list)
+    done: bool = False
+
+
+class BatchServer:
+    """Slot-based continuous batching on one decode step.
+
+    A fixed decode batch of ``slots`` rows runs `make_decode_step`'s
+    step; a finished sequence releases its slot, which is refilled from
+    the queue. A request is admitted by stepping its prompt through the
+    decode step one token at a time, and each decode wave steps every
+    active slot once. The bookkeeping is the reference's
+    (`repro.launch.serve.BatchServer`), the last prompt token fed again
+    as the first decode input included; a step writes only the stepped
+    slot's cache row (``row``) and admission empties the slot's row
+    (`decoding.clear_row`), where the reference's step writes every row
+    at the stepped slot's position and admission leaves the previous
+    request's entries in place. The cache lives on ``device`` (the card
+    unless it says otherwise), beside ``params``.
+    """
+
+    def __init__(self, cfg, params, slots: int = 4, max_len: int = 128,
+                 device=None):
+        from repro_torch import device as device_lib
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import steps
+        from repro_torch.models import decoding
+
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.device = device_lib.resolve(device)
+        self.shape = ShapeConfig("serve", max_len, slots, "decode")
+        self.cache = decoding.init_cache(cfg, self.shape, self.device)
+        self.pos = np.zeros(slots, np.int32)       # next position per slot
+        self.active: List[Optional[Request]] = [None] * slots
+        self._decode = steps.make_decode_step(cfg)
+        self._clear_row = decoding.clear_row
+        self.steps = 0
+
+    def _free_slot(self) -> Optional[int]:
+        for i, r in enumerate(self.active):
+            if r is None:
+                return i
+        return None
+
+    def admit(self, req: Request) -> bool:
+        slot = self._free_slot()
+        if slot is None:
+            return False
+        self.active[slot] = req
+        self.pos[slot] = 0
+        self._clear_row(self.cfg, self.cache, slot)
+        for tok in req.prompt:
+            self._step_slot(slot, int(tok))
+        return True
+
+    def _step_slot(self, slot: int, token: int) -> int:
+        import torch
+        toks = torch.zeros((self.slots, 1), dtype=torch.int32)
+        toks[slot, 0] = token
+        with torch.inference_mode():
+            logits, self.cache = self._decode(
+                self.params, self.cache, toks.to(self.device),
+                int(self.pos[slot]), row=slot)
+            nxt = int(logits[slot, -1].argmax())
+        self.pos[slot] += 1
+        self.steps += 1
+        return nxt
+
+    def run(self, queue_: List[Request]) -> Dict[int, List[int]]:
+        """Serve every request of ``queue_``; returns {rid: tokens}."""
+        queue_ = list(queue_)
+        served = {}
+        pending: Dict[int, int] = {}      # slot -> last token
+        while queue_ or any(self.active):
+            while queue_ and self._free_slot() is not None:
+                req = queue_.pop(0)
+                self.admit(req)
+                pending[self.active.index(req)] = int(req.prompt[-1])
+            # one decode wave: advance every active slot by one token
+            for slot, req in enumerate(self.active):
+                if req is None:
+                    continue
+                nxt = self._step_slot(slot, pending.get(slot, 0))
+                req.out.append(nxt)
+                pending[slot] = nxt
+                if len(req.out) >= req.max_new:
+                    req.done = True
+                    served[req.rid] = req.out
+                    self.active[slot] = None
+                    pending.pop(slot, None)
+        return served
+
+
+# ==========================================================================
+# demos
 # ==========================================================================
 
 def _demo_eval(args) -> None:
@@ -748,18 +864,58 @@ def _demo_eval(args) -> None:
               f"max_batch={st['max_batch']} hit_rate={st['cache_hit_rate']}")
 
 
+def _demo_lm(args) -> None:
+    """Serve ``--requests`` random prompts through ``--slots`` slots of a
+    model with random weights (seed 0) on ``--device``."""
+    import torch
+
+    from repro_torch import device as device_lib
+    from repro_torch.configs import ARCHS, REDUCED_ARCHS
+    from repro_torch.models import transformer
+
+    dev = device_lib.resolve(args.device)
+    cfg = (REDUCED_ARCHS if args.reduced else ARCHS)[args.arch]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = transformer.build_param_table(cfg).init(
+        gen, device=dev, dtype=getattr(torch, cfg.dtype))
+    server = BatchServer(cfg, params, slots=args.slots, device=dev)
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, args.prompt_len),
+                    args.max_new) for i in range(args.requests)]
+    t0 = time.time()
+    server.run(reqs)
+    dt = time.time() - t0
+    total_tokens = sum(len(r.out) for r in reqs)
+    print(f"served {len(reqs)} requests on {dev}, {total_tokens} tokens, "
+          f"{server.steps} decode steps, {dt:.2f}s "
+          f"({total_tokens / dt:.1f} tok/s)")
+    for r in reqs[:3]:
+        print(f"  req {r.rid}: {[int(t) for t in r.prompt]} -> {r.out}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--demo", choices=("eval",), default="eval")
+    ap.add_argument("--demo", choices=("eval", "lm"), default="eval")
+    # eval-service demo
     ap.add_argument("--app", default="sobel")
     ap.add_argument("--clients", type=int, default=8)
     ap.add_argument("--requests-per-client", type=int, default=8)
     ap.add_argument("--configs-per-request", type=int, default=16)
     ap.add_argument("--dse-budget", type=int, default=256)
+    # lm demo; as in the reference, --reduced is on and cannot be turned
+    # off from the command line (chip_smoke.py serves the full width)
+    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=6)
     ap.add_argument("--device", default=None,
-                    help="torch device of the oracle (default: the CUDA "
-                         "card; 'cpu' for the plain path)")
-    _demo_eval(ap.parse_args())
+                    help="torch device (default: the CUDA card; 'cpu' for "
+                         "the plain path)")
+    args = ap.parse_args()
+    (_demo_eval if args.demo == "eval" else _demo_lm)(args)
 
 
 if __name__ == "__main__":

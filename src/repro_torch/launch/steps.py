@@ -16,8 +16,9 @@ def make_prefill_step(cfg: ArchConfig, max_len: int = 0):
 
 
 def make_decode_step(cfg: ArchConfig):
-    """decode_step(params, cache, tokens (B,1), step) -> (logits (B,1,V),
-    cache), the cache updated in place."""
-    def decode_step(params, cache, tokens, step):
-        return decoding.decode_step(cfg, params, cache, tokens, step)
+    """decode_step(params, cache, tokens (B,1), step, row=None) ->
+    (logits (B,1,V), cache), the cache (its batch row ``row``, every row
+    if None) updated in place."""
+    def decode_step(params, cache, tokens, step, row=None):
+        return decoding.decode_step(cfg, params, cache, tokens, step, row)
     return decode_step

@@ -182,14 +182,17 @@ def decode_attention(q, cache_k, cache_v, cache_pos, *, window=0,
     return out.reshape(B, 1, H, D)
 
 
-def cache_update(cache_k, cache_v, cache_pos, k_new, v_new, step: int):
-    """Write one token into a ring buffer at slot ``step % W``.
+def cache_update(cache_k, cache_v, cache_pos, k_new, v_new, step: int,
+                 row=None):
+    """Write one token into a ring buffer at slot ``step % W``: in batch
+    row ``row``, or in every row if None.
 
     Unlike the reference's pure update this writes IN PLACE (a decode step
     would otherwise copy the whole cache) and returns the same tensors."""
     step = int(step)
     slot = step % cache_k.shape[1]
-    cache_k[:, slot] = k_new[:, 0]
-    cache_v[:, slot] = v_new[:, 0]
-    cache_pos[:, slot] = step
+    rows = slice(None) if row is None else slice(row, row + 1)
+    cache_k[rows, slot] = k_new[rows, 0]
+    cache_v[rows, slot] = v_new[rows, 0]
+    cache_pos[rows, slot] = step
     return cache_k, cache_v, cache_pos

@@ -1,19 +1,23 @@
 """KV-cache / recurrent-state management and single-token decode steps.
 
-The port of `repro.models.decoding` for the dense and hybrid families.
+The port of `repro.models.decoding` for the dense, hybrid and
+mixture-of-experts families.
 Cache layouts (W = ring-buffer width = min(seq_len, swa_window or inf)):
- - dense         : {"k": (L,B,W,KV,D) bf16, "v": ..., "pos": (B,W) int32}
+ - dense / moe   : {"k": (L,B,W,KV,D) bf16, "v": ..., "pos": (B,W) int32}
  - hymba(hybrid) : {"layers": per-layer {"k", "v": (B,Wi,KV,D) bf16,
                    "pos": (B,Wi)} (SWA layers Wi = window, global layers
                    Wi = seq_len), "ssm": (L,B,H,Dh,N) float32}
 Decode steps update the cache IN PLACE (the reference returns a new one;
 here that would copy every layer's cache per token) and return it with
-the logits: (params, cache, tokens, step) -> (logits, cache).
+the logits: (params, cache, tokens, step) -> (logits, cache). A step may
+name the one batch row whose cache it writes (``row``): a server that
+steps one slot of a shared batch leaves the other slots' rows as they
+were, and `clear_row` empties a slot's row for a new request.
 The int8 KV cache (``kv_int8``) is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -21,6 +25,7 @@ from repro_torch import device as device_lib
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_rope, fdot, rms_norm,
                                       rope_angles)
@@ -80,9 +85,22 @@ def init_cache(cfg: ArchConfig, shape: ShapeConfig,
 # decode steps
 # --------------------------------------------------------------------------
 
-def _attn_decode(cfg, p, nx, ck, cv, cpos, step: int, is_global=None):
-    """nx: (B,1,d). Returns the attention output; the cache is updated in
-    place."""
+def clear_row(cfg: ArchConfig, cache, row: int):
+    """Empty batch row ``row`` of a cache in place: every slot of every
+    layer at position -1, and the SSM state of the hybrid family at zero
+    (`init_cache`'s values). Returns the cache."""
+    layers = cache["layers"] if cfg.family == "hybrid" else [cache]
+    for lc in layers:
+        lc["pos"][row] = -1
+    if cfg.family == "hybrid":
+        cache["ssm"][:, row] = 0
+    return cache
+
+
+def _attn_decode(cfg, p, nx, ck, cv, cpos, step: int, is_global=None,
+                 row=None):
+    """nx: (B,1,d). Returns the attention output; the cache (its row
+    ``row``, every row if None) is updated in place."""
     q, k, v = _project_qkv(cfg, p, nx)
     B = nx.shape[0]
     if cfg.rope_theta:
@@ -91,22 +109,26 @@ def _attn_decode(cfg, p, nx, ck, cv, cpos, step: int, is_global=None):
         q, k = apply_rope(q, ang), apply_rope(k, ang)
     window = cfg.swa_window if cfg.swa_window else 0
     attn_lib.cache_update(ck, cv, cpos, k.to(ck.dtype), v.to(cv.dtype),
-                          step)
+                          step, row=row)
     o = attn_lib.decode_attention(q, ck, cv, cpos, window=window,
                                   is_global=is_global)
     return o.reshape(B, 1, -1) @ p["wo"]
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
-                step: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                step: int, row: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens: (B,1) int; step: the absolute position (a Python int).
-    Returns (logits (B,1,V), cache) with the cache updated in place."""
+    Returns (logits (B,1,V), cache) with the cache updated in place: its
+    batch row ``row``, or every row if None (the reference's step). The
+    whole batch runs either way; a mixture-of-experts layer routes every
+    row, and each takes expert capacity."""
     check_supported(cfg)
     params = cast_params(cfg, params)
     step = int(step)
     if cfg.family == "hybrid":
-        return _decode_hybrid(cfg, params, cache, tokens, step)
-    return _decode_stacked(cfg, params, cache, tokens, step)
+        return _decode_hybrid(cfg, params, cache, tokens, step, row)
+    return _decode_stacked(cfg, params, cache, tokens, step, row)
 
 
 def _embed_decode(cfg, params, tokens):
@@ -119,22 +141,26 @@ def _logits(cfg, params, x):
     return x @ head_weight(cfg, params).to(x.dtype)
 
 
-def _decode_stacked(cfg, params, cache, tokens, step):
-    """dense: a loop over the stacked layers. Every layer writes the same
-    slot of the shared position row."""
+def _decode_stacked(cfg, params, cache, tokens, step, row):
+    """dense / moe: a loop over the stacked layers. Every layer writes the
+    same slot of the shared position row."""
     x = _embed_decode(cfg, params, tokens)
     for i in range(cfg.n_layers):
         lp = layer_params(params["blocks"], i)
         nx = rms_norm(x, lp["norm1"], cfg.norm_eps)
         a = _attn_decode(cfg, lp["attn"], nx, cache["k"][i], cache["v"][i],
-                         cache["pos"], step)
+                         cache["pos"], step, row=row)
         x = x + a
         nx = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + _mlp(cfg, lp["mlp"], nx)
+        if cfg.is_moe:
+            m, _aux = moe_lib.moe_ffn(cfg, lp["moe"], nx)
+            x = x + m
+        else:
+            x = x + _mlp(cfg, lp["mlp"], nx)
     return _logits(cfg, params, x), cache
 
 
-def _decode_hybrid(cfg, params, cache, tokens, step):
+def _decode_hybrid(cfg, params, cache, tokens, step, row):
     """hymba: per-layer caches of two widths, and the SSM state."""
     x = _embed_decode(cfg, params, tokens)
     for i in range(cfg.n_layers):
@@ -142,9 +168,13 @@ def _decode_hybrid(cfg, params, cache, tokens, step):
         lc = cache["layers"][i]
         nx = rms_norm(x, lp["norm1"], cfg.norm_eps)
         a = _attn_decode(cfg, lp["attn"], nx, lc["k"], lc["v"], lc["pos"],
-                         step, is_global=bool(is_global_layer(cfg, i)))
+                         step, is_global=bool(is_global_layer(cfg, i)),
+                         row=row)
         s, st = ssm_lib.ssm_decode_step(cfg, lp["ssm"], nx, cache["ssm"][i])
-        cache["ssm"][i] = st
+        if row is None:
+            cache["ssm"][i] = st
+        else:
+            cache["ssm"][i][row] = st[row]
         fs = lp["fuse_scale"]
         x = x + 0.5 * (fs[0] * a + fs[1] * s)
         nx = rms_norm(x, lp["norm2"], cfg.norm_eps)
@@ -185,7 +215,7 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int = 0
     logits and keeps the last."""
     check_supported(cfg)
     params = cast_params(cfg, params)
-    x, entries = run_blocks(cfg, params, batch, collect=True)
+    x, entries, _aux = run_blocks(cfg, params, batch, collect=True)
     logits = fdot(x[:, -1], head_weight(cfg, params).to(x.dtype))
     B, S = batch["tokens"].shape
     max_len = max(max_len, S)

@@ -19,6 +19,8 @@ from repro_torch import device as device_lib
 from repro_torch.device import DeviceLike
 
 Initializer = str  # "normal" | "zeros" | "ones" | "embed"
+# float32 elements of a normal leaf drawn at once by `ParamTable.init`
+DRAW_ELEMS = 1 << 26
 
 
 class ParamTable:
@@ -38,11 +40,15 @@ class ParamTable:
              dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
         """Random parameters from ``gen``, in the reference's distribution
         (normal x 1/sqrt(fan_in); ``embed`` at its own scale; zeros and
-        ones as declared), drawn in float32 on ``gen``'s device and stored
-        in ``dtype`` on ``device`` (`repro_torch.device.resolve`: the card
-        unless ``device`` says otherwise). The numbers differ from the
-        reference's threefry draw; parity tests carry the reference's
-        weights over with `params_from_numpy`."""
+        ones as declared), stored in ``dtype`` on ``device``
+        (`repro_torch.device.resolve`: the card unless ``device`` says
+        otherwise). A normal leaf is drawn in float32 on ``gen``'s device
+        in pieces of at most `DRAW_ELEMS` elements, in storage order, each
+        written into the leaf before the next is drawn: no float32 copy of
+        a whole leaf is made (Moonlight's expert weights are 33 GiB in
+        float32). The numbers differ from the reference's threefry draw;
+        parity tests carry the reference's weights over with
+        `params_from_numpy`."""
         dev = device_lib.resolve(device)
         params: Dict[str, Any] = {}
         for path, (shape, kind, scale) in sorted(self.defs.items()):
@@ -51,9 +57,14 @@ class ParamTable:
             elif kind == "ones":
                 arr = torch.ones(shape, dtype=dtype, device=dev)
             else:
-                arr = torch.randn(shape, generator=gen, dtype=torch.float32,
-                                  device=gen.device).mul_(scale)
-                arr = arr.to(device=dev, dtype=dtype)
+                arr = torch.empty(shape, dtype=dtype, device=dev)
+                flat = arr.view(-1)
+                for lo in range(0, flat.numel(), DRAW_ELEMS):
+                    n = min(DRAW_ELEMS, flat.numel() - lo)
+                    piece = torch.randn(n, generator=gen,
+                                        dtype=torch.float32,
+                                        device=gen.device).mul_(scale)
+                    flat[lo:lo + n].copy_(piece)
             _assign(params, path, arr)
         return params
 

@@ -4,13 +4,14 @@ The port of `repro.models.transformer` for the serving slice. Parameters
 are the reference's nested dicts with layers stacked on a leading L axis;
 the reference's ``lax.scan`` over layers is a Python loop here, so each
 layer's ``is_global`` is a static bool. One block function serves the
-dense family (Granite, Qwen) and the hybrid one (Hymba: attention and SSM
-heads in parallel in every layer).
+dense family (Granite, Qwen), the hybrid one (Hymba: attention and SSM
+heads in parallel in every layer) and the mixture-of-experts one
+(Mixtral, Moonlight: `models.moe` in place of the MLP).
 
-Not ported yet, and refused with NotImplementedError: mixture-of-experts,
-RWKV-6 (``attn_free``), Whisper's encoder-decoder (``enc_dec``) and the
-VLM frontend (``n_vision_tokens``, M-RoPE). ``loss_fn`` and remat wait
-for the training slice.
+Not ported yet, and refused with NotImplementedError: RWKV-6
+(``attn_free``), Whisper's encoder-decoder (``enc_dec``) and the VLM
+frontend (``n_vision_tokens``, M-RoPE). ``loss_fn`` and remat wait for
+the training slice.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (ParamTable, activation, apply_rope,
                                        fdot, rms_norm, rope_angles,
@@ -29,7 +31,6 @@ from repro_torch.models.layers import (ParamTable, activation, apply_rope,
 def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError for the families the port lacks."""
     missing = [what for what, flag in (
-        ("mixture-of-experts", cfg.is_moe),
         ("rwkv6 (attn_free)", cfg.attn_free),
         ("encoder-decoder (enc_dec)", cfg.enc_dec),
         ("vlm (n_vision_tokens / mrope_sections)",
@@ -37,7 +38,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the port does not cover {', '.join(missing)} yet "
-            f"(dense and hybrid families only)")
+            f"(dense, hybrid and mixture-of-experts families only)")
 
 
 def is_global_layer(cfg: ArchConfig, i: int) -> Optional[bool]:
@@ -87,7 +88,10 @@ def build_param_table(cfg: ArchConfig) -> ParamTable:
     if cfg.family == "hybrid":
         ssm_lib.declare_ssm(t, "blocks/ssm", cfg, L)
         t.add("blocks/fuse_scale", (L, 2, d), init="ones")
-    _declare_mlp(t, "blocks/mlp", cfg, L)
+    if cfg.is_moe:
+        moe_lib.declare_moe(t, "blocks/moe", cfg, L)
+    else:
+        _declare_mlp(t, "blocks/mlp", cfg, L)
     return t
 
 
@@ -138,9 +142,10 @@ def _attn_block(cfg, p, x, positions, *, causal=True, is_global=None):
 
 def block_fwd(cfg: ArchConfig, p: Dict[str, Any], x: torch.Tensor,
               positions: torch.Tensor, is_global: Optional[bool] = None):
-    """One decoder block. Returns (x, cache entry): the entry is (k, v),
-    and for the hybrid family ((k, v), final SSM state). (The reference
-    also returns the MoE auxiliary loss, zero for these families.)"""
+    """One decoder block. Returns (x, cache entry, moe_aux): the entry is
+    (k, v), and for the hybrid family ((k, v), final SSM state); moe_aux
+    is the layer's load-balancing loss (zero without experts)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     nx = rms_norm(x, p["norm1"], cfg.norm_eps)
     a_out, kv = _attn_block(cfg, p["attn"], nx, positions,
                             is_global=is_global)
@@ -152,8 +157,12 @@ def block_fwd(cfg: ArchConfig, p: Dict[str, Any], x: torch.Tensor,
     else:
         x = x + a_out
     nx = rms_norm(x, p["norm2"], cfg.norm_eps)
-    x = x + _mlp(cfg, p["mlp"], nx)
-    return x, kv
+    if cfg.is_moe:
+        m_out, aux = moe_lib.moe_ffn(cfg, p["moe"], nx)
+        x = x + m_out
+    else:
+        x = x + _mlp(cfg, p["mlp"], nx)
+    return x, kv, aux
 
 
 # --------------------------------------------------------------------------
@@ -177,27 +186,32 @@ def head_weight(cfg: ArchConfig, params) -> torch.Tensor:
 
 
 def run_blocks(cfg: ArchConfig, params, batch, collect: bool = False
-               ) -> Tuple[torch.Tensor, List[Any]]:
+               ) -> Tuple[torch.Tensor, List[Any], torch.Tensor]:
     """Embed, every block and the final norm over cast parameters.
-    Returns (hidden (B,S,d), per-layer cache entries if ``collect``)."""
+    Returns (hidden (B,S,d), per-layer cache entries if ``collect``, the
+    summed moe_aux)."""
     check_supported(cfg)
     x, positions = embed_inputs(cfg, params, batch)
     entries = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, entry = block_fwd(cfg, layer_params(params["blocks"], i), x,
-                             positions, is_global=is_global_layer(cfg, i))
+        x, entry, layer_aux = block_fwd(
+            cfg, layer_params(params["blocks"], i), x, positions,
+            is_global=is_global_layer(cfg, i))
+        aux = aux + layer_aux
         if collect:
             entries.append(entry)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), entries
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), entries, aux
 
 
 def forward(cfg: ArchConfig, params, batch, kind: str = "train"):
     """Returns (logits (B,S,V), moe_aux, (cache entries or None, None)),
-    the reference's triple: moe_aux is zero for these families, and
-    ``kind="prefill"`` also returns the per-layer cache entries (a list,
-    where the reference stacks them on the L axis)."""
+    the reference's triple: moe_aux is the layers' summed load-balancing
+    loss (zero without experts), and ``kind="prefill"`` also returns the
+    per-layer cache entries (a list, where the reference stacks them on
+    the L axis)."""
     params = cast_params(cfg, params)
-    x, entries = run_blocks(cfg, params, batch, collect=kind == "prefill")
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, entries, aux = run_blocks(cfg, params, batch,
+                                 collect=kind == "prefill")
     logits = fdot(x, head_weight(cfg, params).to(x.dtype))
     return logits, aux, (entries if kind == "prefill" else None, None)

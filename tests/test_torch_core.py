@@ -404,7 +404,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(modules) >= 20
     assert {"repro_torch.core.training", "repro_torch.core.dse",
             "repro_torch.core.islands", "repro_torch.core.artifacts",
-            "repro_torch.core.pipeline",
+            "repro_torch.core.pipeline", "repro_torch.models.moe",
             "repro_torch.launch.serve"} <= set(modules)
 
 

@@ -32,10 +32,12 @@ from repro_torch.models.layers import (ParamTable, params_from_numpy,
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-SUPPORTED = ["granite-20b", "granite-3-2b", "hymba-1.5b", "qwen1.5-110b",
-             "qwen2.5-32b"]
-UNSUPPORTED = ["mixtral-8x7b", "moonshot-v1-16b-a3b", "qwen2-vl-7b",
-               "rwkv6-3b", "whisper-large-v3"]
+SUPPORTED = ["granite-20b", "granite-3-2b", "hymba-1.5b", "mixtral-8x7b",
+             "moonshot-v1-16b-a3b", "qwen1.5-110b", "qwen2.5-32b"]
+UNSUPPORTED = ["qwen2-vl-7b", "rwkv6-3b", "whisper-large-v3"]
+# the serving parity tests: a dense, the hybrid and both MoE families
+SERVED = ["hymba-1.5b", "granite-3-2b", "mixtral-8x7b",
+          "moonshot-v1-16b-a3b"]
 # float32 compute: the two packages run the same float32 algorithm in
 # another summation order
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -325,14 +327,18 @@ def test_ssm_decode_steps_continue_the_scan():
 def test_forward_matches_reference(name):
     jcfg, tcfg, jp, tp = _pair(name)
     toks = _tokens(jcfg, 2, 24, seed=0)
-    want, _aux, _ = jtr.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})
+    want, want_aux, _ = jtr.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})
     got, aux, (kvs, _) = ttr.forward(tcfg, tp, {"tokens": _t(toks)})
-    assert kvs is None and float(aux) == 0.0
+    assert kvs is None and aux.dtype == torch.float32
+    # the summed load-balancing loss: zero without experts
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=0,
+                               atol=1e-6)
+    assert (float(aux) > 0) == tcfg.is_moe
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), _np(want), **F32_TOL)
 
 
-@pytest.mark.parametrize("name", ["hymba-1.5b", "granite-3-2b"])
+@pytest.mark.parametrize("name", SERVED)
 def test_prefill_and_decode_match_reference(name):
     """float32 compute (bf16 KV cache in both): prefill logits within
     1e-4, every cache leaf within one bf16 rounding, several decode steps
@@ -363,7 +369,7 @@ def test_prefill_and_decode_match_reference(name):
         np.testing.assert_allclose(tlog.numpy(), _np(jlog), **CACHE_TOL)
 
 
-@pytest.mark.parametrize("name", ["hymba-1.5b", "granite-3-2b"])
+@pytest.mark.parametrize("name", SERVED)
 def test_greedy_decode_picks_the_reference_tokens(name):
     """Prefill then greedy decoding for 6 steps, float32 compute: the same
     token ids as the reference at every step."""
