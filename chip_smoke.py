@@ -63,7 +63,19 @@ graph of the calls, then drives the port's two main paths:
   layer), the share of assignments dropped by capacity, the device time
   by MoE stage, a no-drop prefill/decode consistency check over two
   layers, a routing witness of two layers on the card against the CPU,
-  and the LM `BatchServer` serving 8 requests through 4 slots.
+  and the LM `BatchServer` serving 8 requests through 4 slots;
+- the last three LM families (`families_slice` line), each at full width
+  and depth with random bf16 weights from a seeded generator, one after
+  the other: Qwen2-VL-7B (8 prompts of 1024 tokens whose first 256
+  positions are stub vision embeddings, M-RoPE positions with the image
+  on a 16 x 16 grid; `flash_attention` in every layer), Whisper
+  large-v3 (8 stub clips of 1500 frames through the encoder, full-mask
+  `flash_attention` in every encoder layer, a 224-token decoder prompt
+  with causal `flash_attention` in every decoder layer and plain
+  cross-attention) and RWKV-6 3B (8 prompts of 1024 tokens, the
+  recurrence a step loop); 32 greedy decode steps each, a two-layer
+  prefill + 4 steps vs longer-prefill check in bf16 (RWKV's float32
+  state too) and a two-layer card-against-CPU check.
 
 Launch counters are zeroed just before each main path and read just
 after; the `kernels` line sums the accelerator paths' counts. The last line of standard output is the device JSON; the line
@@ -408,7 +420,9 @@ def lut_eval_phase(gen):
 # Hymba-1.5B prefill (the kernels line reports it), the second the
 # Moonlight-16B-A3B prefill (MHA: one query head per KV head); the other
 # D = 128 rows are Granite-20B (MQA) and Qwen2.5-32B (GQA) prefills of
-# 1024 tokens.
+# 1024 tokens. The families slice's: the Qwen2-VL-7B prefill (G = 7),
+# Whisper's encoder (a full mask over 1500 frames, not a multiple of the
+# tile) and its decoder's 224-token prompt.
 FA_SHAPES = [
     ("hymba_prefill", 8, 25, 5, 1024, 64, "bfloat16", True),
     ("moonshot_prefill_mha_d128", 8, 16, 16, 1024, 128, "bfloat16", True),
@@ -418,6 +432,9 @@ FA_SHAPES = [
     ("qwen2.5_32b_gqa_d128", 2, 40, 8, 1024, 128, "bfloat16", True),
     ("hymba_ragged_1000", 8, 25, 5, 1000, 64, "bfloat16", True),
     ("full_d128_s200", 8, 40, 8, 200, 128, "bfloat16", False),
+    ("qwen2_vl_prefill_gqa7_d128", 8, 28, 4, 1024, 128, "bfloat16", True),
+    ("whisper_encoder_full_s1500", 8, 20, 20, 1500, 64, "bfloat16", False),
+    ("whisper_decoder_s224", 8, 20, 20, 224, 64, "bfloat16", True),
     ("d32_s333", 4, 8, 2, 333, 32, "bfloat16", True),
     ("d16_s77", 4, 4, 2, 77, 16, "bfloat16", True),
 ]
@@ -2074,6 +2091,294 @@ def moe_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
     return report, launches
 
 
+# the last three LM families at full width and depth: (arch, decoder
+# prompt tokens, decode horizon). Whisper's decoder prompt is 224 tokens,
+# half of its 448-token text context; its encoder reads 1500 frames.
+FAMILIES = (("qwen2-vl-7b", LM_PROMPT, LM_MAX_LEN),
+            ("whisper-large-v3", 224, 224 + LM_STEPS),
+            ("rwkv6-3b", LM_PROMPT, LM_MAX_LEN))
+# prefill(S) + k decode steps against prefill(S + k): S covers the VLM's
+# 256 vision positions
+FAMILY_WITNESS_PROMPT, FAMILY_WITNESS_STEPS = 300, 4
+
+
+def vlm_positions(batch: int, length: int, n_vision: int, dev):
+    """(B,S,3) M-RoPE positions: the vision block at (t, h, w) = (0, row,
+    col) of a square grid, the text at its own index on all three columns
+    (a decode step at position p puts p on all three: it continues the
+    text)."""
+    import torch
+    side = int(round(n_vision ** 0.5))
+    pos = torch.arange(length, dtype=torch.int32, device=dev)[None, :, None] \
+        .repeat(batch, 1, 3)
+    i = torch.arange(n_vision, dtype=torch.int32, device=dev)
+    pos[:, :n_vision] = torch.stack([0 * i, i // side, i % side], -1)
+    return pos
+
+
+def family_inputs(cfg, gen, dev, batch: int, length: int):
+    """Random tokens of ``length`` and what the family's stub frontend
+    gives, drawn from ``gen``: vision embeddings N(0, 0.02) in bf16 with
+    M-RoPE positions of ``length`` (VLM), frames N(0, 0.02) in bf16 of the
+    encoder's length (Whisper)."""
+    import torch
+    tokens = torch.randint(0, cfg.vocab_size, (batch, length),
+                           generator=gen, device=dev, dtype=torch.int32)
+    extra = {}
+    if cfg.n_vision_tokens:
+        extra["vision_embeds"] = (torch.randn(
+            batch, cfg.n_vision_tokens, cfg.d_model, generator=gen,
+            device=dev) * 0.02).to(torch.bfloat16)
+        extra["positions"] = vlm_positions(batch, length,
+                                           cfg.n_vision_tokens, dev)
+    if cfg.enc_dec:
+        extra["enc_frames"] = (torch.randn(
+            batch, cfg.enc_len, cfg.d_model, generator=gen, device=dev)
+            * 0.02).to(torch.bfloat16)
+    return tokens, extra
+
+
+def family_batch(tokens, extra, S: int, rows: int = 0) -> dict:
+    """The batch of the first ``S`` tokens (of the first ``rows`` rows if
+    given)."""
+    batch = {"tokens": tokens[:, :S]}
+    for k, v in extra.items():
+        batch[k] = v[:, :S] if k == "positions" else v
+    if rows:
+        batch = {k: v[:rows] for k, v in batch.items()}
+    return batch
+
+
+def cut_layers(cfg, params, n: int):
+    """The model cut to its first ``n`` layers: the decoder's, and the
+    encoder's too (Whisper)."""
+    import dataclasses
+    from repro_torch.models.layers import tree_map
+    params = first_layers(params, n)
+    over = {"n_layers": n}
+    if cfg.enc_dec:
+        params["enc_blocks"] = tree_map(lambda a: a[:n],
+                                        params["enc_blocks"])
+        over["enc_layers"] = n
+    return dataclasses.replace(cfg, **over), params
+
+
+def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
+               batch: int = LM_BATCH, n_steps: int = LM_STEPS,
+               witness_len: int = FAMILY_WITNESS_PROMPT,
+               witness_steps: int = FAMILY_WITNESS_STEPS):
+    """One family at full width and depth on ``dev``: random bf16
+    weights, a cold and a counted warm prefill of ``batch`` prompts
+    through `make_prefill_step`, greedy `make_decode_step` steps, device
+    profiles, and the checks; returns (report, K3 launches a prefill). On
+    the CPU (a rehearsal at reduced size) the kernels' plain versions run,
+    nothing is launched and nothing is profiled."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import tree_map
+    report = {"arch": cfg.name, "batch": batch, "prompt": prompt_len,
+              "max_len": max_len, "decode_steps": n_steps,
+              "n_layers": cfg.n_layers}
+    if cfg.enc_dec:
+        report.update(enc_layers=cfg.enc_layers, enc_frames=cfg.enc_len)
+    if cfg.n_vision_tokens:
+        report["vision_tokens"] = cfg.n_vision_tokens
+    cuda = dev.type == "cuda"
+    # K3 a prefill: every decoder layer's self-attention, and every
+    # encoder layer's (Whisper); RWKV has no attention
+    per_run = 0 if cfg.attn_free or not cuda else (cfg.n_layers
+                                                   + cfg.enc_layers)
+    checks = {}
+
+    def peak_gib():
+        if not cuda:
+            return "not measured: no card"
+        return torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, report["init_ms"] = timed_ms(
+        dev, lambda: transformer.build_param_table(cfg).init(
+            gen, device=dev, dtype=torch.bfloat16))
+    report["peak_gib_after_init"] = peak_gib()
+    n_params = []
+    tree_map(lambda a: n_params.append(a.numel()), params)
+    report["params"] = sum(n_params)
+    report["param_count_analytic"] = cfg.param_count()
+    report["params_gib_bf16"] = 2 * sum(n_params) / 2 ** 30
+    tokens, extra = family_inputs(cfg, gen, dev, batch, max_len)
+    prompt = family_batch(tokens, extra, prompt_len)
+    prefill = steps.make_prefill_step(cfg, max_len=max_len)
+    decode = steps.make_decode_step(cfg)
+    # the phase's wall s by part (host clock)
+    timing, t = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t
+        timing[part] = time.perf_counter() - t
+        t = time.perf_counter()
+
+    with torch.inference_mode():
+        (last, cache), report["prefill_cold_ms"] = timed_ms(
+            dev, lambda: prefill(params, prompt))
+        check(tuple(last.shape) == (batch, cfg.vocab_size)
+              and finite(last), f"{cfg.name} prefill logits: shape or "
+              f"values")
+        del cache
+
+        # the counted run: one warm prefill, then greedy decoding
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        fa.LAUNCHES.reset()
+        (last, cache), warm = timed_ms(dev, lambda: prefill(params, prompt))
+        launches = fa.LAUNCHES.value
+        check(launches == per_run, f"{cfg.name}: {launches} flash_attention "
+              f"launches in the prefill, not {per_run}")
+        report["peak_gib_prefill"] = peak_gib()
+        tok = last.argmax(-1, keepdim=True).to(torch.int32)
+        step_ms = []
+        for i in range(n_steps):
+            (logits, cache), ms = timed_ms(
+                dev, lambda: decode(params, cache, tok, prompt_len + i))
+            step_ms.append(ms)
+            tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+        check(finite(logits) and tuple(logits.shape)
+              == (batch, 1, cfg.vocab_size), f"{cfg.name} decode logits")
+        report["peak_gib_decode"] = peak_gib()
+        report["prefill_warm_ms"] = warm
+        report["prefill_tokens_per_s"] = batch * prompt_len / warm * 1e3
+        report["decode_ms_per_step"] = sum(step_ms) / len(step_ms)
+        report["decode_ms_per_step_median"] = sorted(step_ms)[n_steps // 2]
+        report["decode_tokens_per_s"] = (batch * 1e3
+                                         / report["decode_ms_per_step"])
+        report["launches"] = {"flash_attention": launches}
+        del cache
+        lap("prefills_and_decode")
+
+        # where one warm prefill's and one decode step's device time goes
+        if cuda:
+            report["prefill_device_profile"] = device_profile(
+                lambda: prefill(params, prompt))
+            _, cache = prefill(params, prompt)
+            report["decode_step_device_profile"] = device_profile(
+                lambda: decode(params, cache, tok, prompt_len))
+            del cache
+        lap("profiles")
+
+        # consistency: prefill(S) + k decode steps against one
+        # prefill(S + k), over the first two layers (both stacks for
+        # Whisper) at full width in bf16, at test_models.py's bar (deeper,
+        # a one-ulp difference between the two orders grows past any bar
+        # through a random-weight stack: lm_slice's note)
+        cfg2, p2 = cut_layers(cfg, params, 2)
+        k = witness_steps
+        S = min(witness_len, max_len - k)
+        report["witness_prompt"] = S
+        pre2 = steps.make_prefill_step(cfg2, max_len=S + k)
+        _, cache = pre2(p2, family_batch(tokens, extra, S, rows=2))
+        for i in range(k):
+            stepped, cache = steps.make_decode_step(cfg2)(
+                p2, cache, tokens[:2, S + i:S + i + 1], S + i)
+        longer, want = pre2(p2, family_batch(tokens, extra, S + k, rows=2))
+        checks["decode_vs_longer_prefill_bf16_2_layers"] = gap(
+            stepped[:, 0], longer)
+        check(within(stepped[:, 0], longer, LM_RTOL, LM_ATOL),
+              f"{cfg.name} bf16 two-layer prefill + {k} steps vs "
+              f"prefill(S+{k}) beyond the bar")
+        if cfg.attn_free:
+            # the float32 state after the steps against the longer
+            # prefill's: float32 sums of bf16 inputs summed in another
+            # order (a decode step's products are not a prefill's)
+            st_atol = CARD_CPU_SSM_ATOL * float(want["state"].abs().max())
+            checks["state_stepped_vs_longer"] = {
+                "max_abs": float((cache["state"] - want["state"])
+                                 .abs().max()),
+                "ref_max_abs": float(want["state"].abs().max())}
+            check(within(cache["state"], want["state"], CARD_CPU_TOL[0],
+                         st_atol),
+                  f"{cfg.name} state after prefill + {k} steps vs "
+                  f"prefill(S+{k}) beyond the bar")
+        del cache, want
+        lap("consistency")
+
+        # card against CPU: the first two layers (both stacks) at full
+        # width in bf16, the same weights and inputs; the logits, and what
+        # the kernels feed: layer 1's KV cache (its input went through
+        # layer 0's K3), the cross-attention cache (the encoder's output,
+        # through the encoder's K3), RWKV's state
+        b2 = family_batch(tokens, extra, S, rows=2)
+        fa.LAUNCHES.reset()
+        last_d, cache_d = pre2(p2, b2)
+        check(fa.LAUNCHES.value == (0 if cfg.attn_free or not cuda else
+                                    2 + 2 * bool(cfg.enc_dec)),
+              f"{cfg.name}: the two-layer prefill did not run K3 in each "
+              f"attention layer")
+        last_c, cache_c = pre2(tree_map(lambda a: a.cpu(), p2),
+                               {k_: v.cpu() for k_, v in b2.items()})
+        w = {"logits": gap(last_d, last_c)}
+        check(within(last_d, last_c, *CARD_CPU_TOL),
+              f"{cfg.name} two-layer prefill logits, card vs CPU, beyond "
+              f"the bar")
+        if cfg.attn_free:
+            st_c = cache_c["state"]
+            st_atol = CARD_CPU_SSM_ATOL * float(st_c.abs().max())
+            w["state_max_abs"] = float((cache_d["state"].cpu() - st_c)
+                                       .abs().max())
+            w["state_ref_max_abs"] = float(st_c.abs().max())
+            check(within(cache_d["state"], st_c, CARD_CPU_TOL[0], st_atol),
+                  f"{cfg.name} state, card vs CPU, beyond the bar")
+        else:
+            names = [("k", 1), ("v", 1)]
+            if cfg.enc_dec:
+                names += [("xk", 1), ("xv", 1)]
+            for n, layer in names:
+                a, b = cache_d[n][layer], cache_c[n][layer]
+                w[f"layer{layer}_{n}_max_abs"] = float(
+                    (a.float().cpu() - b.float()).abs().max())
+                check(within(a, b, *CARD_CPU_TOL),
+                      f"{cfg.name} layer {layer} {n} cache, card vs CPU, "
+                      f"beyond the bar")
+        checks["card_vs_cpu_2_layers"] = w
+        del p2, cache_d, cache_c
+        lap("card_vs_cpu")
+    report["checks"] = checks
+    report["timing_s"] = timing
+    del params
+    return report, launches
+
+
+def families_slice_phase(card: str, dev, families=FAMILIES, archs=None,
+                         **kw):
+    """Drive the VLM, Whisper and RWKV-6 at full width and depth, one
+    after the other, the memory freed between them; returns (report, K3
+    launches of the counted prefills). ``archs`` maps a name to its
+    config (default: the published ones); ``kw`` goes to `family_run`."""
+    import gc
+    import torch
+    from repro_torch.configs import ARCHS
+    archs = archs or ARCHS
+    report = {"card": card, "models": {}}
+    launches = 0
+    t0 = time.perf_counter()
+    for name, prompt_len, max_len in families:
+        t = time.perf_counter()
+        r, n = family_run(card, dev, archs[name], prompt_len, max_len, **kw)
+        r["phase_s"] = time.perf_counter() - t
+        report["models"][name] = r
+        launches += n
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    report["tolerance"] = {"consistency": [LM_RTOL, LM_ATOL],
+                           "card_vs_cpu": list(CARD_CPU_TOL),
+                           "state_atol_share": CARD_CPU_SSM_ATOL}
+    report["wall_s"] = time.perf_counter() - t0
+    return report, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2145,6 +2450,11 @@ def main() -> int:
     moe_report, moe_launches = moe_slice_phase(card, torch.device("cuda"),
                                                get_arch(MOE_ARCH))
     print("moe_slice " + json.dumps(moe_report), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam_report, fam_launches = families_slice_phase(card,
+                                                    torch.device("cuda"))
+    print("families_slice " + json.dumps(fam_report), flush=True)
 
     g = gnn_rows[1]            # 512 x 32 x 300 -> 300: 8 of the 10 layers
     lt = lut_rows[0]           # the labeling gather: 17 KB column table
@@ -2173,9 +2483,9 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:67",
-         # the Hymba prefill's and the Moonlight prefill's
+         # the Hymba, Moonlight, Qwen2-VL and Whisper prefills'
          "launches": lm_launches["flash_attention"]
-         + moe_launches["flash_attention"],
+         + moe_launches["flash_attention"] + fam_launches,
          "max_abs_err": fr["max_abs_err"], "ms": fr["ms"],
          "plain_ms": fr["plain_ms"], "bound_ms": fr["bound_ms"],
          "bound_by": fr["bound_by"], "library_ms": fr["library_ms"]},

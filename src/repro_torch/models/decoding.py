@@ -1,9 +1,12 @@
 """KV-cache / recurrent-state management and single-token decode steps.
 
-The port of `repro.models.decoding` for the dense, hybrid and
-mixture-of-experts families.
+The port of `repro.models.decoding` for every LM family.
 Cache layouts (W = ring-buffer width = min(seq_len, swa_window or inf)):
- - dense / moe   : {"k": (L,B,W,KV,D) bf16, "v": ..., "pos": (B,W) int32}
+ - dense/vlm/moe : {"k": (L,B,W,KV,D) bf16, "v": ..., "pos": (B,W) int32}
+ - whisper       : + {"xk": (L,B,Se,KV,D) bf16, "xv": ...}, the cross-
+                   attention keys and values of the encoder's output
+ - rwkv6         : {"state": (L,B,H,Dk,Dv) float32, "x_tm"/"x_cm": (L,B,d)
+                   bf16}, the last token's inputs of the two token shifts
  - hymba(hybrid) : {"layers": per-layer {"k", "v": (B,Wi,KV,D) bf16,
                    "pos": (B,Wi)} (SWA layers Wi = window, global layers
                    Wi = seq_len), "ssm": (L,B,H,Dh,N) float32}
@@ -28,11 +31,11 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_rope, fdot, rms_norm,
-                                      rope_angles)
+                                      rope_angles, sinusoidal_at)
 from repro_torch.models.transformer import (_mlp, _project_qkv,
-                                            cast_params, check_supported,
-                                            head_weight, is_global_layer,
-                                            layer_params, run_blocks)
+                                            cast_params, head_weight,
+                                            is_global_layer, layer_params,
+                                            run_blocks, rwkv_block_fwd)
 
 
 def _cache_width(cfg: ArchConfig, seq_len: int) -> int:
@@ -42,11 +45,15 @@ def _cache_width(cfg: ArchConfig, seq_len: int) -> int:
 
 
 def cache_spec(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
-    """(shape, dtype) of every cache leaf: bf16 KV, float32 SSM state."""
-    check_supported(cfg)
+    """(shape, dtype) of every cache leaf: bf16 KV, float32 recurrent
+    state."""
     B, S = shape.global_batch, shape.seq_len
     L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
     bf16 = torch.bfloat16
+    if cfg.attn_free:
+        return {"state": ((L, B, cfg.n_heads, D, D), torch.float32),
+                "x_tm": ((L, B, cfg.d_model), bf16),
+                "x_cm": ((L, B, cfg.d_model), bf16)}
     if cfg.family == "hybrid":
         W = min(cfg.swa_window, S)
         layers = []
@@ -59,8 +66,12 @@ def cache_spec(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
                 "ssm": ((L, B, cfg.n_heads, D, cfg.ssm_state),
                         torch.float32)}
     W = _cache_width(cfg, S)
-    return {"k": ((L, B, W, KV, D), bf16), "v": ((L, B, W, KV, D), bf16),
+    spec = {"k": ((L, B, W, KV, D), bf16), "v": ((L, B, W, KV, D), bf16),
             "pos": ((B, W), torch.int32)}
+    if cfg.enc_dec:
+        spec["xk"] = ((L, B, cfg.enc_len, KV, D), bf16)
+        spec["xv"] = ((L, B, cfg.enc_len, KV, D), bf16)
+    return spec
 
 
 def init_cache(cfg: ArchConfig, shape: ShapeConfig,
@@ -87,8 +98,14 @@ def init_cache(cfg: ArchConfig, shape: ShapeConfig,
 
 def clear_row(cfg: ArchConfig, cache, row: int):
     """Empty batch row ``row`` of a cache in place: every slot of every
-    layer at position -1, and the SSM state of the hybrid family at zero
-    (`init_cache`'s values). Returns the cache."""
+    layer at position -1, and the recurrent state (the hybrid family's
+    SSM state, RWKV's state and token-shift inputs) at zero
+    (`init_cache`'s values). Whisper's cross-attention rows are left as
+    they are: no step writes them. Returns the cache."""
+    if cfg.attn_free:
+        for name in ("state", "x_tm", "x_cm"):
+            cache[name][:, row] = 0
+        return cache
     layers = cache["layers"] if cfg.family == "hybrid" else [cache]
     for lc in layers:
         lc["pos"][row] = -1
@@ -97,15 +114,27 @@ def clear_row(cfg: ArchConfig, cache, row: int):
     return cache
 
 
+def _write(dst: torch.Tensor, src: torch.Tensor, row: Optional[int]):
+    """``dst`` = ``src`` in place: batch row ``row``, or every row."""
+    if row is None:
+        dst.copy_(src)
+    else:
+        dst[row].copy_(src[row])
+
+
 def _attn_decode(cfg, p, nx, ck, cv, cpos, step: int, is_global=None,
                  row=None):
     """nx: (B,1,d). Returns the attention output; the cache (its row
-    ``row``, every row if None) is updated in place."""
+    ``row``, every row if None) is updated in place. M-RoPE puts ``step``
+    on all three position columns, as the reference does."""
     q, k, v = _project_qkv(cfg, p, nx)
     B = nx.shape[0]
     if cfg.rope_theta:
         pos = torch.full((B, 1), step, dtype=torch.int32, device=nx.device)
-        ang = rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta)
+        if cfg.mrope_sections:
+            pos = pos[..., None].expand(B, 1, 3)
+        ang = rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta,
+                          cfg.mrope_sections)
         q, k = apply_rope(q, ang), apply_rope(k, ang)
     window = cfg.swa_window if cfg.swa_window else 0
     attn_lib.cache_update(ck, cv, cpos, k.to(ck.dtype), v.to(cv.dtype),
@@ -123,17 +152,23 @@ def decode_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
     batch row ``row``, or every row if None (the reference's step). The
     whole batch runs either way; a mixture-of-experts layer routes every
     row, and each takes expert capacity."""
-    check_supported(cfg)
     params = cast_params(cfg, params)
     step = int(step)
+    if cfg.attn_free:
+        return _decode_rwkv(cfg, params, cache, tokens, step, row)
     if cfg.family == "hybrid":
         return _decode_hybrid(cfg, params, cache, tokens, step, row)
     return _decode_stacked(cfg, params, cache, tokens, step, row)
 
 
-def _embed_decode(cfg, params, tokens):
-    return params["embed"]["tokens"].to(getattr(torch, cfg.dtype))[
+def _embed_decode(cfg, params, tokens, step):
+    x = params["embed"]["tokens"].to(getattr(torch, cfg.dtype))[
         tokens.long()]
+    if not cfg.rope_theta and not cfg.mrope_sections:
+        pos = torch.full(tokens.shape, step, dtype=torch.int32,
+                         device=tokens.device)
+        x = x + sinusoidal_at(pos, cfg.d_model, x.dtype)
+    return x
 
 
 def _logits(cfg, params, x):
@@ -142,15 +177,29 @@ def _logits(cfg, params, x):
 
 
 def _decode_stacked(cfg, params, cache, tokens, step, row):
-    """dense / moe: a loop over the stacked layers. Every layer writes the
-    same slot of the shared position row."""
-    x = _embed_decode(cfg, params, tokens)
+    """dense / vlm / moe / Whisper's decoder: a loop over the stacked
+    layers. Every layer writes the same slot of the shared position row.
+    Whisper's decoder attends to the cross-attention cache at positions
+    0..Se-1 after self-attention."""
+    x = _embed_decode(cfg, params, tokens, step)
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    if cfg.enc_dec:
+        Se = cache["xk"].shape[2]
+        xpos = torch.arange(Se, dtype=torch.int32,
+                            device=x.device).expand(B, Se)
     for i in range(cfg.n_layers):
         lp = layer_params(params["blocks"], i)
         nx = rms_norm(x, lp["norm1"], cfg.norm_eps)
         a = _attn_decode(cfg, lp["attn"], nx, cache["k"][i], cache["v"][i],
                          cache["pos"], step, row=row)
         x = x + a
+        if cfg.enc_dec:
+            nx = rms_norm(x, lp["norm3"], cfg.norm_eps)
+            q = (nx @ lp["xattn"]["wq"]).reshape(B, 1, cfg.n_heads, hd)
+            o = attn_lib.decode_attention(q, cache["xk"][i], cache["xv"][i],
+                                          xpos)
+            x = x + o.reshape(B, 1, -1) @ lp["xattn"]["wo"]
         nx = rms_norm(x, lp["norm2"], cfg.norm_eps)
         if cfg.is_moe:
             m, _aux = moe_lib.moe_ffn(cfg, lp["moe"], nx)
@@ -160,9 +209,24 @@ def _decode_stacked(cfg, params, cache, tokens, step, row):
     return _logits(cfg, params, x), cache
 
 
+def _decode_rwkv(cfg, params, cache, tokens, step, row):
+    """rwkv6: one step of every layer's recurrence from the cached state
+    and token-shift inputs."""
+    x = _embed_decode(cfg, params, tokens, step)
+    for i in range(cfg.n_layers):
+        x_tm, x_cm = cache["x_tm"][i], cache["x_cm"][i]
+        x, st, x_tm_new, x_cm_new = rwkv_block_fwd(
+            cfg, layer_params(params["blocks"], i), x, cache["state"][i],
+            x_tm.to(x.dtype), x_cm.to(x.dtype))
+        _write(cache["state"][i], st, row)
+        _write(x_tm, x_tm_new.to(x_tm.dtype), row)
+        _write(x_cm, x_cm_new.to(x_cm.dtype), row)
+    return _logits(cfg, params, x), cache
+
+
 def _decode_hybrid(cfg, params, cache, tokens, step, row):
     """hymba: per-layer caches of two widths, and the SSM state."""
-    x = _embed_decode(cfg, params, tokens)
+    x = _embed_decode(cfg, params, tokens, step)
     for i in range(cfg.n_layers):
         lp = layer_params(params["blocks"], i)
         lc = cache["layers"][i]
@@ -171,10 +235,7 @@ def _decode_hybrid(cfg, params, cache, tokens, step, row):
                          step, is_global=bool(is_global_layer(cfg, i)),
                          row=row)
         s, st = ssm_lib.ssm_decode_step(cfg, lp["ssm"], nx, cache["ssm"][i])
-        if row is None:
-            cache["ssm"][i] = st
-        else:
-            cache["ssm"][i][row] = st[row]
+        _write(cache["ssm"][i], st, row)
         fs = lp["fuse_scale"]
         x = x + 0.5 * (fs[0] * a + fs[1] * s)
         nx = rms_norm(x, lp["norm2"], cfg.norm_eps)
@@ -213,15 +274,18 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int = 0
     Returns (last-position logits (B,V), cache). The head is applied to
     the last position only: the reference computes every position's
     logits and keeps the last."""
-    check_supported(cfg)
     params = cast_params(cfg, params)
-    x, entries, _aux = run_blocks(cfg, params, batch, collect=True)
+    x, entries, _aux, enc_out = run_blocks(cfg, params, batch, collect=True)
     logits = fdot(x[:, -1], head_weight(cfg, params).to(x.dtype))
     B, S = batch["tokens"].shape
     max_len = max(max_len, S)
     dev = x.device
-    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     bf16 = torch.bfloat16
+    if cfg.attn_free:
+        st, x_tm, x_cm = (torch.stack(t) for t in zip(*entries))
+        return logits, {"state": st, "x_tm": x_tm.to(bf16),
+                        "x_cm": x_cm.to(bf16)}
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     if cfg.family == "hybrid":
         layers, states = [], []
         for i, ((k, v), state) in enumerate(entries):
@@ -238,5 +302,17 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int = 0
         k, v, p = _pad_cache_entry(k.to(bf16), v.to(bf16), pos, W)
         ks.append(k)
         vs.append(v)
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
-                    "pos": p.contiguous()}
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+             "pos": p.contiguous()}
+    if cfg.enc_dec:
+        # every layer's cross keys and values from the encoder's output,
+        # with plain products, a second time after block_fwd's (the
+        # reference computes them so)
+        Se, KV, hd = enc_out.shape[1], cfg.n_kv_heads, cfg.resolved_head_dim
+        xk, xv = [], []
+        for i in range(cfg.n_layers):
+            xp = layer_params(params["blocks"]["xattn"], i)
+            xk.append((enc_out @ xp["wk"]).reshape(B, Se, KV, hd).to(bf16))
+            xv.append((enc_out @ xp["wv"]).reshape(B, Se, KV, hd).to(bf16))
+        cache["xk"], cache["xv"] = torch.stack(xk), torch.stack(xv)
+    return logits, cache

@@ -131,22 +131,61 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
 
 
 def activation(name: str):
-    """The MLP activation; the ported families all use SiLU (Whisper's
-    GELU waits with its family)."""
-    return {"silu": F.silu}[name]
+    """The MLP activation. GELU is the tanh approximation, as
+    ``jax.nn.gelu`` computes it by default (``F.gelu``'s default is the
+    exact erf form)."""
+    return {"silu": F.silu, "relu": F.relu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
+
+
+def sinusoidal_at(positions: torch.Tensor, dim: int,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Sinusoidal encoding of arbitrary positions, ``[sin | cos]``
+    concatenated: positions (...,) int -> (..., dim). The Whisper decoder
+    (rope_theta == 0) adds it at every step, so decode needs no table."""
+    pos = positions.float()[..., None]
+    half = dim // 2
+    div = torch.exp(torch.arange(half, dtype=torch.float32,
+                                 device=positions.device)
+                    * (-math.log(10000.0) / half))
+    ang = pos * div
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, dtype: torch.dtype,
+                         device: DeviceLike) -> torch.Tensor:
+    """The Whisper encoder's table (length, dim): sin and cos
+    interleaved (even and odd columns), computed in float64 NumPy and
+    rounded to float32, as the reference computes it."""
+    pos = np.arange(length)[:, None]
+    div = np.exp(np.arange(0, dim, 2) * (-math.log(10000.0) / dim))
+    pe = np.zeros((length, dim), np.float32)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return torch.from_numpy(pe).to(device=device, dtype=dtype)
 
 
 # --------------------------------------------------------------------------
-# rotary embeddings
+# rotary embeddings (standard + multimodal M-RoPE)
 # --------------------------------------------------------------------------
 
-def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
-                ) -> torch.Tensor:
-    """positions: (B,S) int. Returns (B,S,head_dim//2) float32. (The
-    multimodal M-RoPE of the vlm family is not ported yet.)"""
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                sections: Tuple[int, ...] = ()) -> torch.Tensor:
+    """positions: (B,S) int, or (B,S,3) for M-RoPE with ``sections``
+    (frequency bands whose sizes sum to head_dim // 2; band i reads
+    position column i % 3). Returns (B,S,head_dim//2) float32."""
     half = head_dim // 2
     inv_freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                        device=positions.device) / half)
+    if sections:
+        assert sum(sections) == half, (sections, half)
+        pos = positions.float()
+        chunks, start = [], 0
+        for i, sec in enumerate(sections):
+            chunks.append(pos[..., i % pos.shape[-1], None]
+                          * inv_freq[start:start + sec])
+            start += sec
+        return torch.cat(chunks, dim=-1)
     return positions.float()[..., None] * inv_freq
 
 

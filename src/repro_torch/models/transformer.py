@@ -1,17 +1,17 @@
-"""Decoder stack of the dense and hybrid LM families, in PyTorch.
+"""Decoder stack of every LM family, in PyTorch.
 
 The port of `repro.models.transformer` for the serving slice. Parameters
 are the reference's nested dicts with layers stacked on a leading L axis;
 the reference's ``lax.scan`` over layers is a Python loop here, so each
 layer's ``is_global`` is a static bool. One block function serves the
-dense family (Granite, Qwen), the hybrid one (Hymba: attention and SSM
-heads in parallel in every layer) and the mixture-of-experts one
-(Mixtral, Moonlight: `models.moe` in place of the MLP).
-
-Not ported yet, and refused with NotImplementedError: RWKV-6
-(``attn_free``), Whisper's encoder-decoder (``enc_dec``) and the VLM
-frontend (``n_vision_tokens``, M-RoPE). ``loss_fn`` and remat wait for
-the training slice.
+dense family (Granite, Qwen), the VLM (Qwen2-VL: M-RoPE over (t, h, w)
+positions, vision embeddings in place of the first tokens), the hybrid
+one (Hymba: attention and SSM heads in parallel in every layer), the
+mixture-of-experts one (Mixtral, Moonlight: `models.moe` in place of the
+MLP) and Whisper's decoder (cross-attention to the encoder's output);
+RWKV-6 (``attn_free``) has its own block (`models.rwkv`), and Whisper an
+encoder stack (`encode`). ``loss_fn`` and remat wait for the training
+slice.
 """
 from __future__ import annotations
 
@@ -22,23 +22,12 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (ParamTable, activation, apply_rope,
                                        fdot, rms_norm, rope_angles,
+                                       sinusoidal_at, sinusoidal_positions,
                                        tree_map)
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for the families the port lacks."""
-    missing = [what for what, flag in (
-        ("rwkv6 (attn_free)", cfg.attn_free),
-        ("encoder-decoder (enc_dec)", cfg.enc_dec),
-        ("vlm (n_vision_tokens / mrope_sections)",
-         cfg.n_vision_tokens or cfg.mrope_sections)) if flag]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: the port does not cover {', '.join(missing)} yet "
-            f"(dense, hybrid and mixture-of-experts families only)")
 
 
 def is_global_layer(cfg: ArchConfig, i: int) -> Optional[bool]:
@@ -53,7 +42,8 @@ def is_global_layer(cfg: ArchConfig, i: int) -> Optional[bool]:
 # parameter declaration
 # --------------------------------------------------------------------------
 
-def _declare_attn(t: ParamTable, prefix: str, cfg: ArchConfig, L: int):
+def _declare_attn(t: ParamTable, prefix: str, cfg: ArchConfig, L: int,
+                  cross: bool = False):
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
@@ -61,7 +51,7 @@ def _declare_attn(t: ParamTable, prefix: str, cfg: ArchConfig, L: int):
     t.add(f"{prefix}/wk", (L, d, KV * hd))
     t.add(f"{prefix}/wv", (L, d, KV * hd))
     t.add(f"{prefix}/wo", (L, H * hd, d))
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         t.add(f"{prefix}/bq", (L, H * hd), init="zeros")
         t.add(f"{prefix}/bk", (L, KV * hd), init="zeros")
         t.add(f"{prefix}/bv", (L, KV * hd), init="zeros")
@@ -75,7 +65,6 @@ def _declare_mlp(t: ParamTable, prefix: str, cfg: ArchConfig, L: int):
 
 
 def build_param_table(cfg: ArchConfig) -> ParamTable:
-    check_supported(cfg)
     t = ParamTable()
     d, L = cfg.d_model, cfg.n_layers
     t.add("embed/tokens", (cfg.vocab_size, d), init="embed", scale=0.02)
@@ -84,6 +73,9 @@ def build_param_table(cfg: ArchConfig) -> ParamTable:
     t.add("final_norm", (d,), init="ones")
     t.add("blocks/norm1", (L, d), init="ones")
     t.add("blocks/norm2", (L, d), init="ones")
+    if cfg.attn_free:                                     # rwkv6
+        rwkv_lib.declare_rwkv(t, "blocks/rwkv", cfg, L)
+        return t
     _declare_attn(t, "blocks/attn", cfg, L)
     if cfg.family == "hybrid":
         ssm_lib.declare_ssm(t, "blocks/ssm", cfg, L)
@@ -92,6 +84,15 @@ def build_param_table(cfg: ArchConfig) -> ParamTable:
         moe_lib.declare_moe(t, "blocks/moe", cfg, L)
     else:
         _declare_mlp(t, "blocks/mlp", cfg, L)
+    if cfg.enc_dec:                                       # whisper
+        Le = cfg.enc_layers
+        t.add("enc_blocks/norm1", (Le, d), init="ones")
+        t.add("enc_blocks/norm2", (Le, d), init="ones")
+        _declare_attn(t, "enc_blocks/attn", cfg, Le)
+        _declare_mlp(t, "enc_blocks/mlp", cfg, Le)
+        t.add("enc_final_norm", (d,), init="ones")
+        t.add("blocks/norm3", (L, d), init="ones")
+        _declare_attn(t, "blocks/xattn", cfg, L, cross=True)
     return t
 
 
@@ -133,7 +134,8 @@ def _mlp(cfg, p, x):
 def _attn_block(cfg, p, x, positions, *, causal=True, is_global=None):
     q, k, v = _project_qkv(cfg, p, x)
     if cfg.rope_theta:
-        ang = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        ang = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                          cfg.mrope_sections)
         q, k = apply_rope(q, ang), apply_rope(k, ang)
     o = attn_lib.attention(q, k, v, causal=causal, window=cfg.swa_window,
                            chunk=cfg.attn_chunk, is_global=is_global)
@@ -141,10 +143,14 @@ def _attn_block(cfg, p, x, positions, *, causal=True, is_global=None):
 
 
 def block_fwd(cfg: ArchConfig, p: Dict[str, Any], x: torch.Tensor,
-              positions: torch.Tensor, is_global: Optional[bool] = None):
+              positions: torch.Tensor, is_global: Optional[bool] = None,
+              enc_out: Optional[torch.Tensor] = None):
     """One decoder block. Returns (x, cache entry, moe_aux): the entry is
     (k, v), and for the hybrid family ((k, v), final SSM state); moe_aux
-    is the layer's load-balancing loss (zero without experts)."""
+    is the layer's load-balancing loss (zero without experts). With
+    ``enc_out`` (Whisper) the block attends to it after self-attention;
+    there the decoder's queries and the encoder's keys differ in length,
+    so cross-attention takes the plain route."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     nx = rms_norm(x, p["norm1"], cfg.norm_eps)
     a_out, kv = _attn_block(cfg, p["attn"], nx, positions,
@@ -156,6 +162,18 @@ def block_fwd(cfg: ArchConfig, p: Dict[str, Any], x: torch.Tensor,
         x = x + 0.5 * (fs[0] * a_out + fs[1] * s_out)
     else:
         x = x + a_out
+    if enc_out is not None:                               # whisper cross-attn
+        nx = rms_norm(x, p["norm3"], cfg.norm_eps)
+        B, Se, _ = enc_out.shape
+        hd = cfg.resolved_head_dim
+        q = fdot(nx, p["xattn"]["wq"]).reshape(
+            x.shape[0], x.shape[1], cfg.n_heads, hd)
+        kx = fdot(enc_out, p["xattn"]["wk"]).reshape(B, Se, cfg.n_kv_heads,
+                                                     hd)
+        vx = fdot(enc_out, p["xattn"]["wv"]).reshape(B, Se, cfg.n_kv_heads,
+                                                     hd)
+        o = attn_lib.attention(q, kx, vx, causal=False, chunk=cfg.attn_chunk)
+        x = x + fdot(o.reshape(*x.shape[:2], -1), p["xattn"]["wo"])
     nx = rms_norm(x, p["norm2"], cfg.norm_eps)
     if cfg.is_moe:
         m_out, aux = moe_lib.moe_ffn(cfg, p["moe"], nx)
@@ -165,18 +183,43 @@ def block_fwd(cfg: ArchConfig, p: Dict[str, Any], x: torch.Tensor,
     return x, kv, aux
 
 
+def rwkv_block_fwd(cfg: ArchConfig, p: Dict[str, Any], x: torch.Tensor,
+                   state=None, x_tm=None, x_cm=None):
+    """One RWKV-6 block. Returns (x, final state, last time-mix input,
+    last channel-mix input)."""
+    nx = rms_norm(x, p["norm1"], cfg.norm_eps)
+    o, state, x_last_tm = rwkv_lib.time_mix(cfg, p["rwkv"], nx, state, x_tm)
+    x = x + o
+    nx = rms_norm(x, p["norm2"], cfg.norm_eps)
+    o, x_last_cm = rwkv_lib.channel_mix(cfg, p["rwkv"], nx, x_cm)
+    return x + o, state, x_last_tm, x_last_cm
+
+
 # --------------------------------------------------------------------------
 # full forward (prefill)
 # --------------------------------------------------------------------------
 
 def embed_inputs(cfg: ArchConfig, params, batch
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token embeddings (the VLM's ``vision_embeds`` in place of the
+    first positions) and positions: ``batch["positions"]`` ((B,S,3) for
+    M-RoPE) where given, else 0..S-1. A stack without rotary embeddings
+    (Whisper's decoder) adds the sinusoidal encoding here."""
     tokens = batch["tokens"]
     x = params["embed"]["tokens"].to(getattr(torch, cfg.dtype))[
         tokens.long()]
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device).expand(B, S)
+    if cfg.n_vision_tokens and "vision_embeds" in batch:
+        ve = batch["vision_embeds"]
+        x[:, :ve.shape[1]] = ve.to(x.dtype)
+    if "positions" in batch:
+        positions = batch["positions"]
+    else:
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S)
+    if not cfg.rope_theta and not cfg.mrope_sections:
+        pos1d = positions if positions.dim() == 2 else positions[..., 0]
+        x = x + sinusoidal_at(pos1d, cfg.d_model, x.dtype)
     return x, positions
 
 
@@ -185,33 +228,62 @@ def head_weight(cfg: ArchConfig, params) -> torch.Tensor:
             else params["head"]["w"])
 
 
+def encode(cfg: ArchConfig, params, enc_frames: torch.Tensor
+           ) -> torch.Tensor:
+    """Whisper's encoder over cast parameters: frames (B,T,d) after the
+    conv stub, the interleaved sinusoidal table added, bidirectional
+    attention (a full mask) in every layer."""
+    x = enc_frames.to(getattr(torch, cfg.dtype))
+    B, T, _ = x.shape
+    x = x + sinusoidal_positions(T, cfg.d_model, x.dtype, x.device)[None]
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=x.device).expand(B, T)
+    for i in range(cfg.enc_layers):
+        lp = layer_params(params["enc_blocks"], i)
+        nx = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        a, _ = _attn_block(cfg, lp["attn"], nx, positions, causal=False)
+        x = x + a
+        nx = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = x + _mlp(cfg, lp["mlp"], nx)
+    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
 def run_blocks(cfg: ArchConfig, params, batch, collect: bool = False
-               ) -> Tuple[torch.Tensor, List[Any], torch.Tensor]:
-    """Embed, every block and the final norm over cast parameters.
-    Returns (hidden (B,S,d), per-layer cache entries if ``collect``, the
-    summed moe_aux)."""
-    check_supported(cfg)
+               ) -> Tuple[torch.Tensor, List[Any], torch.Tensor,
+                          Optional[torch.Tensor]]:
+    """Embed, the encoder (Whisper), every block and the final norm over
+    cast parameters. Returns (hidden (B,S,d), per-layer cache entries if
+    ``collect``, the summed moe_aux, the encoder's output or None). An
+    RWKV layer's entry is (state, last time-mix input, last channel-mix
+    input)."""
     x, positions = embed_inputs(cfg, params, batch)
+    enc_out = (encode(cfg, params, batch["enc_frames"]) if cfg.enc_dec
+               else None)
     entries = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, entry, layer_aux = block_fwd(
-            cfg, layer_params(params["blocks"], i), x, positions,
-            is_global=is_global_layer(cfg, i))
-        aux = aux + layer_aux
+        lp = layer_params(params["blocks"], i)
+        if cfg.attn_free:
+            x, *entry = rwkv_block_fwd(cfg, lp, x)
+        else:
+            x, entry, layer_aux = block_fwd(
+                cfg, lp, x, positions, is_global=is_global_layer(cfg, i),
+                enc_out=enc_out)
+            aux = aux + layer_aux
         if collect:
             entries.append(entry)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), entries, aux
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, entries, aux, enc_out
 
 
 def forward(cfg: ArchConfig, params, batch, kind: str = "train"):
-    """Returns (logits (B,S,V), moe_aux, (cache entries or None, None)),
-    the reference's triple: moe_aux is the layers' summed load-balancing
-    loss (zero without experts), and ``kind="prefill"`` also returns the
-    per-layer cache entries (a list, where the reference stacks them on
-    the L axis)."""
+    """Returns (logits (B,S,V), moe_aux, (cache entries or None, encoder
+    output or None)), the reference's triple: moe_aux is the layers'
+    summed load-balancing loss (zero without experts), and
+    ``kind="prefill"`` also returns the per-layer cache entries (a list,
+    where the reference stacks them on the L axis)."""
     params = cast_params(cfg, params)
-    x, entries, aux = run_blocks(cfg, params, batch,
-                                 collect=kind == "prefill")
+    x, entries, aux, enc_out = run_blocks(cfg, params, batch,
+                                          collect=kind == "prefill")
     logits = fdot(x, head_weight(cfg, params).to(x.dtype))
-    return logits, aux, (entries if kind == "prefill" else None, None)
+    return logits, aux, (entries if kind == "prefill" else None, enc_out)

@@ -405,7 +405,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert {"repro_torch.core.training", "repro_torch.core.dse",
             "repro_torch.core.islands", "repro_torch.core.artifacts",
             "repro_torch.core.pipeline", "repro_torch.models.moe",
-            "repro_torch.launch.serve"} <= set(modules)
+            "repro_torch.models.rwkv", "repro_torch.launch.serve"} <= \
+        set(modules)
 
 
 def _imported_names(path: Path):

@@ -28,16 +28,19 @@ from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttr
 from repro_torch.models.layers import (ParamTable, params_from_numpy,
                                        tree_map)
+from test_torch_families import family_batch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 SUPPORTED = ["granite-20b", "granite-3-2b", "hymba-1.5b", "mixtral-8x7b",
-             "moonshot-v1-16b-a3b", "qwen1.5-110b", "qwen2.5-32b"]
-UNSUPPORTED = ["qwen2-vl-7b", "rwkv6-3b", "whisper-large-v3"]
-# the serving parity tests: a dense, the hybrid and both MoE families
+             "moonshot-v1-16b-a3b", "qwen1.5-110b", "qwen2-vl-7b",
+             "qwen2.5-32b", "rwkv6-3b", "whisper-large-v3"]
+# the serving parity tests: a dense, the hybrid, both MoE families, the
+# VLM, RWKV-6 and Whisper's encoder-decoder
 SERVED = ["hymba-1.5b", "granite-3-2b", "mixtral-8x7b",
-          "moonshot-v1-16b-a3b"]
+          "moonshot-v1-16b-a3b", "qwen2-vl-7b", "rwkv6-3b",
+          "whisper-large-v3"]
 # float32 compute: the two packages run the same float32 algorithm in
 # another summation order
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -68,6 +71,19 @@ def _pair(name, dtype="float32", seed=1):
 def _tokens(cfg, B, S, seed):
     rng = np.random.default_rng(seed)
     return rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def _batches(cfg, toks, S, seed):
+    """The reference's and the port's batch of the first S tokens, with
+    the family's stub-frontend inputs (`test_torch_families.family_batch`:
+    vision embeddings and M-RoPE positions, encoder frames)."""
+    extra = family_batch(cfg, toks.shape[0], toks.shape[1], seed)
+    batch = {"tokens": toks[:, :S]}
+    for k, v in extra.items():
+        if k != "tokens":
+            batch[k] = v[:, :S] if k == "positions" else v
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: _t(v) for k, v in batch.items()})
 
 
 def _leaves(tree):
@@ -134,18 +150,6 @@ def test_params_from_numpy_keeps_or_casts_types():
     cast = params_from_numpy(tree, "cpu", dtype=torch.bfloat16)
     assert cast["a"]["w"].dtype == torch.bfloat16
     assert cast["i"].dtype == torch.int32
-
-
-@pytest.mark.parametrize("name", UNSUPPORTED)
-def test_unsupported_families_raise(name):
-    cfg = T_ARCHS[name]
-    with pytest.raises(NotImplementedError, match="does not cover"):
-        ttr.build_param_table(cfg)
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tdec.prefill(cfg, {}, {"tokens": tokens})
-    with pytest.raises(NotImplementedError):
-        tdec.decode_step(cfg, {}, {}, tokens[:, :1], 0)
 
 
 # --------------------------------------------------------------------------
@@ -327,8 +331,9 @@ def test_ssm_decode_steps_continue_the_scan():
 def test_forward_matches_reference(name):
     jcfg, tcfg, jp, tp = _pair(name)
     toks = _tokens(jcfg, 2, 24, seed=0)
-    want, want_aux, _ = jtr.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})
-    got, aux, (kvs, _) = ttr.forward(tcfg, tp, {"tokens": _t(toks)})
+    jb, tb = _batches(jcfg, toks, 24, seed=0)
+    want, want_aux, _ = jtr.forward(jcfg, jp, jb)
+    got, aux, (kvs, _) = ttr.forward(tcfg, tp, tb)
     assert kvs is None and aux.dtype == torch.float32
     # the summed load-balancing loss: zero without experts
     np.testing.assert_allclose(float(aux), float(want_aux), rtol=0,
@@ -347,12 +352,11 @@ def test_prefill_and_decode_match_reference(name):
     max_len 24 pads the global layers' caches."""
     jcfg, tcfg, jp, tp = _pair(name)
     toks = _tokens(jcfg, 2, 24, seed=4)
-    jlast, jcache = jdec.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:,
-                                                                    :16])},
-                                 max_len=24)
+    jb, tb = _batches(jcfg, toks, 16, seed=4)
+    jlast, jcache = jdec.prefill(jcfg, jp, jb, max_len=24)
     prefill = steps.make_prefill_step(tcfg, max_len=24)
     decode = steps.make_decode_step(tcfg)
-    tlast, tcache = prefill(tp, {"tokens": _t(toks[:, :16])})
+    tlast, tcache = prefill(tp, tb)
     np.testing.assert_allclose(tlast.numpy(), _np(jlast), **F32_TOL)
     jl, tl = jax.tree.leaves(jcache), _leaves(tcache)
     assert len(jl) == len(tl)
@@ -375,9 +379,9 @@ def test_greedy_decode_picks_the_reference_tokens(name):
     token ids as the reference at every step."""
     jcfg, tcfg, jp, tp = _pair(name, seed=5)
     toks = _tokens(jcfg, 2, 10, seed=6)
-    jlast, jcache = jdec.prefill(jcfg, jp, {"tokens": jnp.asarray(toks)},
-                                 max_len=16)
-    tlast, tcache = tdec.prefill(tcfg, tp, {"tokens": _t(toks)}, max_len=16)
+    jb, tb = _batches(jcfg, toks, 10, seed=6)
+    jlast, jcache = jdec.prefill(jcfg, jp, jb, max_len=16)
+    tlast, tcache = tdec.prefill(tcfg, tp, tb, max_len=16)
     jtok = np.asarray(jnp.argmax(jlast, -1))[:, None].astype(np.int32)
     ttok = tlast.argmax(-1, keepdim=True)
     for pos in range(10, 16):
@@ -391,17 +395,17 @@ def test_greedy_decode_picks_the_reference_tokens(name):
     np.testing.assert_array_equal(ttok.numpy(), jtok)
 
 
-@pytest.mark.parametrize("name", ["hymba-1.5b", "granite-3-2b"])
+@pytest.mark.parametrize("name", ["hymba-1.5b", "granite-3-2b",
+                                  "qwen2-vl-7b", "rwkv6-3b",
+                                  "whisper-large-v3"])
 def test_bf16_prefill_and_decode_match_reference(name):
     """bf16 compute in both packages, which round at other places:
     test_models.py's bar (rtol 0.1, atol 0.15)."""
     jcfg, tcfg, jp, tp = _pair(name, dtype="bfloat16", seed=7)
     toks = _tokens(jcfg, 2, 20, seed=8)
-    jlast, jcache = jdec.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:,
-                                                                    :12])},
-                                 max_len=20)
-    tlast, tcache = tdec.prefill(tcfg, tp, {"tokens": _t(toks[:, :12])},
-                                 max_len=20)
+    jb, tb = _batches(jcfg, toks, 12, seed=8)
+    jlast, jcache = jdec.prefill(jcfg, jp, jb, max_len=20)
+    tlast, tcache = tdec.prefill(tcfg, tp, tb, max_len=20)
     assert tlast.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(tlast.float()), _np(jlast), **BF16_TOL)
     for pos in range(12, 20):
@@ -416,7 +420,8 @@ def test_bf16_prefill_and_decode_match_reference(name):
 def test_init_cache_matches_reference_layout():
     from repro.configs.base import ShapeConfig as JShape
     from repro_torch.configs.base import ShapeConfig as TShape
-    for name in ("hymba-1.5b", "granite-3-2b"):
+    for name in ("hymba-1.5b", "granite-3-2b", "qwen2-vl-7b", "rwkv6-3b",
+                 "whisper-large-v3"):
         jc = jdec.init_cache(J_ARCHS[name], JShape("d", 24, 2, "decode"))
         tc = tdec.init_cache(T_ARCHS[name], TShape("d", 24, 2, "decode"),
                              "cpu")

@@ -74,6 +74,33 @@ def test_three_requests_through_two_slots_get_their_tokens_alone():
     assert server.steps == 3 * (PROMPT + MAX_NEW)
 
 
+# request 0's tokens: alone in a fresh reference server (the port's in
+# any server), and in the reference's run beside the other two requests,
+# which its shared-cache fault changes (ROADMAP.md, queue 3)
+REQUEST0 = {"rwkv6-3b": ([80, 214, 209, 41, 35, 71],
+                         [30, 251, 134, 130, 14, 214]),
+            "qwen2-vl-7b": ([163, 163, 110, 241, 250, 249], [200] * 6)}
+
+
+@pytest.mark.parametrize("name", sorted(REQUEST0))
+def test_recurrent_and_vlm_requests_through_two_slots_get_their_tokens_alone(
+        name):
+    """Reduced rwkv6 and qwen2-vl: three requests through 2 slots, each
+    gets the reference's tokens for it alone in a fresh server. RWKV's
+    step writes only the stepped slot's state and token-shift inputs, and
+    admission zeroes them."""
+    jcfg, tcfg, jp, tp = _pair(name)
+    prompts = _prompts(tcfg, 3)
+    got, server = _port(tcfg, tp, prompts)
+    assert got == [_ref_alone(jcfg, jp, p) for p in prompts]
+    alone, shared = REQUEST0[name]
+    assert got[0] == alone
+    assert server.steps == 3 * (PROMPT + MAX_NEW)
+    reqs = [jserve.Request(i, p, MAX_NEW) for i, p in enumerate(prompts)]
+    jserve.BatchServer(jcfg, jp, slots=2).run(reqs)
+    assert reqs[0].out == shared
+
+
 def test_moe_request_alone_gets_the_reference_tokens():
     """Reduced Moonlight: one request in a fresh server, the reference's
     tokens (alone, the idle row routes a zero token: the same in both)."""
@@ -106,6 +133,8 @@ def test_hybrid_requests_sharing_the_batch_get_their_tokens_alone():
 
 def _row(cfg, cache, row):
     """Every cache leaf's entries of batch row ``row``."""
+    if cfg.attn_free:
+        return [cache[n][:, row] for n in ("state", "x_tm", "x_cm")]
     if cfg.family == "hybrid":
         return [lc[n][row] for lc in cache["layers"]
                 for n in ("k", "v", "pos")] + [cache["ssm"][:, row]]
@@ -113,7 +142,7 @@ def _row(cfg, cache, row):
 
 
 @pytest.mark.parametrize("row", [0, 2])
-@pytest.mark.parametrize("name", ["granite-3-2b", "hymba-1.5b"])
+@pytest.mark.parametrize("name", ["granite-3-2b", "hymba-1.5b", "rwkv6-3b"])
 def test_decode_step_writes_only_the_named_row(name, row):
     """Steps with ``row`` give that row the logits and cache entries of
     full steps and leave the other rows' caches empty; clear_row empties
@@ -135,14 +164,16 @@ def test_decode_step_writes_only_the_named_row(name, row):
             assert torch.equal(got, ref)
     tdec.clear_row(tcfg, part, row)
     for got, ref in zip(_row(tcfg, part, row), _row(tcfg, empty, row)):
-        if got.dtype in (torch.int32, torch.float32):
-            assert torch.equal(got, ref)      # positions and SSM state
+        if got.dtype in (torch.int32, torch.float32) or tcfg.attn_free:
+            assert torch.equal(got, ref)      # positions, recurrent state
 
 
-def test_lm_demo_serves_on_the_cpu(capsys):
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "rwkv6-3b",
+                                  "qwen2-vl-7b"])
+def test_lm_demo_serves_on_the_cpu(capsys, arch):
     """`--demo lm`'s function at the reference's defaults on the CPU."""
     import argparse
-    args = argparse.Namespace(arch="moonshot-v1-16b-a3b", reduced=True,
+    args = argparse.Namespace(arch=arch, reduced=True,
                               requests=3, slots=2, max_new=3,
                               prompt_len=4, device="cpu")
     tserve._demo_lm(args)
