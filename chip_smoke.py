@@ -75,7 +75,20 @@ graph of the calls, then drives the port's two main paths:
   cross-attention) and RWKV-6 3B (8 prompts of 1024 tokens, the
   recurrence a step loop); 32 greedy decode steps each, a two-layer
   prefill + 4 steps vs longer-prefill check in bf16 (RWKV's float32
-  state too) and a two-layer card-against-CPU check.
+  state too) and a two-layer card-against-CPU check; Qwen2-VL's 32
+  steps again on its bf16 cache and on an int8 one (`kv_int8`), fed the
+  same greedy tokens: cache and peak GiB, ms a step, the logits' gap;
+- LM training (`lm_train_slice` line): Hymba-1.5B at full width and
+  depth, float32 master parameters from a seeded generator, AdamW,
+  `TokenPipeline` batches of 8 x 1024 tokens in two micro-batches, remat
+  on, through `make_train_step` (K3 forward and in each recompute with
+  the plain version's backward, K4 forward, in each recompute and over
+  reversed time in the backward): 2 warm and 4 timed steps, a device
+  profile of one more; the two kernels' gradients against autograd of
+  their plain versions at Hymba's shape, every parameter's gradient of
+  the model cut to two layers on the card against the CPU (bf16 and
+  float32), and a restart drill of `launch.train.train` (a crash, a
+  restore, the end state against uninterrupted runs).
 
 Launch counters are zeroed just before each main path and read just
 after; the `kernels` line sums the accelerator paths' counts. The last line of standard output is the device JSON; the line
@@ -2163,10 +2176,60 @@ def cut_layers(cfg, params, n: int):
     return dataclasses.replace(cfg, **over), params
 
 
+def cache_gib(cache) -> float:
+    from repro_torch.models.layers import tree_leaves
+    return (sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+            / 2 ** 30)
+
+
+def int8_decode_compare(dev, cfg, params, prefill, decode, prompt,
+                        prompt_len: int, fed, want):
+    """The bf16 cache and the int8 one (`decoding.quantize_cache` of the
+    prefill's), each stepped through the same ``len(fed)`` decode steps
+    fed the bf16 run's greedy tokens ``fed``: cache GiB, peak GiB of the
+    decode, ms a step, each step's largest logits gap against the bf16
+    run's logits ``want``, and the share of greedy tokens that agree."""
+    import torch
+    from repro_torch.models import decoding
+    out = {}
+    for kind in ("bf16", "int8"):
+        _, cache = prefill(params, prompt)
+        if kind == "int8":
+            cache = decoding.quantize_cache(cfg, cache)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        step_ms, gaps, agree = [], [], []
+        for i, tok in enumerate(fed):
+            (logits, cache), ms = timed_ms(
+                dev, lambda: decode(params, cache, tok, prompt_len + i))
+            step_ms.append(ms)
+            gaps.append(float((logits[:, 0].float() - want[i].float())
+                              .abs().max()))
+            agree.append(float((logits[:, 0].argmax(-1)
+                                == want[i].argmax(-1)).float().mean()))
+        out[kind] = {
+            "cache_gib": cache_gib(
+                {k: v for k, v in cache.items() if k != "pos"}),
+            "peak_gib_decode": (torch.cuda.max_memory_allocated(dev)
+                                / 2 ** 30 if dev.type == "cuda"
+                                else "not measured: no card"),
+            "ms_per_step": sum(step_ms) / len(step_ms),
+            "logits_max_gap": max(gaps),
+            "greedy_agree_share": sum(agree) / len(agree)}
+        del cache
+    gap8 = out["int8"]["logits_max_gap"]
+    check(gap8 <= INT8_LOGITS_GAP, f"{cfg.name}: the int8 cache's logits "
+          f"{gap8:.3g} from the bf16 cache's, beyond {INT8_LOGITS_GAP}")
+    out["bar"] = INT8_LOGITS_GAP
+    return out
+
+
 def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
                batch: int = LM_BATCH, n_steps: int = LM_STEPS,
                witness_len: int = FAMILY_WITNESS_PROMPT,
-               witness_steps: int = FAMILY_WITNESS_STEPS):
+               witness_steps: int = FAMILY_WITNESS_STEPS,
+               int8_decode: bool = False):
     """One family at full width and depth on ``dev``: random bf16
     weights, a cold and a counted warm prefill of ``batch`` prompts
     through `make_prefill_step`, greedy `make_decode_step` steps, device
@@ -2239,11 +2302,14 @@ def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
               f"launches in the prefill, not {per_run}")
         report["peak_gib_prefill"] = peak_gib()
         tok = last.argmax(-1, keepdim=True).to(torch.int32)
-        step_ms = []
+        step_ms, fed, seen = [], [], []
         for i in range(n_steps):
             (logits, cache), ms = timed_ms(
                 dev, lambda: decode(params, cache, tok, prompt_len + i))
             step_ms.append(ms)
+            if int8_decode:
+                fed.append(tok)
+                seen.append(logits[:, 0].clone())
             tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
         check(finite(logits) and tuple(logits.shape)
               == (batch, 1, cfg.vocab_size), f"{cfg.name} decode logits")
@@ -2257,6 +2323,14 @@ def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
         report["launches"] = {"flash_attention": launches}
         del cache
         lap("prefills_and_decode")
+
+        # the int8 KV cache beside the bf16 one: the same greedy steps
+        if int8_decode:
+            report["int8_kv"] = int8_decode_compare(
+                dev, cfg, params, prefill, decode, prompt, prompt_len, fed,
+                seen)
+            del fed, seen
+            lap("int8_kv")
 
         # where one warm prefill's and one decode step's device time goes
         if cuda:
@@ -2365,7 +2439,8 @@ def families_slice_phase(card: str, dev, families=FAMILIES, archs=None,
     t0 = time.perf_counter()
     for name, prompt_len, max_len in families:
         t = time.perf_counter()
-        r, n = family_run(card, dev, archs[name], prompt_len, max_len, **kw)
+        r, n = family_run(card, dev, archs[name], prompt_len, max_len,
+                          int8_decode=name == INT8_FAMILY, **kw)
         r["phase_s"] = time.perf_counter() - t
         report["models"][name] = r
         launches += n
@@ -2377,6 +2452,347 @@ def families_slice_phase(card: str, dev, families=FAMILIES, archs=None,
                            "state_atol_share": CARD_CPU_SSM_ATOL}
     report["wall_s"] = time.perf_counter() - t0
     return report, launches
+
+
+# the LM training slice: Hymba-1.5B at full width and depth, TokenPipeline
+# batches of 8 x 1024 tokens, two micro-batches a step, remat on; 2 warm
+# steps then 4 timed ones
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_WARM, TRAIN_TIMED = \
+    8, 1024, 2, 2, 4
+# per-kernel gradient checks at Hymba's shape with B = 2: K4's gradients
+# (a scan forward and one over reversed time, float32) against autograd
+# of the plain loop within a relative L2 of 1e-5 per input (another
+# order of the same float32 operations); K3's (its backward IS the plain
+# version's, recomputed) within a per-row relative L2 of 2e-2, the
+# forward's bar
+GRAD_K4_REL, GRAD_K3_ROW = 1e-5, FA_BF16_ROW
+# the whole model cut to two layers at full width, card against CPU, the
+# same float32 master parameters and batch of 2 x 256 tokens: every
+# leaf's gradient non-zero and within the card-vs-CPU logits bar (relative
+# L2 per leaf); in float32 compute (K3's float32 path, K4) within 1e-3
+GRAD_MODEL_BATCH, GRAD_MODEL_SEQ, GRAD_MODEL_BF16, GRAD_MODEL_F32 = \
+    2, 256, CARD_CPU_TOL[0], 1e-3
+# the restart drill: two layers at full width, 2 x 256 tokens a step,
+# a crash at step 3, checkpoints every 2 steps, 5 steps
+DRILL = dict(batch=2, seq=256, steps=5, crash_at=3, ckpt_every=2)
+# the int8 KV cache against the bf16 one in the Qwen2-VL decode:
+# tests/test_substrate.py's bar for the logits
+INT8_FAMILY, INT8_LOGITS_GAP = "qwen2-vl-7b", 0.3
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def row_rel_l2(a, b) -> float:
+    """The largest relative L2 error over the rows of the last axis."""
+    a, b = a.detach().float(), b.detach().float()
+    return float(((a - b).norm(dim=-1)
+                  / b.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def leaf_names(tree, path: str = "") -> list:
+    """The paths of a parameter tree's leaves, in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{path}/{k}" if path else k)]
+    return [path]
+
+
+def kernel_grad_checks(dev, cfg, batch: int = 2, seq: int = TRAIN_SEQ):
+    """K3's and K4's autograd Functions against autograd of their plain
+    versions on ``dev``, at Hymba's per-layer shapes with ``batch`` rows
+    and a random upstream gradient. Launches made here are not counted on
+    the main path."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    # K4: T = S steps over B*H*Dh*N channels, the decay per (row, head)
+    rep = D * cfg.ssm_state
+    a0 = torch.rand(seq, batch * H, generator=gen, device=dev) * 0.9 + 0.05
+    b0 = torch.randn(seq, batch * H * rep, generator=gen, device=dev)
+    y00 = torch.randn(batch * H * rep, generator=gen, device=dev)
+    gy = torch.randn(seq, batch * H * rep, generator=gen, device=dev)
+    gf = torch.randn(batch * H * rep, generator=gen, device=dev)
+    res = []
+    for fn in (ops.ssm_scan, lambda a, b, y0: ref.ssm_scan_ref(
+            a.repeat_interleave(rep, 1), b, y0)):
+        a, b, y0 = (x.clone().requires_grad_(True) for x in (a0, b0, y00))
+        ys, yf = fn(a, b, y0)
+        res.append(torch.autograd.grad((ys * gy).sum() + (yf * gf).sum(),
+                                       (a, b, y0)))
+    k4 = {n: rel_l2(g, w) for n, g, w in zip(("a", "b", "y0"), *res)}
+    out["ssm_scan"] = {"shape": [seq, batch * H * rep], "rel_l2": k4,
+                       "bar": GRAD_K4_REL}
+    check(all(v <= GRAD_K4_REL for v in k4.values()),
+          f"ssm_scan gradients against the plain version's beyond "
+          f"{GRAD_K4_REL}: {k4}")
+    del res, a0, b0, y00, gy
+    # K3: bf16, causal, q (B,H,S,D) and k/v (B,KV,S,D) as the model's
+    # transposed views give them
+    q0 = torch.randn(batch, seq, H, D, generator=gen,
+                     device=dev).bfloat16().transpose(1, 2)
+    k0, v0 = (torch.randn(batch, seq, KV, D, generator=gen,
+                          device=dev).bfloat16().transpose(1, 2)
+              for _ in range(2))
+    g = torch.randn(batch, H, seq, D, generator=gen, device=dev).bfloat16()
+    res = []
+    for fn in (ops.flash_attention, ref.flash_attention_ref):
+        q, k, v = (x.detach().requires_grad_(True) for x in (q0, k0, v0))
+        res.append(torch.autograd.grad(fn(q, k, v, causal=True), (q, k, v),
+                                       g))
+    k3 = {n: row_rel_l2(a, b) for n, a, b in zip(("q", "k", "v"), *res)}
+    out["flash_attention"] = {
+        "shape": [batch, H, KV, seq, D], "row_rel_l2": k3,
+        "max_abs": {n: float((a.float() - b.float()).abs().max())
+                    for n, a, b in zip(("q", "k", "v"), *res)},
+        "bar": GRAD_K3_ROW}
+    check(all(v <= GRAD_K3_ROW for v in k3.values()),
+          f"flash_attention gradients against the plain version's beyond "
+          f"{GRAD_K3_ROW}: {k3}")
+    return out
+
+
+def model_grad_check(dev, cfg, params, dtype: str, bar: float,
+                     batch: int = GRAD_MODEL_BATCH,
+                     seq: int = GRAD_MODEL_SEQ):
+    """`transformer.loss_fn` and every parameter's gradient of the model
+    cut to two layers, on ``dev`` (both kernels, remat on) and on the CPU
+    (the plain versions), from the same float32 master parameters and a
+    TokenPipeline batch, in ``dtype`` compute."""
+    import dataclasses
+    import torch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as sc
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import tree_leaves, tree_map
+    cfg2, p2 = cut_layers(cfg, params, 2)
+    cfg2 = dataclasses.replace(cfg2, dtype=dtype)
+    host = TokenPipeline(cfg.vocab_size, seq, batch).batch_at(0)
+    grads, losses = {}, {}
+    for where in (dev, torch.device("cpu")):
+        p = tree_map(lambda a: a.detach().to(where).clone()
+                     .requires_grad_(True), p2)
+        b = {k: torch.from_numpy(v).to(where) for k, v in host.items()}
+        n3, n4 = fa.LAUNCHES.value, sc.LAUNCHES.value
+        total, m = transformer.loss_fn(cfg2, p, b)
+        total.backward()
+        if where.type == "cuda":
+            # forward, remat's recompute (and K4's reverse scan) per layer
+            check(fa.LAUNCHES.value - n3 == 4 and sc.LAUNCHES.value - n4
+                  == 6, f"the two-layer {dtype} gradient did not launch K3 "
+                  f"twice and K4 three times a layer")
+        grads[where.type] = [a.grad for a in tree_leaves(p)]
+        losses[where.type] = float(m["loss"].detach())
+        del p, total
+    leaf_rel = {}
+    for name, gd, gc in zip(leaf_names(p2), grads[dev.type], grads["cpu"]):
+        ok = gd is not None and bool(gd.abs().max() > 0)
+        check(ok, f"{dtype}: the card's gradient of {name} is missing or "
+              f"zero")
+        leaf_rel[name] = rel_l2(gd, gc) if ok else float("inf")
+    worst = max(leaf_rel, key=leaf_rel.get)
+    check(leaf_rel[worst] <= bar, f"{dtype} two-layer gradient of {worst}, "
+          f"card vs CPU, {leaf_rel[worst]:.3g} beyond {bar}")
+    return {"dtype": dtype, "batch": batch, "seq": seq,
+            "loss_card": losses[dev.type], "loss_cpu": losses["cpu"],
+            "leaves": len(leaf_rel), "all_nonzero": all(
+                v < float("inf") for v in leaf_rel.values()),
+            "worst_leaf": worst, "worst_rel_l2": leaf_rel[worst],
+            "rel_l2_by_leaf": leaf_rel, "bar": bar}
+
+
+def restart_drill(dev, cfg, drill=DRILL):
+    """`launch.train.train` on the model cut to two layers: a crash at
+    ``crash_at`` with checkpoints every ``ckpt_every`` steps, against two
+    uninterrupted runs. The crashed run's final state differs from the
+    first uninterrupted run's by no more than twice what the two
+    uninterrupted runs differ by (the embedding's backward adds with
+    atomics on the card), and its last checkpoint restores bit-equal."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch import checkpointing as ck
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.fault import FaultInjector
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models.layers import tree_leaves
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    shape = ShapeConfig("drill", drill["seq"], drill["batch"], "train")
+    kw = dict(ckpt_every=drill["ckpt_every"], log_every=0, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        crashed = train_lib.train(
+            cfg2, shape, drill["steps"], tmp,
+            injector=FaultInjector(crash_at=[drill["crash_at"]]), **kw)
+        crashed_s = time.perf_counter() - t
+        saved, step = ck.restore(tmp, (crashed["params"], crashed["opt"]))
+        state = tree_leaves((crashed["params"], crashed["opt"]))
+        restored_equal = all(torch.equal(a, b) for a, b in
+                             zip(tree_leaves(saved), state))
+    runs = [train_lib.train(cfg2, shape, drill["steps"], None, **kw)
+            for _ in range(2)]
+
+    def gap(x, y):
+        return max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(tree_leaves((x["params"], x["opt"])),
+                                   tree_leaves((y["params"], y["opt"]))))
+    run_gap, crash_gap = gap(runs[1], runs[0]), gap(crashed, runs[0])
+    check(crashed["final_step"] == drill["steps"],
+          f"restart drill ended at {crashed['final_step']}")
+    check(step == drill["steps"] - 1 and restored_equal,
+          "restart drill: the last checkpoint does not restore bit-equal")
+    check(crash_gap <= 2 * run_gap,
+          f"restart drill: the crashed run is {crash_gap:.3g} from an "
+          f"uninterrupted one, which are {run_gap:.3g} apart")
+    return {"n_layers": 2, **drill, "final_step": crashed["final_step"],
+            "losses_after_restart": crashed["losses"],
+            "losses_uninterrupted": runs[0]["losses"],
+            "restored_step": step, "restored_bit_equal": restored_equal,
+            "crashed_vs_uninterrupted_max_abs": crash_gap,
+            "uninterrupted_vs_uninterrupted_max_abs": run_gap,
+            "crashed_run_s": crashed_s}
+
+
+def lm_train_slice_phase(card: str, dev, cfg, batch: int = TRAIN_BATCH,
+                         seq: int = TRAIN_SEQ, accum: int = TRAIN_ACCUM,
+                         warm: int = TRAIN_WARM, timed: int = TRAIN_TIMED,
+                         grad_batch: int = 2, drill=DRILL,
+                         model_seq: int = GRAD_MODEL_SEQ):
+    """Train the LM on ``dev`` through `launch.steps.make_train_step` at
+    the config's width and depth: float32 master parameters from a seeded
+    generator, AdamW, TokenPipeline batches; ``warm`` steps, then
+    ``timed`` counted ones, a device profile of one more, then the
+    gradient checks and the restart drill. Returns (report, K3/K4
+    launches of the counted steps). On the CPU (a rehearsal at reduced
+    size) the kernels' plain versions run, nothing is launched and
+    nothing is profiled."""
+    import gc
+    import math
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as sc
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import adamw
+    cuda = dev.type == "cuda"
+    shape = ShapeConfig("train", seq, batch, "train", grad_accum=accum)
+    report = {"card": card, "arch": cfg.name, "n_layers": cfg.n_layers,
+              "d_model": cfg.d_model, "batch": batch, "seq": seq,
+              "grad_accum": accum, "remat": cfg.remat,
+              "warm_steps": warm, "timed_steps": timed}
+    t0 = time.perf_counter()
+
+    def peak_gib():
+        if not cuda:
+            return "not measured: no card"
+        return torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, report["init_ms"] = timed_ms(
+        dev, lambda: transformer.build_param_table(cfg).init(
+            gen, device=dev, dtype=torch.float32))
+    opt = adamw.init(params)
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    report["params"] = n_params
+    report["peak_gib_state"] = peak_gib()
+    tokens_per_step = batch * seq
+    report["model_tflop_per_step"] = 6 * n_params * tokens_per_step / 1e12
+    report["model_tflop_per_step_with_remat"] = (8 * n_params
+                                                 * tokens_per_step / 1e12)
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch)
+    step_fn = steps.make_train_step(cfg, shape)
+    per_layer = {"flash_attention": 2 * accum, "ssm_scan": 3 * accum}
+    step_ms, losses, gnorms, launches_each = [], [], [], []
+    for i in range(warm + timed):
+        b = batch_on(pipe.batch_at(i), {}, dev)
+        if i == warm:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            fa.LAUNCHES.reset()
+            sc.LAUNCHES.reset()
+        n3, n4 = fa.LAUNCHES.value, sc.LAUNCHES.value
+        (params, opt, m), ms = timed_ms(dev, lambda: step_fn(params, opt, b))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        if i >= warm:
+            step_ms.append(ms)
+            launches_each.append({"flash_attention": fa.LAUNCHES.value - n3,
+                                  "ssm_scan": sc.LAUNCHES.value - n4})
+    counted = {"flash_attention": fa.LAUNCHES.value,
+               "ssm_scan": sc.LAUNCHES.value}
+    for name, n in per_layer.items():
+        want = n * cfg.n_layers if cuda else 0
+        check(all(e[name] == want for e in launches_each),
+              f"{name}: {[e[name] for e in launches_each]} launches a "
+              f"training step, not {want} (forward and remat's recompute"
+              f"{' and the reverse scan' if name == 'ssm_scan' else ''} "
+              f"per layer and micro-batch)")
+    check(all(map(math.isfinite, losses + gnorms)),
+          "training: a non-finite loss or grad norm")
+    report["losses"] = losses
+    report["grad_norms"] = gnorms
+    report["step_ms"] = step_ms
+    report["ms_per_step"] = sum(step_ms) / len(step_ms)
+    report["ms_per_step_median"] = sorted(step_ms)[len(step_ms) // 2]
+    report["tokens_per_s"] = tokens_per_step / report["ms_per_step"] * 1e3
+    report["model_tflop_per_s"] = (report["model_tflop_per_step"]
+                                   / report["ms_per_step"] * 1e3)
+    report["peak_gib_steps"] = peak_gib()
+    report["launches_per_step"] = launches_each[0]
+    report["launches_counted_steps"] = counted
+    timing = {"steps": time.perf_counter() - t0}
+    t = time.perf_counter()
+
+    # one more step under the profiler: device time by kind, and by span
+    # (the plain attention backward, K4's reverse scan and its gradient
+    # work, the AdamW update)
+    if cuda:
+        b = batch_on(pipe.batch_at(warm + timed), {}, dev)
+
+        def one_step():
+            nonlocal params, opt
+            params, opt, _ = step_fn(params, opt, b)
+        report["step_device_profile"] = device_profile(
+            one_step, spans=ops.SPANS + (adamw.SPAN,))
+    timing["profile"] = time.perf_counter() - t
+    t = time.perf_counter()
+
+    checks = {}
+    if cuda:
+        checks["kernel_gradients"] = kernel_grad_checks(dev, cfg,
+                                                        batch=grad_batch,
+                                                        seq=seq)
+    timing["kernel_gradients"] = time.perf_counter() - t
+    t = time.perf_counter()
+    checks["model_gradients_2_layers"] = [
+        model_grad_check(dev, cfg, params, "bfloat16", GRAD_MODEL_BF16,
+                         seq=model_seq),
+        model_grad_check(dev, cfg, params, "float32", GRAD_MODEL_F32,
+                         seq=model_seq)]
+    timing["model_gradients"] = time.perf_counter() - t
+    del params, opt
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    checks["restart_drill"] = restart_drill(dev, cfg, drill)
+    timing["restart_drill"] = time.perf_counter() - t
+    report["checks"] = checks
+    report["timing_s"] = timing
+    report["wall_s"] = time.perf_counter() - t0
+    return report, counted
 
 
 def main() -> int:
@@ -2455,6 +2871,11 @@ def main() -> int:
     fam_report, fam_launches = families_slice_phase(card,
                                                     torch.device("cuda"))
     print("families_slice " + json.dumps(fam_report), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_lm_report, train_lm_launches = lm_train_slice_phase(
+        card, torch.device("cuda"), get_arch(LM_ARCH))
+    print("lm_train_slice " + json.dumps(train_lm_report), flush=True)
 
     g = gnn_rows[1]            # 512 x 32 x 300 -> 300: 8 of the 10 layers
     lt = lut_rows[0]           # the labeling gather: 17 KB column table
@@ -2483,9 +2904,11 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:67",
-         # the Hymba, Moonlight, Qwen2-VL and Whisper prefills'
+         # the Hymba, Moonlight, Qwen2-VL and Whisper prefills', and the
+         # Hymba training steps' (forward and recompute)
          "launches": lm_launches["flash_attention"]
-         + moe_launches["flash_attention"] + fam_launches,
+         + moe_launches["flash_attention"] + fam_launches
+         + train_lm_launches["flash_attention"],
          "max_abs_err": fr["max_abs_err"], "ms": fr["ms"],
          "plain_ms": fr["plain_ms"], "bound_ms": fr["bound_ms"],
          "bound_by": fr["bound_by"], "library_ms": fr["library_ms"]},
@@ -2493,7 +2916,10 @@ def main() -> int:
         {"name": "ssm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
          "replaces": "src/repro/kernels/ssm_scan.py:49",
-         "launches": lm_launches["ssm_scan"],
+         # the Hymba prefill's, and the training steps' (forward,
+         # recompute and the reverse-time backward)
+         "launches": lm_launches["ssm_scan"]
+         + train_lm_launches["ssm_scan"],
          "max_abs_err": sr["max_abs_err"], "ms": sr["ms"],
          "plain_ms": sr["plain_ms"], "bound_ms": sr["bound_ms"],
          "bound_by": sr["bound_by"], "library_ms": None},

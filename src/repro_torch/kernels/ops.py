@@ -1,17 +1,34 @@
 """Per-device dispatch of the kernels.
 
 A tensor on the CPU goes to the kernel's plain PyTorch version
-(`kernels.ref`); a CUDA tensor goes to the hand-written kernel, whose
-wrapper raises on anything it cannot launch. There is no fallback from
-the kernel to the plain version: which one ran follows from the device.
+(`kernels.ref`), which autograd differentiates as it is; a CUDA tensor
+goes to the hand-written kernel, whose wrapper raises on anything it
+cannot launch. There is no fallback from the kernel to the plain version:
+which one ran follows from the device.
+
+The two LM kernels carry gradients on the card through
+`torch.autograd.Function`s (the JAX package differentiates plain jnp
+code and has no backward kernel):
+- `ssm_scan`'s backward is the same CUDA kernel run over reversed time
+  (`_SsmScan`);
+- `flash_attention`'s backward recomputes the plain version for that call
+  and returns its input gradients (`_FlashAttention`); its forward is the
+  kernel.
+Each backward runs under a ``torch.profiler.record_function`` span
+(`SPANS`), which a profiler reads to split a step's device time.
 """
 from __future__ import annotations
+
+import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gnn_mp as _mp
 from repro_torch.kernels import lut_eval as _lut
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as _scan
+
+SPANS = ("flash_attention_backward", "ssm_scan_backward")
 
 
 def gnn_mp(adj, h, w_self, w_nbr, b):
@@ -29,11 +46,83 @@ def lut_eval(lut, a, b=None, wb: int = 0):
     return _lut.lut_eval(lut, a, b, wb)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K3 forward; backward through the plain version of the same call
+    (float32 scores of one call, about 420 MB at Hymba's micro-batch of 4
+    and S = 1024, live only inside this backward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _fa.flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip((q, k, v), ctx.needs_input_grad[:3])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad(), record_function(SPANS[0]):
+            out = ref.flash_attention_ref(*inputs, causal=ctx.causal)
+            got = iter(torch.autograd.grad(out, wanted, g))
+        return tuple(next(got) if t.requires_grad else None
+                     for t in inputs) + (None,)
+
+
 def flash_attention(q, k, v, *, causal: bool = True):
     """Attention with grouped KV heads; q (B,H,S,D), k/v (B,KV,S,D)."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
-    return _fa.flash_attention(q, k, v, causal=causal)
+    return _FlashAttention.apply(q, k, v, causal)
+
+
+class _SsmScan(torch.autograd.Function):
+    """K4 forward, saving ys; backward is K4 again over reversed time.
+
+    With g_t the gradient of y_t (plus that of y_final at t = T-1), the
+    adjoint c_t = dL/dy_t in full obeys c_t = g_t + a_{t+1} c_{t+1}: in
+    reversed time s = T-1-t that is the forward scan
+    c'_s = a_{T-s} c'_{s-1} + g_{T-1-s} from c'_{-1} = 0, one launch on
+    flipped inputs whose decay row 0 multiplies the zero start. The
+    compact (T, D/R) decay keeps its layout. Then dL/db = c,
+    dL/da_t = c_t y_{t-1} (y_{-1} = y0; summed over the R channels of a
+    compact column) and dL/dy0 = a_0 c_0."""
+
+    @staticmethod
+    def forward(ctx, a, b, y0):
+        ys, yf = _scan.ssm_scan(a, b, y0)
+        ctx.save_for_backward(a, ys, y0)
+        return ys, yf
+
+    @staticmethod
+    def backward(ctx, g_ys, g_yf):
+        with record_function(SPANS[1]):
+            return _SsmScan._backward(ctx, g_ys, g_yf)
+
+    @staticmethod
+    def _backward(ctx, g_ys, g_yf):
+        a, ys, y0 = ctx.saved_tensors
+        g = torch.zeros_like(ys) if g_ys is None else g_ys.clone()
+        if g_yf is not None:
+            g[-1] += g_yf
+        a_rev = torch.cat([torch.zeros_like(a[:1]), a[1:].flip(0)])
+        c_rev, _ = _scan.ssm_scan(a_rev, g.flip(0).contiguous(),
+                                  torch.zeros_like(y0))
+        del g
+        c = c_rev.flip(0)
+        del c_rev
+        rep = _scan.repeat_factor(a, ys)
+        grad_a = grad_b = grad_y0 = None
+        if ctx.needs_input_grad[0]:
+            y_prev = torch.cat([y0[None], ys[:-1]])
+            grad_a = (c * y_prev).view(a.shape[0], a.shape[1], rep).sum(-1)
+            del y_prev
+        if ctx.needs_input_grad[2]:
+            grad_y0 = a[0].repeat_interleave(rep) * c[0]
+        if ctx.needs_input_grad[1]:
+            grad_b = c.contiguous()
+        return grad_a, grad_b, grad_y0
 
 
 def ssm_scan(a, b, y0):
@@ -42,4 +131,4 @@ def ssm_scan(a, b, y0):
     if b.device.type == "cpu":
         rep = _scan.repeat_factor(a, b)
         return ref.ssm_scan_ref(a.repeat_interleave(rep, dim=1), b, y0)
-    return _scan.ssm_scan(a, b, y0)
+    return _SsmScan.apply(a, b, y0)

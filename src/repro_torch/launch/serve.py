@@ -736,11 +736,13 @@ class BatchServer:
     (`decoding.clear_row`), where the reference's step writes every row
     at the stepped slot's position and admission leaves the previous
     request's entries in place. The cache lives on ``device`` (the card
-    unless it says otherwise), beside ``params``.
+    unless it says otherwise), beside ``params``; ``kv_int8`` stores it
+    as int8 with per-(slot, head) scales (the stacked families only,
+    `decoding.cache_spec`).
     """
 
     def __init__(self, cfg, params, slots: int = 4, max_len: int = 128,
-                 device=None):
+                 device=None, kv_int8: bool = False):
         from repro_torch import device as device_lib
         from repro_torch.configs.base import ShapeConfig
         from repro_torch.launch import steps
@@ -751,7 +753,8 @@ class BatchServer:
         self.slots = slots
         self.device = device_lib.resolve(device)
         self.shape = ShapeConfig("serve", max_len, slots, "decode")
-        self.cache = decoding.init_cache(cfg, self.shape, self.device)
+        self.cache = decoding.init_cache(cfg, self.shape, self.device,
+                                         kv_int8=kv_int8)
         self.pos = np.zeros(slots, np.int32)       # next position per slot
         self.active: List[Optional[Request]] = [None] * slots
         self._decode = steps.make_decode_step(cfg)

@@ -2,7 +2,10 @@
 
 The port of `repro.models.decoding` for every LM family.
 Cache layouts (W = ring-buffer width = min(seq_len, swa_window or inf)):
- - dense/vlm/moe : {"k": (L,B,W,KV,D) bf16, "v": ..., "pos": (B,W) int32}
+ - dense/vlm/moe : {"k": (L,B,W,KV,D) bf16, "v": ..., "pos": (B,W) int32};
+                   with ``kv_int8`` k and v are int8 beside "k_scale" and
+                   "v_scale" (L,B,W,KV,1) bf16, one absmax / 127 scale per
+                   (slot, head) (`_quantize_kv`)
  - whisper       : + {"xk": (L,B,Se,KV,D) bf16, "xv": ...}, the cross-
                    attention keys and values of the encoder's output
  - rwkv6         : {"state": (L,B,H,Dk,Dv) float32, "x_tm"/"x_cm": (L,B,d)
@@ -16,7 +19,11 @@ the logits: (params, cache, tokens, step) -> (logits, cache). A step may
 name the one batch row whose cache it writes (``row``): a server that
 steps one slot of a shared batch leaves the other slots' rows as they
 were, and `clear_row` empties a slot's row for a new request.
-The int8 KV cache (``kv_int8``) is not ported yet.
+The int8 KV cache (``kv_int8``, the stacked families only: dense, VLM,
+MoE and Whisper's decoder self-attention) quantizes each new token's k
+and v as it is written and dequantizes the layer's whole cache to bf16
+for attention; the hybrid and RWKV caches have no int8 form, as in the
+reference. A prefill returns a bf16 cache.
 """
 from __future__ import annotations
 
@@ -44,9 +51,20 @@ def _cache_width(cfg: ArchConfig, seq_len: int) -> int:
     return seq_len
 
 
-def cache_spec(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
-    """(shape, dtype) of every cache leaf: bf16 KV, float32 recurrent
+def _check_int8(cfg: ArchConfig, kv_int8: bool) -> None:
+    if kv_int8 and (cfg.attn_free or cfg.family == "hybrid"):
+        raise ValueError(f"{cfg.name}: the int8 KV cache is for the "
+                         f"stacked families (dense, VLM, MoE, Whisper's "
+                         f"decoder); the {cfg.family} cache has no int8 "
+                         f"form")
+
+
+def cache_spec(cfg: ArchConfig, shape: ShapeConfig,
+               kv_int8: bool = False) -> Dict[str, Any]:
+    """(shape, dtype) of every cache leaf: bf16 KV (int8 with bf16
+    per-(slot, head) scales under ``kv_int8``), float32 recurrent
     state."""
+    _check_int8(cfg, kv_int8)
     B, S = shape.global_batch, shape.seq_len
     L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
     bf16 = torch.bfloat16
@@ -66,8 +84,12 @@ def cache_spec(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
                 "ssm": ((L, B, cfg.n_heads, D, cfg.ssm_state),
                         torch.float32)}
     W = _cache_width(cfg, S)
-    spec = {"k": ((L, B, W, KV, D), bf16), "v": ((L, B, W, KV, D), bf16),
+    kv_dt = torch.int8 if kv_int8 else bf16
+    spec = {"k": ((L, B, W, KV, D), kv_dt), "v": ((L, B, W, KV, D), kv_dt),
             "pos": ((B, W), torch.int32)}
+    if kv_int8:
+        spec["k_scale"] = ((L, B, W, KV, 1), bf16)
+        spec["v_scale"] = ((L, B, W, KV, 1), bf16)
     if cfg.enc_dec:
         spec["xk"] = ((L, B, cfg.enc_len, KV, D), bf16)
         spec["xv"] = ((L, B, cfg.enc_len, KV, D), bf16)
@@ -75,7 +97,8 @@ def cache_spec(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
 
 
 def init_cache(cfg: ArchConfig, shape: ShapeConfig,
-               device: DeviceLike = None) -> Dict[str, Any]:
+               device: DeviceLike = None, kv_int8: bool = False
+               ) -> Dict[str, Any]:
     """An empty cache on ``device`` (the card unless it says otherwise):
     zeros, and position -1 in every slot."""
     device = device_lib.resolve(device)
@@ -89,7 +112,35 @@ def init_cache(cfg: ArchConfig, shape: ShapeConfig,
         if dt == torch.int32:
             return torch.full(shp, -1, dtype=dt, device=device)
         return torch.zeros(shp, dtype=dt, device=device)
-    return make(cache_spec(cfg, shape))
+    return make(cache_spec(cfg, shape, kv_int8))
+
+
+def _quantize_kv(x: torch.Tensor):
+    """x: (...,KV,D) -> (int8 (...,KV,D), scale (...,KV,1) bf16): the
+    scale is max |x| over D / 127, at least 1e-8; the values are x over
+    the float32 scale, rounded half to even and clipped to +-127."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (q.float() * scale.float()).to(torch.bfloat16)
+
+
+def quantize_cache(cfg: ArchConfig, cache) -> Dict[str, Any]:
+    """A stacked family's bf16 cache (a prefill's) as an int8 cache:
+    every slot's k and v through `_quantize_kv`, the scales beside them;
+    positions and Whisper's cross-attention cache kept. (A prefill
+    returns bf16, as the reference's does; the reference has no
+    conversion.)"""
+    _check_int8(cfg, True)
+    out = dict(cache)
+    for name in ("k", "v"):
+        out[name], out[f"{name}_scale"] = _quantize_kv(cache[name])
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -100,8 +151,9 @@ def clear_row(cfg: ArchConfig, cache, row: int):
     """Empty batch row ``row`` of a cache in place: every slot of every
     layer at position -1, and the recurrent state (the hybrid family's
     SSM state, RWKV's state and token-shift inputs) at zero
-    (`init_cache`'s values). Whisper's cross-attention rows are left as
-    they are: no step writes them. Returns the cache."""
+    (`init_cache`'s values), an int8 cache's scales at zero. Whisper's
+    cross-attention rows are left as they are: no step writes them.
+    Returns the cache."""
     if cfg.attn_free:
         for name in ("state", "x_tm", "x_cm"):
             cache[name][:, row] = 0
@@ -109,6 +161,9 @@ def clear_row(cfg: ArchConfig, cache, row: int):
     layers = cache["layers"] if cfg.family == "hybrid" else [cache]
     for lc in layers:
         lc["pos"][row] = -1
+    for name in ("k_scale", "v_scale"):
+        if name in cache:
+            cache[name][:, row] = 0
     if cfg.family == "hybrid":
         cache["ssm"][:, row] = 0
     return cache
@@ -123,10 +178,13 @@ def _write(dst: torch.Tensor, src: torch.Tensor, row: Optional[int]):
 
 
 def _attn_decode(cfg, p, nx, ck, cv, cpos, step: int, is_global=None,
-                 row=None):
+                 row=None, scales=None):
     """nx: (B,1,d). Returns the attention output; the cache (its row
     ``row``, every row if None) is updated in place. M-RoPE puts ``step``
-    on all three position columns, as the reference does."""
+    on all three position columns, as the reference does. With
+    ``scales`` = (k_scale, v_scale) the cache is int8: the new token's k
+    and v are quantized as they are written, and attention reads the
+    layer's cache dequantized to bf16 (transient, one layer at a time)."""
     q, k, v = _project_qkv(cfg, p, nx)
     B = nx.shape[0]
     if cfg.rope_theta:
@@ -137,10 +195,19 @@ def _attn_decode(cfg, p, nx, ck, cv, cpos, step: int, is_global=None,
                           cfg.mrope_sections)
         q, k = apply_rope(q, ang), apply_rope(k, ang)
     window = cfg.swa_window if cfg.swa_window else 0
-    attn_lib.cache_update(ck, cv, cpos, k.to(ck.dtype), v.to(cv.dtype),
-                          step, row=row)
-    o = attn_lib.decode_attention(q, ck, cv, cpos, window=window,
-                                  is_global=is_global)
+    if scales is not None:
+        ks, vs = scales
+        (kq, ksc), (vq, vsc) = _quantize_kv(k), _quantize_kv(v)
+        attn_lib.cache_update(ks, vs, cpos, ksc, vsc, step, row=row)
+        attn_lib.cache_update(ck, cv, cpos, kq, vq, step, row=row)
+        o = attn_lib.decode_attention(q, _dequantize_kv(ck, ks),
+                                      _dequantize_kv(cv, vs), cpos,
+                                      window=window, is_global=is_global)
+    else:
+        attn_lib.cache_update(ck, cv, cpos, k.to(ck.dtype), v.to(cv.dtype),
+                              step, row=row)
+        o = attn_lib.decode_attention(q, ck, cv, cpos, window=window,
+                                      is_global=is_global)
     return o.reshape(B, 1, -1) @ p["wo"]
 
 
@@ -178,12 +245,14 @@ def _logits(cfg, params, x):
 
 def _decode_stacked(cfg, params, cache, tokens, step, row):
     """dense / vlm / moe / Whisper's decoder: a loop over the stacked
-    layers. Every layer writes the same slot of the shared position row.
+    layers. Every layer writes the same slot of the shared position row;
+    an int8 cache (int8 "k") also its scales.
     Whisper's decoder attends to the cross-attention cache at positions
     0..Se-1 after self-attention."""
     x = _embed_decode(cfg, params, tokens, step)
     B = x.shape[0]
     hd = cfg.resolved_head_dim
+    int8 = cache["k"].dtype == torch.int8
     if cfg.enc_dec:
         Se = cache["xk"].shape[2]
         xpos = torch.arange(Se, dtype=torch.int32,
@@ -192,7 +261,9 @@ def _decode_stacked(cfg, params, cache, tokens, step, row):
         lp = layer_params(params["blocks"], i)
         nx = rms_norm(x, lp["norm1"], cfg.norm_eps)
         a = _attn_decode(cfg, lp["attn"], nx, cache["k"][i], cache["v"][i],
-                         cache["pos"], step, row=row)
+                         cache["pos"], step, row=row,
+                         scales=((cache["k_scale"][i], cache["v_scale"][i])
+                                 if int8 else None))
         x = x + a
         if cfg.enc_dec:
             nx = rms_norm(x, lp["norm3"], cfg.norm_eps)

@@ -85,6 +85,17 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts, lists and tuples in ``jax.tree``
+    order: dict keys sorted, sequences (a NamedTuple too) in order, None
+    an empty subtree."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
 def params_from_numpy(tree, device: DeviceLike = None,
                       dtype: Optional[torch.dtype] = None):
     """The port's parameters from a tree of NumPy arrays (the reference's

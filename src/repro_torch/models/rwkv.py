@@ -9,8 +9,9 @@ in float32 and a bonus ``u`` for the current token:
 The projections are plain ``@`` in the compute type, as in the
 reference. The recurrence is a Python loop over time (the reference's
 ``lax.scan``; no TPU kernel covers it) that issues three operations a
-step: the bonus term r_t^T diag(u) k_t v_t^T = (r_t . u k_t) v_t needs no
-state, so it is computed for every t at once outside the loop.
+step, in place (out of place while autograd records): the bonus term
+r_t^T diag(u) k_t v_t^T = (r_t . u k_t) v_t needs no state, so it is
+computed for every t at once outside the loop.
 """
 from __future__ import annotations
 
@@ -94,13 +95,24 @@ def wkv(r, k, v, w, u, state: Optional[torch.Tensor] = None
     S_t = (torch.zeros(B, H, Dh, Dh, dtype=torch.float32, device=r.device)
            if state is None else state.float().clone())
     bonus = (r * u.float() * k).sum(-1, keepdim=True) * v    # (B,S,H,Dv)
-    ys = r.new_empty(S, B, H, 1, Dh)
     # time-major copies: each step reads contiguous (B,H,Dh) slices
     rt, kt, vt, wt = (a.transpose(0, 1).contiguous() for a in (r, k, v, w))
-    for t in range(S):
-        torch.matmul(rt[t].unsqueeze(-2), S_t, out=ys[t])
-        S_t.mul_(wt[t].unsqueeze(-1)).addcmul_(kt[t].unsqueeze(-1),
-                                              vt[t].unsqueeze(-2))
+    if torch.is_grad_enabled() and (S_t.requires_grad or any(
+            a.requires_grad for a in (rt, kt, vt, wt))):
+        # training: the same steps out of place, so that autograd keeps
+        # every S_{t-1} its products need
+        outs = []
+        for t in range(S):
+            outs.append(torch.matmul(rt[t].unsqueeze(-2), S_t))
+            S_t = S_t * wt[t].unsqueeze(-1) + kt[t].unsqueeze(-1) \
+                * vt[t].unsqueeze(-2)
+        ys = torch.stack(outs)
+    else:
+        ys = r.new_empty(S, B, H, 1, Dh)
+        for t in range(S):
+            torch.matmul(rt[t].unsqueeze(-2), S_t, out=ys[t])
+            S_t.mul_(wt[t].unsqueeze(-1)).addcmul_(kt[t].unsqueeze(-1),
+                                                  vt[t].unsqueeze(-2))
     return ys[:, :, :, 0].transpose(0, 1) + bonus, S_t
 
 

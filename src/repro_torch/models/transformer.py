@@ -10,14 +10,26 @@ one (Hymba: attention and SSM heads in parallel in every layer), the
 mixture-of-experts one (Mixtral, Moonlight: `models.moe` in place of the
 MLP) and Whisper's decoder (cross-attention to the encoder's output);
 RWKV-6 (``attn_free``) has its own block (`models.rwkv`), and Whisper an
-encoder stack (`encode`). ``loss_fn`` and remat wait for the training
-slice.
+encoder stack (`encode`).
+
+Training: ``loss_fn`` is the reference's next-token NLL over sequence
+chunks of `LOSS_CHUNK` (the (B,S,V) logits are never whole in memory),
+and under ``cfg.remat`` a forward of kind "train" or "hidden" that
+records gradients runs each block (decoder, RWKV and Whisper's encoder)
+under `torch.utils.checkpoint`: only the blocks' inputs stay alive, and
+the backward recomputes one block at a time (the reference's
+``jax.checkpoint`` with ``nothing_saveable``). Float32 master parameters
+go through `cast_params`, so their gradients land in float32. The
+stacked parameters are split into per-layer views with ``unbind``, whose
+backward stacks the layers' gradients once (a per-layer index would add
+a zero-filled (L, ...) gradient for every layer).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
@@ -28,6 +40,9 @@ from repro_torch.models.layers import (ParamTable, activation, apply_rope,
                                        fdot, rms_norm, rope_angles,
                                        sinusoidal_at, sinusoidal_positions,
                                        tree_map)
+
+MOE_AUX_WEIGHT = 0.01
+LOSS_CHUNK = 512
 
 
 def is_global_layer(cfg: ArchConfig, i: int) -> Optional[bool]:
@@ -107,6 +122,26 @@ def cast_params(cfg: ArchConfig, params):
 def layer_params(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer i of the stacked block parameters (views, no copy)."""
     return tree_map(lambda a: a[i], blocks)
+
+
+def unstack(blocks: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Every layer's parameters of a stacked block tree, as views made by
+    one ``unbind`` per leaf (module docstring)."""
+    if isinstance(blocks, dict):
+        cols = {k: unstack(v) for k, v in blocks.items()}
+        n = len(next(iter(cols.values())))
+        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+    return list(blocks.unbind(0))
+
+
+def _remat(fn, on: bool, *args, **kw):
+    """``fn(*args, **kw)``, under a non-reentrant checkpoint when ``on``
+    and autograd is recording (the model draws no random numbers, so no
+    RNG state is kept)."""
+    if on and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return fn(*args, **kw)
 
 
 # --------------------------------------------------------------------------
@@ -228,47 +263,53 @@ def head_weight(cfg: ArchConfig, params) -> torch.Tensor:
             else params["head"]["w"])
 
 
+def _enc_block(cfg, lp, x, positions):
+    nx = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    a, _ = _attn_block(cfg, lp["attn"], nx, positions, causal=False)
+    x = x + a
+    nx = rms_norm(x, lp["norm2"], cfg.norm_eps)
+    return x + _mlp(cfg, lp["mlp"], nx)
+
+
 def encode(cfg: ArchConfig, params, enc_frames: torch.Tensor
            ) -> torch.Tensor:
     """Whisper's encoder over cast parameters: frames (B,T,d) after the
     conv stub, the interleaved sinusoidal table added, bidirectional
-    attention (a full mask) in every layer."""
+    attention (a full mask) in every layer; each layer under a checkpoint
+    with ``cfg.remat`` when autograd records (the reference checkpoints
+    the encoder whatever the kind)."""
     x = enc_frames.to(getattr(torch, cfg.dtype))
     B, T, _ = x.shape
     x = x + sinusoidal_positions(T, cfg.d_model, x.dtype, x.device)[None]
     positions = torch.arange(T, dtype=torch.int32,
                              device=x.device).expand(B, T)
-    for i in range(cfg.enc_layers):
-        lp = layer_params(params["enc_blocks"], i)
-        nx = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        a, _ = _attn_block(cfg, lp["attn"], nx, positions, causal=False)
-        x = x + a
-        nx = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + _mlp(cfg, lp["mlp"], nx)
+    for lp in unstack(params["enc_blocks"]):
+        x = _remat(_enc_block, cfg.remat, cfg, lp, x, positions)
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
-def run_blocks(cfg: ArchConfig, params, batch, collect: bool = False
+def run_blocks(cfg: ArchConfig, params, batch, collect: bool = False,
+               remat: bool = False
                ) -> Tuple[torch.Tensor, List[Any], torch.Tensor,
                           Optional[torch.Tensor]]:
     """Embed, the encoder (Whisper), every block and the final norm over
     cast parameters. Returns (hidden (B,S,d), per-layer cache entries if
     ``collect``, the summed moe_aux, the encoder's output or None). An
     RWKV layer's entry is (state, last time-mix input, last channel-mix
-    input)."""
+    input). With ``remat`` each block runs under a checkpoint while
+    autograd records."""
     x, positions = embed_inputs(cfg, params, batch)
     enc_out = (encode(cfg, params, batch["enc_frames"]) if cfg.enc_dec
                else None)
     entries = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["blocks"], i)
+    for i, lp in enumerate(unstack(params["blocks"])):
         if cfg.attn_free:
-            x, *entry = rwkv_block_fwd(cfg, lp, x)
+            x, *entry = _remat(rwkv_block_fwd, remat, cfg, lp, x)
         else:
-            x, entry, layer_aux = block_fwd(
-                cfg, lp, x, positions, is_global=is_global_layer(cfg, i),
-                enc_out=enc_out)
+            x, entry, layer_aux = _remat(
+                block_fwd, remat, cfg, lp, x, positions,
+                is_global=is_global_layer(cfg, i), enc_out=enc_out)
             aux = aux + layer_aux
         if collect:
             entries.append(entry)
@@ -281,9 +322,52 @@ def forward(cfg: ArchConfig, params, batch, kind: str = "train"):
     output or None)), the reference's triple: moe_aux is the layers'
     summed load-balancing loss (zero without experts), and
     ``kind="prefill"`` also returns the per-layer cache entries (a list,
-    where the reference stacks them on the L axis)."""
+    where the reference stacks them on the L axis). ``kind="hidden"``
+    returns the final-normed hidden states (B,S,d) in place of the
+    logits. Kinds "train" and "hidden" checkpoint each block under
+    ``cfg.remat``."""
     params = cast_params(cfg, params)
-    x, entries, aux, enc_out = run_blocks(cfg, params, batch,
-                                          collect=kind == "prefill")
+    x, entries, aux, enc_out = run_blocks(
+        cfg, params, batch, collect=kind == "prefill",
+        remat=cfg.remat and kind in ("train", "hidden"))
+    kvs = entries if kind == "prefill" else None
+    if kind == "hidden":
+        return x, aux, (kvs, enc_out)
     logits = fdot(x, head_weight(cfg, params).to(x.dtype))
-    return logits, aux, (entries if kind == "prefill" else None, enc_out)
+    return logits, aux, (kvs, enc_out)
+
+
+def _chunk_nll(h: torch.Tensor, labels: torch.Tensor, head: torch.Tensor):
+    """Summed NLL of one chunk and its count of labels >= 0. The logits
+    are the float32 products of the compute-type values (``head`` is
+    their float32 copy), as the reference's
+    ``preferred_element_type=float32`` gives them."""
+    logits = torch.matmul(h.float(), head)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return (nll * mask).sum(), mask.sum()
+
+
+def loss_fn(cfg: ArchConfig, params, batch) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross-entropy over the labels >= 0, plus `MOE_AUX_WEIGHT`
+    x the load-balancing loss; returns (total, {"loss", "moe_aux"}), all
+    float32 scalars. The head product and log-softmax run per sequence
+    chunk of `LOSS_CHUNK` positions (the whole sequence when it does not
+    divide) under a checkpoint, so the backward recomputes one chunk's
+    logits at a time."""
+    hidden, aux, _ = forward(cfg, params, batch, kind="hidden")
+    labels = batch["labels"]
+    head = head_weight(cfg, params).to(hidden.dtype).float()
+    S = hidden.shape[1]
+    c = min(LOSS_CHUNK, S)
+    if S % c:
+        c = S
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, S, c):
+        s, n = _remat(_chunk_nll, True, hidden[:, lo:lo + c],
+                      labels[:, lo:lo + c], head)
+        tot, cnt = tot + s, cnt + n
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss + MOE_AUX_WEIGHT * aux, {"loss": loss, "moe_aux": aux}
