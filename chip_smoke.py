@@ -9,7 +9,8 @@ nvcc per source, in parallel, into build/kernels/) and prints ptxas's
 registers, shared memory and spills of each and the count of
 tensor-core instructions in each one's SASS, holds each kernel against
 its plain PyTorch version at the main paths' shapes (gnn_mp also at
-N = 21 and 64, F = 1, an odd Fo and H x 1e3; flash_attention also at
+N = 21 and 64, F = 1, an odd Fo, H x 1e3 and the LM bridge's N = 7
+layers; flash_attention also at
 Granite-20B's and Qwen2.5-32B's D = 128 prefills, ragged, full and
 D = 16/32 shapes) and times both, and the one PyTorch call that computes
 the same function where there is one, with CUDA events around a CUDA
@@ -88,10 +89,23 @@ graph of the calls, then drives the port's two main paths:
   their plain versions at Hymba's shape, every parameter's gradient of
   the model cut to two layers on the card against the CPU (bf16 and
   float32), and a restart drill of `launch.train.train` (a crash, a
-  restore, the end state against uninterrupted runs).
+  restore, the end state against uninterrupted runs);
+- ApproxPilot-LM (`bridge_slice` line): `lm_bridge.train_surrogate` on
+  Qwen2.5-32B's train_4k op graph at the reference's bench settings (400
+  samples, 40 epochs), alone and as a 4-member ensemble, its engine
+  serving 1,024 configs (`gnn_mp` in every gsae layer, chunks of 256
+  graphs of 7 nodes), held to tests/test_system.py's properties;
+  `lm_bridge.run_dse` on Granite-3-2B decode_32k and Qwen1.5-110B
+  train_4k at a budget of 800, at the H100's constants and at the
+  reference's, the latter fronts held bit for bit against a CPU process;
+  and each LM path timed above (the five prefills, the training step)
+  counted by `launch.dryrun` (`op_profile` on meta tensors) at the same
+  batch and length, its roofline terms at the H100's constants beside
+  the measured ms, a bound over the measured time failing the run.
 
 Launch counters are zeroed just before each main path and read just
-after; the `kernels` line sums the accelerator paths' counts. The last line of standard output is the device JSON; the line
+after; the `kernels` line sums the accelerator paths' counts and the
+bridge's. The last line of standard output is the device JSON; the line
 before it is the per-kernel JSON. Exits non-zero without a CUDA card,
 outside a checkout, or when any phase fails.
 """
@@ -287,11 +301,14 @@ def check(cond: bool, what: str) -> None:
 # Gaussian engine's (the first layer, the hidden layers, a ragged chunk);
 # then N = 21, which does not divide the block's 64 rows, one graph of 64
 # a block, F = 1 with Fo = 8, an odd Fo (the weights staged by 4-byte
-# copies), and H x 1e3, where the lo terms of 3xTF32 decide the result.
+# copies), and H x 1e3, where the lo terms of 3xTF32 decide the result;
+# last the bridge surrogate's layers (a chunk of 256 op graphs of 7 nodes,
+# 12 -> 64 and 64 -> 64).
 GNN_SHAPES = [(512, 32, 27, 300, 1.0), (512, 32, 300, 300, 1.0),
               (37, 32, 300, 300, 1.0), (64, 21, 27, 300, 1.0),
               (16, 64, 300, 300, 1.0), (40, 32, 1, 8, 1.0),
-              (48, 7, 13, 37, 1.0), (512, 32, 300, 300, 1e3)]
+              (48, 7, 13, 37, 1.0), (512, 32, 300, 300, 1e3),
+              (256, 7, 12, 64, 1.0), (256, 7, 64, 64, 1.0)]
 
 
 def gnn_mp_phase(gen):
@@ -2795,6 +2812,193 @@ def lm_train_slice_phase(card: str, dev, cfg, batch: int = TRAIN_BATCH,
     return report, counted
 
 
+# the bridge slice (ApproxPilot-LM): the reference's bench settings
+# (benchmarks/lm_bench.py:120-132): the surrogate on qwen2.5-32b at
+# train_4k, 400 samples, 40 epochs, alone and as a 4-member ensemble; the
+# search on two cells at a budget of 800
+BRIDGE_SURROGATE = ("qwen2.5-32b", "train_4k", 400, 40)
+BRIDGE_ENSEMBLE = 4
+BRIDGE_DSE = (("granite-3-2b", "decode_32k"), ("qwen1.5-110b", "train_4k"))
+BRIDGE_BUDGET = 800
+# configs served to the surrogate after the fit: 4 chunks of 256
+BRIDGE_QUERIES = 1024
+# test_system.py's bar for the critical-op accuracy
+BRIDGE_CRIT_ACC = 0.85
+# the reference's roofline constants (the TPU v5e's, repro/launch/
+# roofline.py:23-24): the fronts under them, card against CPU
+V5E_PEAK_FLOPS, V5E_HBM_BW = 197e12, 819e9
+
+
+def v5e_fronts() -> dict:
+    """Each `BRIDGE_DSE` cell's `run_dse` front at the reference's
+    constants, as exact values: configs and float.hex objectives. Run in
+    this process and in a CPU-only one, the two must be equal."""
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.core import lm_bridge
+    saved = lm_bridge.PEAK_FLOPS, lm_bridge.HBM_BW
+    lm_bridge.PEAK_FLOPS, lm_bridge.HBM_BW = V5E_PEAK_FLOPS, V5E_HBM_BW
+    try:
+        fronts = {}
+        for arch, shape in BRIDGE_DSE:
+            out = lm_bridge.run_dse(get_arch(arch), get_shape(shape),
+                                    budget=BRIDGE_BUDGET)
+            fronts[f"{arch}/{shape}"] = [
+                [list(map(int, c)), [float(x).hex() for x in o]]
+                for c, o in out["pareto"]]
+        return fronts
+    finally:
+        lm_bridge.PEAK_FLOPS, lm_bridge.HBM_BW = saved
+
+
+def surrogate_run(dev, ensemble: int = 0) -> dict:
+    """`lm_bridge.train_surrogate` on ``dev`` at the bench settings, then
+    `BRIDGE_QUERIES` random configs and the property pair through its
+    engine; the metrics, the timings and the checks of test_system.py."""
+    import numpy as np
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.core import lm_bridge
+    from repro_torch.kernels import gnn_mp
+    arch, shape, n_samples, epochs = BRIDGE_SURROGATE
+    n_start = gnn_mp.LAUNCHES.value
+    t = time.perf_counter()
+    m, predict = lm_bridge.train_surrogate(
+        get_arch(arch), get_shape(shape), n_samples=n_samples,
+        epochs=epochs, ensemble=ensemble, device=dev)
+    fit_s = time.perf_counter() - t
+    rng = np.random.default_rng(1)
+    queries = [tuple(int(c) for c in rng.integers(0, 3, 7))
+               for _ in range(BRIDGE_QUERIES)]
+    n0 = gnn_mp.LAUNCHES.value
+    t = time.perf_counter()
+    y = predict(queries)
+    sync(dev)
+    query_ms = (time.perf_counter() - t) * 1e3
+    n_end = gnn_mp.LAUNCHES.value
+    # bf16 vs fp8 everywhere: a check, so its launches are not counted
+    pred = predict([(0,) * 7, (1,) * 7])
+    check(y.shape == (BRIDGE_QUERIES, 4) and bool(np.isfinite(y).all()),
+          f"bridge surrogate (ensemble={ensemble}): rows of shape "
+          f"{y.shape} or non-finite")
+    acc = m["critical_path"]["accuracy"]
+    check(acc > BRIDGE_CRIT_ACC, f"bridge surrogate (ensemble={ensemble}): "
+          f"critical-op accuracy {acc} <= {BRIDGE_CRIT_ACC}")
+    check(pred[1, 0] < pred[0, 0] and pred[1, 2] > pred[0, 2],
+          f"bridge surrogate (ensemble={ensemble}): fp8 everywhere not "
+          f"predicted faster and at a higher penalty than bf16")
+    return {"ensemble": ensemble, "fit_s": fit_s,
+            "r2": {k: v["r2"] for k, v in m.items() if "r2" in v},
+            "mean_std": {k: v["mean_std"] for k, v in m.items()
+                         if "mean_std" in v},
+            "critical_op_accuracy": acc,
+            "bf16_vs_fp8_everywhere": pred.tolist(),
+            "query_ms": query_ms,
+            "query_configs_per_s": BRIDGE_QUERIES / query_ms * 1e3,
+            "gnn_mp_launches_in_queries": n_end - n0,
+            "gnn_mp_launches": n_end - n_start,
+            "engine": predict.stats.as_dict()}
+
+
+def dse_run(arch: str, shape: str) -> dict:
+    """`lm_bridge.run_dse` at `BRIDGE_BUDGET`: the baseline, the best
+    feasible point, the wall s and the engine's stats."""
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.core import lm_bridge
+    t = time.perf_counter()
+    out = lm_bridge.run_dse(get_arch(arch), get_shape(shape),
+                            budget=BRIDGE_BUDGET)
+    wall = time.perf_counter() - t
+    base = out["baseline"]
+    best = out["best"]
+    check(best is not None and best[1][0] <= base["time"]
+          and best[1][2] <= 6.0, f"bridge search {arch}/{shape}: no "
+          f"feasible point at least as fast as bf16")
+    return {"baseline_critical_op": base["critical_op"],
+            "baseline_step_ms": base["time"] * 1e3,
+            "best_config": [int(c) for c in best[0]],
+            "best_speedup": base["time"] / best[1][0],
+            "hbm_gb_before": base["hbm_gb"], "hbm_gb_after": best[1][1],
+            "penalty": best[1][2], "front": len(out["pareto"]),
+            "wall_s": wall, "engine": out["engine"]}
+
+
+def counted_bounds(paths) -> list:
+    """Each LM path's step counted by `dryrun.run_cell` (`op_profile` on
+    meta tensors) at the batch and length its phase timed, its roofline
+    terms at the H100's constants beside the ms the phase measured."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, roofline
+    rows = []
+    for label, arch, kind, seq, batch, accum, max_len, measured in paths:
+        shape = ShapeConfig(label, seq, batch, kind, grad_accum=accum)
+        rec = dryrun.run_cell(get_arch(arch), shape, max_len=max_len,
+                              verbose=False)
+        check(rec["status"] == "ok", f"counting {label}: {rec.get('error')}")
+        if rec["status"] != "ok":
+            continue
+        compute = rec["flops"] / roofline.PEAK_FLOPS * 1e3
+        memory = roofline.memory_bytes(rec) / roofline.HBM_BW * 1e3
+        fraction = max(compute, memory) / measured
+        check(fraction <= 1.0, f"{label}: counted bound {max(compute, memory)}"
+              f" ms over the measured {measured} ms: the count is wrong")
+        rows.append({"path": label, "arch": arch, "kind": kind,
+                     "batch": batch, "seq": seq, "grad_accum": accum,
+                     "flops": rec["flops"], "hbm_bytes": rec["hbm_bytes"],
+                     "memory": rec["memory"], "peak_bytes": rec["peak_bytes"],
+                     "compute_ms": compute, "memory_ms": memory,
+                     "op_level_hbm_ms": rec["hbm_bytes"] / roofline.HBM_BW
+                     * 1e3, "measured_ms": measured, "fraction": fraction,
+                     "bound_by": "compute" if compute >= memory
+                     else "memory", "n_ops": rec["n_ops"],
+                     "count_s": rec["count_s"]})
+    return rows
+
+
+def bridge_slice_phase(card: str, dev, paths):
+    """ApproxPilot-LM on ``dev``: the surrogate (alone, then an ensemble)
+    trained and queried through its engine (`gnn_mp` in every gsae
+    layer), the search on two cells at the H100's constants and again at
+    the reference's, held bit for bit against a CPU process, and the
+    counted bound of each LM path in ``paths`` against its measured ms.
+    Returns (report, `gnn_mp` launches of the surrogate runs: the
+    engines' construction and their served queries)."""
+    import os
+    from repro_torch.kernels import gnn_mp
+    from repro_torch.launch import roofline
+    report = {"card": card, "constants": {
+        "peak_flops": roofline.PEAK_FLOPS, "hbm_bw": roofline.HBM_BW}}
+    t0 = time.perf_counter()
+    gnn_mp.LAUNCHES.reset()
+    report["surrogate"] = surrogate_run(dev)
+    report["ensemble"] = surrogate_run(dev, BRIDGE_ENSEMBLE)
+    launches = {"gnn_mp": report["surrogate"]["gnn_mp_launches"]
+                + report["ensemble"]["gnn_mp_launches"]}
+    check(launches["gnn_mp"] > 0, "the bridge surrogate never launched "
+          "gnn_mp")
+    report["launches"] = launches
+
+    report["search"] = {f"{a}/{s}": dse_run(a, s) for a, s in BRIDGE_DSE}
+    here = v5e_fronts()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=f"{ROOT}{os.pathsep}{ROOT / 'src'}")
+    cpu = json.loads(subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke; "
+         "print(json.dumps(chip_smoke.v5e_fronts()))"], env=env,
+        capture_output=True, text=True, check=True,
+        timeout=300).stdout.splitlines()[-1])
+    same = {k: here[k] == cpu[k] for k in here}
+    check(all(same.values()), f"v5e-constant fronts differ card vs CPU: "
+          f"{same}")
+    report["v5e_fronts_card_vs_cpu"] = {
+        k: {"identical": same[k], "front": len(here[k])} for k in here}
+
+    t = time.perf_counter()
+    report["counted_bounds"] = counted_bounds(paths)
+    report["count_s"] = time.perf_counter() - t
+    report["wall_s"] = time.perf_counter() - t0
+    return report, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2876,6 +3080,23 @@ def main() -> int:
     train_lm_report, train_lm_launches = lm_train_slice_phase(
         card, torch.device("cuda"), get_arch(LM_ARCH))
     print("lm_train_slice " + json.dumps(train_lm_report), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fams = fam_report["models"]
+    # (label, arch, kind, seq, batch, grad_accum, max_len, measured ms)
+    paths = [
+        ("hymba_prefill", LM_ARCH, "prefill", LM_PROMPT, LM_BATCH, 1,
+         LM_MAX_LEN, lm_report["prefill_warm_ms"]),
+        ("moonlight_prefill", MOE_ARCH, "prefill", LM_PROMPT, LM_BATCH, 1,
+         LM_MAX_LEN, moe_report["prefill_warm_ms"])]
+    for name, prompt_len, max_len in FAMILIES:
+        paths.append((f"{name}_prefill", name, "prefill", prompt_len,
+                      LM_BATCH, 1, max_len, fams[name]["prefill_warm_ms"]))
+    paths.append(("hymba_train_step", LM_ARCH, "train", TRAIN_SEQ,
+                  TRAIN_BATCH, TRAIN_ACCUM, 0, train_lm_report["ms_per_step"]))
+    bridge_report, bridge_launches = bridge_slice_phase(
+        card, torch.device("cuda"), paths)
+    print("bridge_slice " + json.dumps(bridge_report), flush=True)
 
     g = gnn_rows[1]            # 512 x 32 x 300 -> 300: 8 of the 10 layers
     lt = lut_rows[0]           # the labeling gather: 17 KB column table
@@ -2883,7 +3104,9 @@ def main() -> int:
         {"name": "gnn_mp", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gnn_mp.cu",
          "replaces": "src/repro/kernels/gnn_mp.py:43",
-         "launches": launches["gnn_mp"], "max_abs_err": g["max_abs_err"],
+         # the accelerator main path's and the bridge surrogate's
+         "launches": launches["gnn_mp"] + bridge_launches["gnn_mp"],
+         "max_abs_err": g["max_abs_err"],
          "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
          # the bound on the TF32 tensor cores, each product issued three
          # times (3xTF32); the fp32 SIMT units' bound beside it

@@ -801,16 +801,8 @@ class SurrogateEngine:
         _one_device(devices)
         dev = device_lib.resolve(device)
         feat = ds_lib.featurizer_for(ds, app, entries, dev)
-        predicts, labels = [], set()
-        for g_cfg, stacked in ens.groups:
-            n = len(stacked.stage1["ro_b2"])
-            for m in range(n):
-                member = pytree.tree_map(lambda a, m=m: a[m], stacked)
-                fn, label = _checked_predict(g_cfg, member, feat,
-                                             feat.normalized, dev,
-                                             parity_atol, chunk_size)
-                predicts.append(fn)
-                labels.add(label)
+        predicts, labels = _member_predicts(ens, feat, feat.normalized, dev,
+                                            parity_atol, chunk_size)
 
         def dispatch(X):
             Xt = _to_input(X, dev)
@@ -864,6 +856,23 @@ def _checked_predict(two_cfg, params, feat, featurize: Callable,
             f"gnn_mp layer path disagrees with models.predict on "
             f"the probe batch: max |diff| {err} > {parity_atol}")
     return predict, ("gnn_mp" if dev.type == "cuda" else "torch")
+
+
+def _member_predicts(ens, feat, featurize: Callable, dev: torch.device,
+                     parity_atol: float, rows: int
+                     ) -> Tuple[List[Callable], set]:
+    """`_checked_predict` of every member of the ensemble ``ens`` (a
+    `training.EnsembleParams`): the members' predicts, in group order,
+    and the set of their backend labels."""
+    predicts, labels = [], set()
+    for g_cfg, stacked in ens.groups:
+        for m in range(len(stacked.stage1["ro_b2"])):
+            member = pytree.tree_map(lambda a, m=m: a[m], stacked)
+            fn, label = _checked_predict(g_cfg, member, feat, featurize, dev,
+                                         parity_atol, rows)
+            predicts.append(fn)
+            labels.add(label)
+    return predicts, labels
 
 
 def _to_input(X, dev: torch.device) -> torch.Tensor:

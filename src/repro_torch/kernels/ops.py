@@ -16,6 +16,11 @@ code and has no backward kernel):
   kernel.
 Each backward runs under a ``torch.profiler.record_function`` span
 (`SPANS`), which a profiler reads to split a step's device time.
+
+While `launch.op_profile` counts a step on meta tensors, `COUNTER` is
+set and every call goes to it instead: it records the kernel's work and
+returns outputs of the right shapes, so neither route runs. On the card
+that costs each call one check of `COUNTER`.
 """
 from __future__ import annotations
 
@@ -30,9 +35,14 @@ from repro_torch.kernels import ssm_scan as _scan
 
 SPANS = ("flash_attention_backward", "ssm_scan_backward")
 
+# the open `launch.op_profile` count, if any
+COUNTER = None
+
 
 def gnn_mp(adj, h, w_self, w_nbr, b):
     """relu(A @ (H @ Wn) + H @ Ws + b); adj (N,N) shared or (B,N,N)."""
+    if COUNTER is not None:
+        return COUNTER.kernel("gnn_mp", adj, h, w_self, w_nbr, b)
     if h.device.type == "cpu":
         return ref.gnn_mp_ref(adj, h, w_self, w_nbr, b)
     return _mp.gnn_mp(adj, h, w_self, w_nbr, b)
@@ -41,6 +51,8 @@ def gnn_mp(adj, h, w_self, w_nbr, b):
 def lut_eval(lut, a, b=None, wb: int = 0):
     """int32 gather ``lut[(a << wb) | b]`` over 1-D a, b; ``lut[a]``
     when b is None (wb must be 0)."""
+    if COUNTER is not None:
+        return COUNTER.kernel("lut_eval", lut, a, b, wb)
     if a.device.type == "cpu":
         return ref.lut_eval_ref(lut, a, b, wb)
     return _lut.lut_eval(lut, a, b, wb)
@@ -72,6 +84,8 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal: bool = True):
     """Attention with grouped KV heads; q (B,H,S,D), k/v (B,KV,S,D)."""
+    if COUNTER is not None:
+        return COUNTER.kernel("flash_attention", q, k, v, causal)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
     return _FlashAttention.apply(q, k, v, causal)
@@ -128,6 +142,8 @@ class _SsmScan(torch.autograd.Function):
 def ssm_scan(a, b, y0):
     """y_t = a_t * y_{t-1} + b_t over (T,D); `a` is (T,D) or a compact
     (T,D/R) shared by R neighbouring channels. Returns (ys, y_final)."""
+    if COUNTER is not None:
+        return COUNTER.kernel("ssm_scan", a, b, y0)
     if b.device.type == "cpu":
         rep = _scan.repeat_factor(a, b)
         return ref.ssm_scan_ref(a.repeat_interleave(rep, dim=1), b, y0)
