@@ -47,6 +47,19 @@ graph of the calls, then drives the port's two main paths:
   Pareto points with the card's oracle rows held against the CPU's, and
   an `EvalService` warmed from the store serving 8 client threads, each
   response held bit for bit against the same request served one by one;
+- the splits over devices (`split_slice` line): over every card when
+  there are several, else the one card named four times, each split held
+  bit for bit against its unsplit run: the
+  paper-width Gaussian engine's config rows (a fresh 512 and 2,048-config
+  request, direct and through submit/drain, `gnn_mp` launches a chunk),
+  the 8-member ensemble's member axis and the data-parallel fit's sample
+  axis (2 epochs; the data-parallel fit within 1e-6, each in float64
+  where float32 misses its bar), the 4-island fleet's rank kernel,
+  `run_staged` with `eval_devices` on the pipeline slice's store (front
+  identical), and GPipe: Granite-3-2B at full width and depth (random
+  bf16 weights) as 4 stages of 10 layers, 8 micro-batches of 2 x 1024
+  tokens, bit-equal to the blocks in sequence, `flash_attention` in
+  every layer;
 - the LM serving slice: Hymba-1.5B at full published width (32 layers,
   d_model 1600, 25 heads over 5 KV heads, SSM state 16, SWA window 1024)
   with random bf16 weights from a seeded generator, 8 prompts of 1024
@@ -452,7 +465,8 @@ def lut_eval_phase(gen):
 # D = 128 rows are Granite-20B (MQA) and Qwen2.5-32B (GQA) prefills of
 # 1024 tokens. The families slice's: the Qwen2-VL-7B prefill (G = 7),
 # Whisper's encoder (a full mask over 1500 frames, not a multiple of the
-# tile) and its decoder's 224-token prompt.
+# tile) and its decoder's 224-token prompt. Last the split slice's GPipe
+# micro-batch of Granite-3-2B (2 x 1024 tokens, GQA 32/8, D = 64).
 FA_SHAPES = [
     ("hymba_prefill", 8, 25, 5, 1024, 64, "bfloat16", True),
     ("moonshot_prefill_mha_d128", 8, 16, 16, 1024, 128, "bfloat16", True),
@@ -467,6 +481,7 @@ FA_SHAPES = [
     ("whisper_decoder_s224", 8, 20, 20, 224, 64, "bfloat16", True),
     ("d32_s333", 4, 8, 2, 333, 32, "bfloat16", True),
     ("d16_s77", 4, 4, 2, 77, 16, "bfloat16", True),
+    ("granite3_2b_gpipe_micro", 2, 32, 8, 1024, 64, "bfloat16", True),
 ]
 
 
@@ -1262,8 +1277,8 @@ def search_slice_phase(card: str, dev, gaussian, trained,
     stacks = []
     ranks_of = islands.fleet_ranks
 
-    def recorded(F, backend="auto", device=None):
-        r = ranks_of(F, backend, device)
+    def recorded(F, backend="auto", device=None, devices=None):
+        r = ranks_of(F, backend, device, devices)
         stacks.append((np.array(F), r))
         return r
 
@@ -1445,12 +1460,16 @@ def _serve_run(card: str, dev, cfg, store, engine, ctx):
 
 
 def pipeline_slice_phase(card: str, dev, n_samples: int = PIPE_SAMPLES,
-                         epochs: int = PIPE_EPOCHS):
+                         epochs: int = PIPE_EPOCHS, keep_store: bool = False):
     """The staged pipeline on ``dev`` at `PipelineConfig.paper_faithful(
     "gaussian")` with an on-disk store in a temporary directory: a cold
     `run_staged`, a resume on a new store, an islands sweep, the oracle on
     10 Pareto points (also against the CPU's oracle rows), then an
-    `EvalService` warmed from the store; returns (report, launches)."""
+    `EvalService` warmed from the store; returns (report, launches, kept).
+    With ``keep_store`` a run that got through keeps its store for the
+    split slice, and ``kept`` is (config, store root, the cold run's
+    front configs and rows); else the store is removed and ``kept`` is
+    None."""
     import dataclasses
     import shutil
     import tempfile
@@ -1492,6 +1511,7 @@ def pipeline_slice_phase(card: str, dev, n_samples: int = PIPE_SAMPLES,
             "launches": counts_since(before)}
         return res
 
+    kept = None
     try:
         cold = staged("cold", cfg, ArtifactStore(root))
         report["cold"]["r2"] = {t: cold.metrics[t]["r2"] for t in (
@@ -1543,8 +1563,11 @@ def pipeline_slice_phase(card: str, dev, n_samples: int = PIPE_SAMPLES,
               f"{ppa_equal}, 1-ssim gap {ssim_gap}")
 
         report["serve"] = _serve_run(card, dev, cfg, store, res.engine, ctx)
+        kept = (cfg, root, cold.pareto_configs, cold.pareto_objs) \
+            if keep_store else None
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not (keep_store and kept):
+            shutil.rmtree(root, ignore_errors=True)
     # the main path's launches: all but those of the comparisons (the
     # card's oracle rows against the CPU's, the serial one-shot calls)
     checks = counts_sum(oracle_check,
@@ -1555,7 +1578,7 @@ def pipeline_slice_phase(card: str, dev, n_samples: int = PIPE_SAMPLES,
     for name in ("gnn_mp", "lut_eval"):
         check(dev.type != "cuda" or launches[name] > 0,
               f"{name} was never launched in the pipeline slice")
-    return report, launches
+    return report, launches, kept
 
 
 def finite(t) -> bool:
@@ -2999,6 +3022,403 @@ def bridge_slice_phase(card: str, dev, paths):
     return report, launches
 
 
+# the split slice: every devices= split of the ApproxPilot main path over a
+# device list (each card when there are several, else the one card named
+# SPLIT_REPEAT times), each held against its unsplit run. The ensemble and
+# the data-parallel fit are cut to SPLIT_EPOCHS epochs and the island fleet
+# to SPLIT_ISLAND_BUDGET requests for the time limit; the data-parallel fit
+# takes the first SPLIT_DP_ROWS rows, which 2, 4 and 8 divide (the 1,843
+# rows of the training split only 1 and 19 do). GPipe: Granite-3-2B at full
+# width and depth, 4 stages of 10 layers, 8 micro-batches of 2 x 1024.
+SPLIT_REPEAT, SPLIT_EPOCHS, SPLIT_ISLAND_BUDGET = 4, 2, 4_000
+SPLIT_DP_ROWS = 1840
+# data parallelism reduces in another order: tests/test_training.py's bar
+DP_TOL = 1e-6
+GPIPE_ARCH, GPIPE_STAGES, GPIPE_MICRO, GPIPE_BATCH, GPIPE_SEQ = \
+    "granite-3-2b", 4, 8, 2, 1024
+
+
+def split_devices() -> list:
+    """Every card when there are several, else card 0 named
+    SPLIT_REPEAT times."""
+    import torch
+    n = torch.cuda.device_count()
+    if n > 1:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * SPLIT_REPEAT
+
+
+def sync_all(devs) -> None:
+    for d in set(devs):
+        sync(d)
+
+
+def max_leaf_diff(a, b) -> float:
+    from torch.utils import _pytree as pytree
+    return max(float((x.double().cpu() - y.double().cpu()).abs().max())
+               for x, y in zip(pytree.tree_leaves(a), pytree.tree_leaves(b)))
+
+
+def gpipe_run(dev, devs, cfg=None, n_stages: int = GPIPE_STAGES,
+              n_micro: int = GPIPE_MICRO, batch: int = GPIPE_BATCH,
+              seq: int = GPIPE_SEQ):
+    """Granite's blocks as GPipe stages on the stage mesh over ``devs``
+    (cycled to ``n_stages`` devices) against the same blocks in sequence
+    on ``dev``: random bf16 weights and inputs from a seeded generator;
+    ``cfg`` (default: GPIPE_ARCH's published config) sets the stack.
+    Returns (report, the pipelined passes' K3 launches, the sequential
+    passes' K3 launches)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import pipeline as pp
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import tree_leaves, tree_map
+    cfg = cfg or get_arch(GPIPE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    blocks = transformer.build_param_table(cfg).init(
+        gen, device=dev, dtype=torch.bfloat16)["blocks"]
+    per = cfg.n_layers // n_stages
+    stacked = tree_map(lambda a: a.reshape(n_stages, per, *a.shape[1:]),
+                       blocks)
+    xs = torch.randn(n_micro, batch, seq, cfg.d_model, device=dev,
+                     generator=gen).to(torch.bfloat16)
+    pos = torch.arange(seq, dtype=torch.int32, device=dev).expand(batch, seq)
+    stage_devs = [devs[i % len(devs)] for i in range(n_stages)]
+    pos_on = {d: pos.to(d) for d in set(stage_devs)}
+
+    def stage_fn(lp, x):
+        for i in range(per):
+            x = transformer.block_fwd(cfg, transformer.layer_params(lp, i),
+                                      x, pos_on[x.device])[0]
+        return x
+
+    apply = pp.pipelined(stage_fn, n_stages, n_micro,
+                         pp.make_stage_mesh(n_stages, stage_devs))
+
+    def sequential():
+        out = []
+        for m in range(n_micro):
+            x = xs[m]
+            for i in range(cfg.n_layers):
+                x = transformer.block_fwd(cfg, transformer.layer_params(
+                    blocks, i), x, pos)[0]
+            out.append(x)
+        return torch.stack(out)
+
+    def timed(fn):
+        sync_all(stage_devs + [dev])
+        t = time.perf_counter()
+        out = fn()
+        sync_all(stage_devs + [dev])
+        return out, (time.perf_counter() - t) * 1e3
+
+    with torch.no_grad():
+        n0 = fa.LAUNCHES.value
+        seq_out, seq_cold_ms = timed(sequential)
+        _, seq_ms = timed(sequential)
+        n1 = fa.LAUNCHES.value
+        pipe_out, pipe_cold_ms = timed(lambda: apply(stacked, xs))
+        _, pipe_ms = timed(lambda: apply(stacked, xs))
+        n2 = fa.LAUNCHES.value
+        # where one warm pass's device time goes, by kind of kernel (the
+        # profiled passes' launches are left out of the counts above)
+        profiles = {} if dev.type != "cuda" else {
+            "sequential_device_profile": device_profile(sequential),
+            "pipelined_device_profile": device_profile(
+                lambda: apply(stacked, xs))}
+    same = bool(torch.equal(pipe_out, seq_out))
+    finite = bool(torch.isfinite(pipe_out.float()).all())
+    check(same and finite and pipe_out.shape == xs.shape,
+          f"GPipe over {n_stages} stages differs from the sequential "
+          f"blocks (equal {same}, finite {finite})")
+    report = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv_heads],
+        "block_params": sum(a.numel() for a in tree_leaves(blocks)),
+        "stages": n_stages, "layers_a_stage": per, "micro_batches": n_micro,
+        "micro_batch": [batch, seq], "stage_devices": [str(d) for d in
+                                                       stage_devs],
+        "bubble_fraction": pp.bubble_fraction(n_micro, n_stages),
+        "sequential_ms": seq_ms, "pipelined_ms": pipe_ms,
+        "sequential_cold_ms": seq_cold_ms, "pipelined_cold_ms": pipe_cold_ms,
+        "bit_equal": same, "finite": finite,
+        "flash_attention_launches_a_pass": (n2 - n1) // 2, **profiles}
+    return report, n2 - n1, n1 - n0
+
+
+def split_slice_phase(card: str, dev, devs, gaussian, trained, kept, *,
+                      chunk: int = CHUNK, n_layers: int = N_LAYERS,
+                      hidden: int = HIDDEN, n_members: int = ENS_MEMBERS,
+                      epochs: int = SPLIT_EPOCHS,
+                      dp_rows: int = SPLIT_DP_ROWS,
+                      island_budget: int = SPLIT_ISLAND_BUDGET,
+                      pop: int = SEARCH_POP, n_islands: int = N_ISLANDS,
+                      gpipe: dict = None):
+    """Every ``devices=`` split of the main path over ``devs``, each held
+    against its unsplit run: the paper-width Gaussian engine (a fresh 512
+    and 2,048-config request, direct and through submit/drain), the
+    8-member ensemble's member split, the data-parallel fit, the island
+    fleet's rank split, `run_staged` with ``eval_devices`` on the pipeline
+    slice's kept store (``kept``), and GPipe stages of Granite-3-2B.
+    Returns (report, launches of the split runs); the unsplit runs'
+    launches are reported apart as ``check_launches``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.core import gnn, islands, models, training
+    from repro_torch.core import pipeline as P
+    from repro_torch.core.artifacts import ArtifactStore
+    from repro_torch.core.engine import SurrogateEngine
+    from repro_torch.kernels import ops
+    ctx, ds = gaussian
+    t0 = time.perf_counter()
+    report = {"card": card, "devices": [str(d) for d in devs],
+              "distinct_cards": len(set(devs))}
+    reset_launch_counts()
+    zero = launch_counts()
+    main, aside = dict(zero), dict(zero)
+
+    def measured(fn, split: bool):
+        nonlocal main, aside
+        before = launch_counts()
+        sync_all(devs + [dev])
+        t = time.perf_counter()
+        out = fn()
+        sync_all(devs + [dev])
+        ms = (time.perf_counter() - t) * 1e3
+        got = counts_since(before)
+        if split:
+            main = counts_sum(main, got)
+        else:
+            aside = counts_sum(aside, got)
+        return out, ms, got
+
+    # -- the engine: a chunk's config rows over the devices -----------------
+    cfg = models.TwoStageConfig(gnn=gnn.GNNConfig(
+        arch="gsae", n_layers=n_layers, hidden=hidden,
+        feature_dim=ds.x.shape[-1]))
+    params = models.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    one = SurrogateEngine.from_gnn(cfg, params, ds, ctx.app, ctx.entries,
+                                   chunk_size=chunk, device=dev)
+    split = SurrogateEngine.from_gnn(cfg, params, ds, ctx.app, ctx.entries,
+                                     chunk_size=chunk, devices=devs,
+                                     device=dev)
+    check(split.devices == split.stats.devices == len(devs),
+          f"split engine reports {split.devices} devices for {len(devs)}")
+    fresh = _fresh_configs(ctx, ds, 5 * chunk, seed=11)
+    small, big = fresh[:chunk], fresh[chunk:]
+    engine = {"backend": split.backend, "chunk": chunk, "requests": []}
+    big_one = None
+    for label, cfgs in (("fresh", small), ("fresh", big)):
+        r1, ms1, l1 = measured(lambda: one(cfgs), False)
+        rs, mss, ls = measured(lambda: split(cfgs), True)
+        same = bool(np.array_equal(r1, rs))
+        check(same and np.isfinite(rs).all() and rs.shape == (len(cfgs), 4),
+              f"split engine rows differ from devices=1 on {len(cfgs)}")
+        engine["requests"].append({
+            "request": f"{label} {len(cfgs)}", "one_device_ms": ms1,
+            "split_ms": mss, "identical": same,
+            "gnn_mp_launches": {"one_device": l1["gnn_mp"],
+                                "split": ls["gnn_mp"]},
+            "chunks": -(-len(cfgs) // chunk)})
+        big_one = r1
+    one.clear_cache()
+    split.clear_cache()
+
+    def drained(e):
+        futs = [e.submit(big[i:i + chunk]) for i in range(0, len(big),
+                                                           chunk)]
+        check(e.drain() == len(futs), "the submissions were not one wave")
+        return np.concatenate([f.result(timeout=120) for f in futs])
+    d1, ms1, _ = measured(lambda: drained(one), False)
+    dsp, mss, _ = measured(lambda: drained(split), True)
+    same = bool(np.array_equal(d1, dsp) and np.array_equal(d1, big_one))
+    check(same, "split engine's submit/drain rows differ from devices=1")
+    engine["requests"].append({
+        "request": f"{len(big) // chunk} submits of {chunk}, one drain",
+        "one_device_ms": ms1, "split_ms": mss, "identical": same})
+    first = engine["requests"][0]["gnn_mp_launches"]
+    engine["gnn_mp_per_chunk"] = first
+    engine["slices_a_chunk"] = first["split"] // max(first["one_device"], 1)
+    if dev.type == "cuda":
+        # K1 alone at the slice's shape beside the chunk's (the layers
+        # 300 -> 300), on a CUDA graph of the calls
+        g = torch.Generator(device=dev).manual_seed(5)
+        rows = {}
+        for B in (chunk, chunk // max(engine["slices_a_chunk"], 1)):
+            h = torch.randn(B, 32, hidden, device=dev, generator=g)
+            adj = torch.rand(32, 32, device=dev, generator=g)
+            ws, wn = (torch.randn(hidden, hidden, device=dev, generator=g)
+                      * hidden ** -0.5 for _ in range(2))
+            b = torch.zeros(hidden, device=dev)
+            rows[f"B={B}"] = cuda_ms(lambda: ops.gnn_mp(adj, h, ws, wn, b),
+                                     50)
+        engine["gnn_mp_layer_ms"] = rows
+    report["engine"] = engine
+
+    # -- the ensemble: each group's member axis over the devices -------------
+    tr, _ = ds.split(TRAIN_SPLIT)
+    tce = training.TrainConfig(epochs=epochs)
+
+    def timed_s(fn):
+        sync_all(devs + [dev])
+        t = time.perf_counter()
+        out = fn()
+        sync_all(devs + [dev])
+        return out, time.perf_counter() - t
+
+    (e1, h1), s1 = timed_s(lambda: training.fit_ensemble(
+        cfg, tr, tce, n_members=n_members, device=dev))
+    (es, hs), ss = timed_s(lambda: training.fit_ensemble(
+        cfg, tr, tce, n_members=n_members, device=dev, devices=devs))
+    f32 = max_leaf_diff(e1.groups[0][1], es.groups[0][1])
+    f32_same = f32 == 0 and bool(np.array_equal(h1["train_loss"],
+                                                hs["train_loss"]))
+    ens = {"members": n_members, "epochs": epochs, "rows": len(tr.y),
+           "one_device_s": s1, "split_s": ss,
+           "float32_identical": f32_same, "float32_param_max_abs": f32}
+    if not f32_same:
+        # the same runs in float64, where only the order of the arithmetic
+        # differs: the loop on one device against the member split
+        n, bs = len(tr.y), min(tce.batch_size, len(tr.y))
+        runs = [training._run_inputs(cfg, tce, tce.seed + m, n, dev)
+                for m in range(n_members)]
+        data64 = {k: v.double() for k, v in training._as_data(
+            tr, dev).items()}
+        p64 = pytree.tree_map(lambda *xs: torch.stack(xs).double(),
+                              *[r[0] for r in runs])
+        idx = torch.stack([r[1] for r in runs])
+        w = torch.stack([r[2] for r in runs]).double()
+        pa, (la, _, _) = training._fit(cfg, tce, data64, p64, idx, w,
+                                       [r[3] for r in runs])
+        pb, (lb, _, _) = training._fit_split(
+            cfg, tce, data64, p64, idx, w,
+            [tce.seed + m for m in range(n_members)], None, devs)
+        rel64 = float(np.max(np.abs(la - lb) / np.abs(la)))
+        ens.update(float64_identical=max_leaf_diff(pa, pb) == 0 and bool(
+            np.array_equal(la, lb)), float64_param_max_abs=max_leaf_diff(
+                pa, pb), float64_loss_max_rel=rel64,
+            float64_bar=LOSS_RTOL)
+        check(rel64 <= LOSS_RTOL, f"ensemble member split in float64: "
+              f"per-step losses {rel64} apart")
+        check(ens["float64_param_max_abs"] <= DP_TOL,
+              f"ensemble member split in float64: parameters "
+              f"{ens['float64_param_max_abs']} > {DP_TOL}")
+    report["ensemble"] = ens
+
+    # -- data parallelism: a single fit's sample axis over the devices -------
+    trd = ds.split(dp_rows / len(ds.y))[0]
+    check(len(trd.y) == dp_rows, f"{len(trd.y)} data-parallel rows")
+    tcd = training.TrainConfig(epochs=epochs)
+    (pa, ha), sa = timed_s(lambda: training.fit_two_stage(
+        cfg, trd, tcd, return_history=True, device=dev))
+    (pb, hb), sb = timed_s(lambda: training.fit_two_stage(
+        cfg, trd, dataclasses.replace(tcd, data_parallel=True),
+        return_history=True, device=dev, devices=devs))
+    f32 = max_leaf_diff(pa, pb)
+    dp = {"rows": dp_rows, "epochs": epochs, "one_device_s": sa,
+          "split_s": sb, "float32_param_max_abs": f32,
+          "float32_loss_max_abs": float(np.abs(ha.train_loss
+                                               - hb.train_loss).max()),
+          "bar": DP_TOL}
+    if f32 > DP_TOL:
+        n, bs = dp_rows, min(tcd.batch_size, dp_rows)
+        p0 = pytree.tree_map(lambda a: a.double(), models.init(
+            torch.Generator().manual_seed(tcd.seed), cfg, device=dev))
+        idx, w = training._plan_for(tcd, n, bs)
+        data64 = {k: v.double() for k, v in training._as_data(
+            trd, dev).items()}
+        fa64, _ = training._fit(cfg, tcd, data64, p0, idx, w.double(),
+                                training._dropout_generator(tcd.seed, dev))
+        fb64, _ = training._fit(cfg, tcd, data64, p0, idx, w.double(),
+                                training._dropout_generator(tcd.seed, dev),
+                                devices=devs)
+        dp["float64_param_max_abs"] = max_leaf_diff(fa64, fb64)
+        check(dp["float64_param_max_abs"] <= DP_TOL,
+              f"data-parallel fit in float64: {dp['float64_param_max_abs']}"
+              f" > {DP_TOL}")
+    report["data_parallel"] = dp
+
+    # -- the island fleet: the rank kernel's island axis over the devices ----
+    tcfg, tparams = trained
+    sizes = [len(ctx.entries[node.kind]) for node in ctx.app.unit_nodes]
+    eng_i = SurrogateEngine.from_gnn(tcfg, tparams, ds, ctx.app, ctx.entries,
+                                     chunk_size=chunk, devices=devs,
+                                     device=dev)
+    stacks = []
+    ranks_of = islands.fleet_ranks
+
+    def recorded(F, backend="auto", device=None, devices=None):
+        r = ranks_of(F, backend, device, devices)
+        stacks.append((np.array(F), r))
+        return r
+
+    islands.fleet_ranks = recorded
+    try:
+        res_s, ms_s, _ = measured(lambda: islands.run_islands(
+            sizes, eng_i, island_budget, seed=0, n_islands=n_islands,
+            pop=pop, nds_backend="torch", device=dev, devices=devs), True)
+    finally:
+        islands.fleet_ranks = ranks_of
+    differ = sum(not np.array_equal(r, ranks_of(F, "numpy"))
+                 for F, r in stacks)
+    res_n, ms_n, _ = measured(lambda: islands.run_islands(
+        sizes, eng_i, island_budget, seed=0, n_islands=n_islands, pop=pop,
+        nds_backend="numpy"), False)
+    same = (res_s.pareto_configs == res_n.pareto_configs
+            and np.array_equal(res_s.pareto_objs, res_n.pareto_objs))
+    check(stacks and differ == 0 and same,
+          f"split fleet ranks differ from NumPy in {differ} of "
+          f"{len(stacks)} generations, fronts identical {same}")
+    report["islands"] = {
+        "islands": n_islands, "pop": pop, "budget": island_budget,
+        "split_ms": ms_s, "numpy_ms": ms_n, "rank_stacks": len(stacks),
+        "rank_stacks_differing": differ, "front": len(res_s.pareto_configs),
+        "front_identical": same}
+
+    # -- the staged pipeline: eval_devices on the pipeline slice's store -----
+    if kept is not None:
+        pcfg, root, front_c, front_o = kept
+        store = ArtifactStore(root)
+        store.evict(store.key("search", P._search_spec(pcfg)))
+        scfg = dataclasses.replace(pcfg, eval_devices=tuple(
+            str(d) for d in devs))
+        res, ms, _ = measured(lambda: P.run_staged(scfg, store, device=dev),
+                              True)
+        same = (res.pareto_configs == front_c
+                and np.array_equal(res.pareto_objs, front_o))
+        hits, misses = res.metrics["store"]["hits"], \
+            res.metrics["store"]["misses"]
+        check(same and res.engine.devices == len(devs)
+              and hits.get("train") == 1 and misses.get("search") == 1,
+              f"run_staged over {len(devs)} devices: front identical "
+              f"{same}, engine devices {res.engine.devices}, store "
+              f"{res.metrics['store']}")
+        report["staged"] = {
+            "eval_devices": list(scfg.eval_devices), "wall_ms": ms,
+            "stage_s": res.timings, "store": res.metrics["store"],
+            "front": len(res.pareto_configs), "front_identical": same,
+            "engine_devices": res.engine.devices}
+    else:
+        check(False, "the pipeline slice kept no store for the split")
+
+    # -- GPipe: Granite-3-2B's blocks as stages over the devices --------------
+    gp, pipe_k3, seq_k3 = gpipe_run(dev, devs, **(gpipe or {}))
+    report["gpipe"] = gp
+
+    launches = dict(main, flash_attention=pipe_k3)
+    report["launches"] = launches
+    report["check_launches"] = dict(aside, flash_attention=seq_k3)
+    report["wall_s"] = time.perf_counter() - t0
+    for name in ("gnn_mp", "lut_eval", "flash_attention"):
+        check(dev.type != "cuda" or launches[name] > 0,
+              f"{name} was never launched in the split slice")
+    return report, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3048,14 +3468,27 @@ def main() -> int:
     search_report, search_launches = search_slice_phase(
         card, torch.device("cuda"), gaussian, trained)
     print("search_slice " + json.dumps(search_report), flush=True)
-    del gaussian, trained
-    pipe_report, pipe_launches = pipeline_slice_phase(card,
-                                                      torch.device("cuda"))
+    pipe_report, pipe_launches, kept = pipeline_slice_phase(
+        card, torch.device("cuda"), keep_store=True)
     print("pipeline_slice " + json.dumps(pipe_report), flush=True)
+    import shutil
+    try:
+        split_report, split_launches = split_slice_phase(
+            card, torch.device("cuda"), split_devices(), gaussian, trained,
+            kept)
+    finally:
+        if kept is not None:
+            shutil.rmtree(kept[1], ignore_errors=True)
+    print("split_slice " + json.dumps(split_report), flush=True)
+    del gaussian, trained
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
     # the accelerator main path: the Gaussian slice, the apps slice, the
-    # training slice, the search slice and the pipeline slice
+    # training slice, the search slice, the pipeline slice and the split
+    # slice
     counted = (launches, apps_launches, train_launches, search_launches,
-               pipe_launches)
+               pipe_launches, split_launches)
     routes = {r: sum(c["lut_eval_routes"][r] for c in counted)
               for r in launches["lut_eval_routes"]}
     launches = {k: sum(c[k] for c in counted)
@@ -3064,7 +3497,6 @@ def main() -> int:
     lm_report, lm_launches = lm_slice_phase(card, torch.device("cuda"),
                                             get_arch(LM_ARCH))
     print("lm_slice " + json.dumps(lm_report), flush=True)
-    import gc
     gc.collect()
     torch.cuda.empty_cache()
     moe_report, moe_launches = moe_slice_phase(card, torch.device("cuda"),
@@ -3127,11 +3559,13 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:67",
-         # the Hymba, Moonlight, Qwen2-VL and Whisper prefills', and the
-         # Hymba training steps' (forward and recompute)
+         # the Hymba, Moonlight, Qwen2-VL and Whisper prefills', the
+         # Hymba training steps' (forward and recompute) and the Granite
+         # GPipe passes of the split slice
          "launches": lm_launches["flash_attention"]
          + moe_launches["flash_attention"] + fam_launches
-         + train_lm_launches["flash_attention"],
+         + train_lm_launches["flash_attention"]
+         + split_launches["flash_attention"],
          "max_abs_err": fr["max_abs_err"], "ms": fr["ms"],
          "plain_ms": fr["plain_ms"], "bound_ms": fr["bound_ms"],
          "bound_by": fr["bound_by"], "library_ms": fr["library_ms"]},

@@ -30,8 +30,17 @@ of the gcn and gsae architectures through the CUDA `gnn_mp` kernel; there
 is no fallback to another path. `from_gnn_ensemble` serves an ensemble's
 mean with its std as an uncertainty block, each member as `from_gnn`.
 `from_rforest` serves the random-forest baseline and `from_oracle` the
-ground truth. The engine serves one device; sharding a wave over several
-cards (``devices > 1``) comes later.
+ground truth.
+
+Devices. The GNN engines take ``devices=``: the reference's count (``1``
+no split, ``0`` every local device of ``device``'s type, ``N`` at most N
+of them) or an explicit sequence of devices, which may name one device
+several times. ``dispatch`` splits each featurized chunk's config rows
+over the largest prefix of those devices that divides the chunk
+(`distributed.meshes.shard_leading_axis`), launches the model on every
+slice, and returns; ``collect`` gathers the slices in order. Every slice
+runs the readouts (and mpnn its whole model) at the chunk size's rows, so
+a config's row is the same at any split, bit for bit.
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import device as device_lib
+from repro_torch.device import DevicesLike
 
 Config = Tuple[int, ...]
 BatchFn = Callable[[Sequence[Config]], np.ndarray]
@@ -165,14 +175,20 @@ class PipelinedBackend:
     chunks: ``prepare`` featurizes on the host (worker thread),
     ``dispatch`` copies to the device and launches the model without
     waiting, ``collect`` waits for the result and post-processes it.
+
+    ``devices`` is the split's cap, which `EngineStats` reports: a chunk
+    is split over the largest prefix of the devices that divides its
+    length (`distributed.meshes.shard_leading_axis`).
     """
 
     def __init__(self, prepare: Callable[[Sequence[Config]], Any],
                  dispatch: Callable[[Any], Any],
-                 collect: Callable[[Any], np.ndarray]):
+                 collect: Callable[[Any], np.ndarray], *,
+                 devices: int = 1):
         self.prepare = prepare
         self.dispatch = dispatch
         self.collect = collect
+        self.devices = max(1, int(devices))
 
     def __call__(self, configs: Sequence[Config]) -> np.ndarray:
         return self.collect(self.dispatch(self.prepare(configs)))
@@ -335,7 +351,7 @@ class SurrogateEngine:
         self.nan_retries = int(nan_retries)
         self.quarantined: set = set()
         self._cache: Dict[Config, np.ndarray] = {}
-        self.devices = 1
+        self.devices = self.pipeline.devices if self.pipeline else 1
         self.stats = EngineStats(devices=self.devices)
         self._lock = threading.RLock()
         self._queue: List[Tuple[List[Config], Future]] = []
@@ -656,7 +672,7 @@ class SurrogateEngine:
     @classmethod
     def from_gnn(cls, two_cfg, params, ds, app,
                  entries: Dict[str, Sequence], *, chunk_size: int = 512,
-                 cache: bool = True, devices: int = 1,
+                 cache: bool = True, devices: DevicesLike = 1,
                  overlap: Optional[bool] = None,
                  parity_atol: float = 2e-3, device=None
                  ) -> "SurrogateEngine":
@@ -671,12 +687,15 @@ class SurrogateEngine:
         goes through `kernels.ops.gnn_mp` (the CUDA kernel on the card);
         at construction that path is held against `models.predict` on a
         small probe batch and a mismatch beyond ``parity_atol`` (on
-        normalized outputs) raises.
+        normalized outputs) raises, on each device of the split.
+
+        ``devices``: split each chunk's config rows over these devices
+        (module docstring); the rows equal ``devices=1``'s bit for bit.
         """
         from repro_torch.core import dataset as ds_lib
 
-        _one_device(devices)
         dev = device_lib.resolve(device)
+        devs = _resolve_devices(devices, dev)
         feat = ds_lib.featurizer_for(ds, app, entries, dev)
         sv = two_cfg.schema_version
         if sv != feat.schema.version:
@@ -685,7 +704,7 @@ class SurrogateEngine:
                 f"dataset featurizes with v{feat.schema.version} — "
                 f"rebuild the stale artifact")
         pb, backend = _gnn_backend(two_cfg, params, feat, feat.normalized,
-                                   ds.denorm_y, dev, parity_atol,
+                                   ds.denorm_y, devs, parity_atol,
                                    chunk_size)
         return cls(pb, backend=backend, chunk_size=chunk_size,
                    cache=cache, overlap=overlap,
@@ -695,7 +714,8 @@ class SurrogateEngine:
     def from_gnn_shared(cls, two_cfg, params, merged, app_name: str,
                         entries: Dict[str, Sequence], *,
                         chunk_size: int = 512, cache: bool = True,
-                        devices: int = 1, overlap: Optional[bool] = None,
+                        devices: DevicesLike = 1,
+                        overlap: Optional[bool] = None,
                         parity_atol: float = 2e-3, device=None
                         ) -> "SurrogateEngine":
         """Per-app view of the cross-app unified surrogate on ``device``.
@@ -706,17 +726,18 @@ class SurrogateEngine:
         the merged pad width, appends the app-identity block and
         denormalizes with the app's y stats; the model runs as in
         `from_gnn` (`gnn_mp` in every gcn/gsae layer on the card, held
-        against `models.predict` at construction).
+        against `models.predict` at construction, ``devices`` split as
+        there).
         """
         from repro_torch.accel import apps as apps_lib
         from repro_torch.core import dataset as ds_lib
         from repro_torch.core import graph as graph_lib
 
-        _one_device(devices)
         if app_name not in merged.per_app:
             raise ValueError(f"{app_name!r} not in merged dataset "
                              f"{merged.app_names}")
         dev = device_lib.resolve(device)
+        devs = _resolve_devices(devices, dev)
         ds = merged.per_app[app_name]
         feat = ds_lib.ConfigFeaturizer(ds.graph, apps_lib.APPS[app_name],
                                        entries, merged.n_pad,
@@ -731,7 +752,7 @@ class SurrogateEngine:
                 axis=-1)
 
         pb, backend = _gnn_backend(two_cfg, params, feat, featurize,
-                                   ds.denorm_y, dev, parity_atol,
+                                   ds.denorm_y, devs, parity_atol,
                                    chunk_size)
         return cls(pb, backend=f"{backend}-shared", chunk_size=chunk_size,
                    cache=cache, overlap=overlap,
@@ -783,7 +804,8 @@ class SurrogateEngine:
     @classmethod
     def from_gnn_ensemble(cls, ens, ds, app, entries: Dict[str, Sequence],
                           *, chunk_size: int = 512, cache: bool = True,
-                          devices: int = 1, overlap: Optional[bool] = None,
+                          devices: DevicesLike = 1,
+                          overlap: Optional[bool] = None,
                           parity_atol: float = 2e-3, device=None
                           ) -> "SurrogateEngine":
         """Ensemble-GNN engine on ``device`` (default: the CUDA card):
@@ -794,40 +816,72 @@ class SurrogateEngine:
 
         ``ens`` is a `training.EnsembleParams`. Each member runs as in
         `from_gnn`: for gcn/gsae every layer goes through `gnn_mp` on the
-        card, held against `models.predict` at construction."""
+        card, held against `models.predict` at construction; ``devices``
+        splits each chunk's rows as there, every member running on every
+        slice."""
         from repro_torch.core import dataset as ds_lib
         from repro_torch.core import models
 
-        _one_device(devices)
         dev = device_lib.resolve(device)
+        devs = _resolve_devices(devices, dev)
         feat = ds_lib.featurizer_for(ds, app, entries, dev)
-        predicts, labels = _member_predicts(ens, feat, feat.normalized, dev,
-                                            parity_atol, chunk_size)
+        on = _per_device(devs, lambda d: _member_predicts(
+            ens, feat, feat.normalized, d, parity_atol, chunk_size))
+        labels = set().union(*(lab for _, lab in on.values()))
+        n_members = ens.n_members
 
         def dispatch(X):
-            Xt = _to_input(X, dev)
             with torch.no_grad():
-                return [fn(Xt) for fn in predicts]
+                return [[fn(x) for fn in on[d][0]]
+                        for d, x in _split_input(X, devs)]
 
         def collect(handles):
-            Y = np.stack([h.cpu().numpy() for h in handles], 0)
+            Y = np.stack([torch.cat([hs[m].cpu() for hs in handles]).numpy()
+                          for m in range(n_members)], 0)
             mean = ds.denorm_y(Y.mean(0))
             std = Y.std(0) * np.asarray(ds.y_std)
             mean[:, 3] = 1 - mean[:, 3]     # ssim -> 1-ssim (minimize)
             return np.concatenate([mean, std], 1)
 
-        pb = PipelinedBackend(feat.normalized, dispatch, collect)
+        pb = PipelinedBackend(feat.normalized, dispatch, collect,
+                              devices=len(devs))
         return cls(pb, backend="-".join(sorted(labels)) + "-ensemble",
                    chunk_size=chunk_size, cache=cache,
                    overlap=overlap, schema_version=feat.schema.version,
                    obj_cols=len(models.TARGETS))
 
 
-def _one_device(devices: int) -> None:
-    if devices != 1:
-        raise NotImplementedError(
-            "SurrogateEngine serves one device; sharding a chunk over "
-            "several devices is not ported yet")
+def _resolve_devices(devices: DevicesLike, dev: torch.device
+                     ) -> List[torch.device]:
+    """The engine's split devices (`device.device_list`); their count
+    is the cap that `EngineStats.devices` reports."""
+    return device_lib.device_list(devices, dev)
+
+
+def _per_device(devs: Sequence[torch.device], build: Callable
+                ) -> Dict[torch.device, Any]:
+    """``{device: build(device)}`` over the distinct devices of ``devs``:
+    what the engines build once per device (parameters copied there,
+    predicts checked there)."""
+    return {d: build(d) for d in dict.fromkeys(devs)}
+
+
+def _split_input(X: np.ndarray, devs: Sequence[torch.device]
+                 ) -> List[Tuple[torch.device, torch.Tensor]]:
+    """(device, rows) pairs of a featurized chunk, in row order: the
+    config rows split over the largest prefix of ``devs`` that divides
+    them (`meshes.shard_leading_axis`), or the whole chunk on ``devs[0]``.
+    Host memory is pinned for a card, so every copy is issued without
+    waiting."""
+    Xt = torch.from_numpy(X)
+    if any(d.type == "cuda" for d in devs):
+        Xt = Xt.pin_memory()
+    if len(devs) > 1:
+        from repro_torch.distributed import meshes
+        sh = meshes.shard_leading_axis(Xt, Xt.shape[0], devices=devs)
+        if isinstance(sh, meshes.Sharded):
+            return list(zip(sh.mesh.device_list(), sh.shards))
+    return [(devs[0], Xt.to(devs[0], non_blocking=True))]
 
 
 def _checked_predict(two_cfg, params, feat, featurize: Callable,
@@ -875,34 +929,30 @@ def _member_predicts(ens, feat, featurize: Callable, dev: torch.device,
     return predicts, labels
 
 
-def _to_input(X, dev: torch.device) -> torch.Tensor:
-    Xt = torch.from_numpy(X)
-    if dev.type == "cuda":
-        Xt = Xt.pin_memory().to(dev, non_blocking=True)
-    return Xt
-
-
 def _gnn_backend(two_cfg, params, feat, featurize: Callable, denorm_y,
-                 dev: torch.device, parity_atol: float, rows: int
+                 devs: Sequence[torch.device], parity_atol: float, rows: int
                  ) -> Tuple[PipelinedBackend, str]:
     """The GNN engines' pipelined backend and its label: ``featurize``
-    on the host, the two-stage model on ``dev`` (`_checked_predict`, its
-    readouts at ``rows`` rows), ``denorm_y`` and the ssim flip on
-    collect."""
-    predict, backend = _checked_predict(two_cfg, params, feat, featurize,
-                                        dev, parity_atol, rows)
+    on the host, the two-stage model on each slice's device of ``devs``
+    (`_checked_predict` once per distinct device, its readouts at ``rows``
+    rows), ``denorm_y`` and the ssim flip on collect."""
+    on = _per_device(devs, lambda d: _checked_predict(
+        two_cfg, params, feat, featurize, d, parity_atol, rows))
+    backend = on[devs[0]][1]
 
     def dispatch(X):
-        with torch.no_grad():
-            return predict(_to_input(X, dev))   # launches, does not wait
+        with torch.no_grad():                # launches, does not wait
+            return [on[d][0](x) for d, x in _split_input(X, devs)]
 
-    def collect(y_dev):
-        y = y_dev.cpu().numpy()             # waits for the device
+    def collect(handles):
+        # waits for each device
+        y = torch.cat([h.cpu() for h in handles]).numpy()
         y = denorm_y(y)
         y[:, 3] = 1 - y[:, 3]               # ssim -> 1-ssim (minimize)
         return y
 
-    return PipelinedBackend(featurize, dispatch, collect), backend
+    return PipelinedBackend(featurize, dispatch, collect,
+                            devices=len(devs)), backend
 
 
 def _probe_configs(sizes: Sequence[int], n: int = 4) -> List[Config]:

@@ -45,7 +45,9 @@ works on exact integer ranks, so results are also bit-identical across
 backends and devices. This is the port's own copy of
 `repro.core.islands`: fronts, rows and history equal the reference's bit
 for bit under a deterministic evaluator (tests/test_torch_search.py).
-The island axis is not sharded over several devices. Fleets containing the
+With ``devices=`` the "torch" ranking splits the island axis over the
+devices (`distributed.meshes.shard_leading_axis`), each slice peeled on
+its own device, with the same ranks. Fleets containing the
 sequential ``tpe``/``random`` state machines fall back to the scalar
 path (same results, schedule-independent).
 
@@ -118,8 +120,8 @@ class IslandConfig:
         nds_backend: batched non-domination ranking backend for the
                     batched path: "numpy", "torch" (integer-rank front
                     peeling on a device, bit-identical to numpy), or
-                    "auto" (torch iff more than one CUDA device is
-                    visible).
+                    "auto" (torch iff more than one device is given
+                    or more than one CUDA device is visible).
         parallel:   `run_islands_ref` only — step the scalar islands of
                     one generation in a thread pool (results are
                     schedule-independent).
@@ -363,33 +365,60 @@ def _dense_ranks(F: np.ndarray) -> np.ndarray:
     return R
 
 
-def _ranks_kernel_torch(R: np.ndarray, device=None) -> np.ndarray:
-    """Batched front peeling over an (I, n, m) int32 rank tensor on
-    ``device`` (default: the CUDA card): the reference's
-    `_ranks_kernel_jax` loop in PyTorch. Every op is island-local, and
-    the arithmetic is integer, so the result equals
-    `dse.non_dominated_ranks_batched` exactly."""
-    R = torch.from_numpy(np.ascontiguousarray(R, np.int32)).to(
-        device_lib.resolve(device))
-    less = (R[:, :, None, :] <= R[:, None, :, :]).all(-1)
-    D = (less & ~less.transpose(1, 2)).to(torch.int32)   # i dominates j
-    dom = D.sum(1)
-    ranks = torch.full(dom.shape, -1, dtype=torch.int64, device=R.device)
+def _peel(slices: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Batched front peeling of (I_k, n, m) int32 rank tensors, each on
+    its own device, in lockstep: each round is issued on every slice
+    before the one read of whether any slice still has members left. A
+    slice whose members are all ranked goes through the later rounds
+    unchanged, so each slice's ranks are those it would get alone."""
+    state = []
+    for R in slices:
+        less = (R[:, :, None, :] <= R[:, None, :, :]).all(-1)
+        D = (less & ~less.transpose(1, 2)).to(torch.int32)   # i dominates j
+        state.append([D, D.sum(1), torch.full(
+            R.shape[:2], -1, dtype=torch.int64, device=R.device)])
     r = 0
     while True:
-        cur = dom == 0
-        if not bool(cur.any()):
+        curs = [dom == 0 for _, dom, _ in state]
+        if not any([bool(c.any()) for c in curs]):
             break
-        ranks = torch.where(cur, r, ranks)
-        # integer products have no CUDA matmul: a masked sum instead
-        dec = (D * cur[:, :, None]).sum(1)
-        dom = torch.where(cur, -1, dom - dec)
+        for st, cur in zip(state, curs):
+            D, dom, ranks = st
+            st[2] = torch.where(cur, r, ranks)
+            # integer products have no CUDA matmul: a masked sum instead
+            dec = (D * cur[:, :, None]).sum(1)
+            st[1] = torch.where(cur, -1, dom - dec)
         r += 1
-    return ranks.cpu().numpy()
+    return [ranks for _, _, ranks in state]
 
 
-def fleet_ranks(F: np.ndarray, backend: str = "auto", device=None
-                ) -> np.ndarray:
+def _ranks_kernel_torch(R: np.ndarray, devs: Sequence[torch.device]
+                       ) -> np.ndarray:
+    """Batched front peeling over an (I, n, m) int32 rank tensor: the
+    reference's `_ranks_kernel_jax` loop in PyTorch, its island axis
+    split over ``devs`` (`meshes.shard_leading_axis`, axis "island"; the
+    whole tensor on ``devs[0]`` when no prefix of them divides it). Each
+    slice is peeled on its device and the ranks are gathered in island
+    order. Every op is island-local, and the arithmetic is integer, so the
+    result equals `dse.non_dominated_ranks_batched` exactly."""
+    from repro_torch.distributed import meshes
+    Rt = torch.from_numpy(np.ascontiguousarray(R, np.int32))
+    sh = meshes.shard_leading_axis(Rt, len(R), axis_name="island",
+                                   devices=devs)
+    slices = sh.shards if isinstance(sh, meshes.Sharded) \
+        else [Rt.to(devs[0])]
+    return torch.cat([r.cpu() for r in _peel(slices)]).numpy()
+
+
+def _listed(devices) -> int:
+    """The length of an explicit device sequence (0 for a count)."""
+    if devices is None or isinstance(devices, (int, str)):
+        return 0
+    return len(devices)
+
+
+def fleet_ranks(F: np.ndarray, backend: str = "auto", device=None,
+                devices=None) -> np.ndarray:
     """Non-domination rank of every member of every island.
 
     (I, n, m) objectives -> (I, n) int64 ranks, equal per island to the
@@ -399,17 +428,23 @@ def fleet_ranks(F: np.ndarray, backend: str = "auto", device=None
       * "numpy" — `dse.non_dominated_ranks_batched`;
       * "torch" — integer-rank front peeling on ``device`` (default: the
                   CUDA card), bit-identical to numpy (`_dense_ranks`);
-      * "auto"  — "torch" iff more than one CUDA device is visible, where
-                  the reference picks its JAX kernel, else "numpy".
+                  with ``devices`` (a count or a sequence of devices,
+                  `device.device_list`) the island axis is split over
+                  them;
+      * "auto"  — "torch" iff more than one device is given or more than
+                  one CUDA device is visible, where the reference picks
+                  its JAX kernel, else "numpy".
     """
     F = np.asarray(F, np.float64)
     if backend not in NDS_BACKENDS:
         raise ValueError(f"unknown nds_backend {backend!r}")
     if backend == "auto":
-        backend = "torch" if torch.cuda.device_count() > 1 else "numpy"
+        backend = ("torch" if _listed(devices) > 1
+                   or torch.cuda.device_count() > 1 else "numpy")
     if backend == "numpy":
         return non_dominated_ranks_batched(F)
-    return _ranks_kernel_torch(_dense_ranks(F), device)
+    return _ranks_kernel_torch(_dense_ranks(F),
+                               device_lib.device_list(devices, device))
 
 
 def _crossover_mutate_fleet(P: np.ndarray, sizes: Sequence[int],
@@ -610,7 +645,7 @@ def islands_steps(sizes: Sequence[int], evaluate: EvalFn, budget: int,
                   nds_backend: str = "auto", checkpoint_every: int = 0,
                   checkpoint_sink=None,
                   resume_from: Optional[SearchCheckpoint] = None,
-                  device=None) -> StepGen:
+                  device=None, devices=None) -> StepGen:
     """Epoch-granular `run_islands`: yields each epoch-boundary
     `DSEResult.history` entry (merged front size, hypervolume, per-island
     fronts) as it is produced and returns the final result — the serving
@@ -656,6 +691,8 @@ def islands_steps(sizes: Sequence[int], evaluate: EvalFn, budget: int,
                    bit-identical.
         device:    where the "torch" ranking runs (default: the CUDA
                    card).
+        devices:   split the "torch" ranking's island axis over these
+                   devices (`fleet_ranks`).
 
     Returns:
         `DSEResult` whose front is the merged global archive's
@@ -797,7 +834,8 @@ def islands_steps(sizes: Sequence[int], evaluate: EvalFn, budget: int,
             R = np.concatenate([P, Q], 1)
             FR = np.concatenate(
                 [np.stack([isl.F for isl in islands]), FQ], 1)
-            ranks = fleet_ranks(FR, backend=nds_backend, device=device)
+            ranks = fleet_ranks(FR, backend=nds_backend, device=device,
+                                devices=devices)
             for i, isl in enumerate(islands):
                 idx = _select_from_ranks(ranks[i], FR[i], pop, isl)
                 isl.P, isl.F = R[i][idx], FR[i][idx]
@@ -822,7 +860,7 @@ def run_islands(sizes: Sequence[int], evaluate: EvalFn, budget: int,
                 nds_backend: str = "auto", checkpoint_every: int = 0,
                 checkpoint_sink=None,
                 resume_from: Optional[SearchCheckpoint] = None,
-                device=None) -> DSEResult:
+                device=None, devices=None) -> DSEResult:
     """Run the island-model DSE as one batched array program; drop-in
     alternative to the serial samplers (one-shot wrapper over
     `islands_steps` — see that generator for the streaming form).
@@ -840,6 +878,8 @@ def run_islands(sizes: Sequence[int], evaluate: EvalFn, budget: int,
                    see `IslandConfig`.
         device:    where the "torch" ranking runs (default: the CUDA
                    card).
+        devices:   split the "torch" ranking's island axis over these
+                   devices (`fleet_ranks`).
 
     Returns:
         `DSEResult` whose front is the merged global archive's
@@ -853,7 +893,7 @@ def run_islands(sizes: Sequence[int], evaluate: EvalFn, budget: int,
         partition_refs=partition_refs, migration=migration,
         nds_backend=nds_backend, checkpoint_every=checkpoint_every,
         checkpoint_sink=checkpoint_sink, resume_from=resume_from,
-        device=device))
+        device=device, devices=devices))
 
 
 def library_proxy_evaluator(app, entries: Dict[str, Sequence]) -> EvalFn:

@@ -125,13 +125,19 @@ def predict(cfg: TwoStageConfig, params: TwoStageParams, adj, x, mask,
 
 
 def losses(cfg: TwoStageConfig, params: TwoStageParams, batch,
-           keep: Optional[torch.Tensor] = None
+           keep: Optional[torch.Tensor] = None, denoms=None
            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: {adj, x (crit zeroed), mask, y (B,4), crit (B,N), unit_mask,
     w (optional (B,) sample weights: 0 rows are padding and contribute
     nothing to either loss term or its gradients)}. Stage 2 is
     teacher-forced with the true crit bits. ``keep`` (`draw_keep`) turns
-    dropout on."""
+    dropout on.
+
+    ``denoms`` (with ``w``) is the pair of divisors of the two terms, in
+    place of this batch's own: the weight sum and the weighted unit-mask
+    sum of a whole minibatch, of which ``batch`` holds some rows. The
+    terms of the parts then add up to the whole minibatch's (the
+    data-parallel split of `training`)."""
     y_pred, crit_logits = predict(cfg, params, batch["adj"], batch["x"],
                                   batch["mask"], teacher_crit=batch["crit"],
                                   keep=keep)
@@ -141,12 +147,15 @@ def losses(cfg: TwoStageConfig, params: TwoStageParams, batch,
     if w is None:
         reg = per_sample.mean()
     else:
-        reg = (w * per_sample).sum() / torch.clamp(w.sum(), min=1.0)
         um = um * w[..., None]
+    w_den, um_den = denoms if denoms is not None else (
+        None if w is None else torch.clamp(w.sum(), min=1.0),
+        torch.clamp(um.sum(), min=1.0))
+    if w is not None:
+        reg = (w * per_sample).sum() / w_den
     # log(1 + e^l) as the reference writes it (softplus switches to the
     # identity past its threshold)
     bce = (um * (torch.logaddexp(torch.zeros_like(crit_logits), crit_logits)
-                 - crit_logits * batch["crit"])).sum() / \
-        torch.clamp(um.sum(), min=1.0)
+                 - crit_logits * batch["crit"])).sum() / um_den
     total = reg + bce if cfg.use_critical_path else reg
     return total, {"reg_mse": reg, "crit_bce": bce}

@@ -32,15 +32,19 @@ their keys, so a CPU run and a card run sharing a store never swap them.
 
 The reference's ``use_kernel`` field has no counterpart: in the port the
 tensor's device decides between the CUDA kernels and the plain path, so
-it is absent from `PipelineConfig` and from the engine's key. The engine
-serves one device: ``eval_devices`` above 1 raises `NotImplementedError`.
+it is absent from `PipelineConfig` and from the engine's key.
+``eval_devices`` is the engine's ``devices=``: the reference's count (``1``
+no split, ``0`` every local device of the run's type, ``N`` at most N)
+or a tuple of device names, which may name one device several times;
+the engine splits each chunk's config rows over them with the same rows.
+Like the reference, the engine's key leaves it out.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -78,8 +82,9 @@ class PipelineConfig:
     use_critical_path: bool = True
     surrogate: str = "gnn"          # gnn | rf | oracle
     eval_chunk: int = 512           # engine chunk size for the DSE loop
-    eval_devices: int = 1           # devices the engine serves (0 = all of
-                                    # the device's type); above 1 raises
+    eval_devices: Union[int, Tuple[str, ...]] = 1  # devices the engine
+                                    # splits its chunks over (0 = all of
+                                    # the device's type, or device names)
     eval_overlap: bool = True       # overlap host featurization with
                                     # device compute on multi-chunk waves
     ensemble_members: int = 0       # >0: GNN ensemble + uncertainty
@@ -315,12 +320,11 @@ def stage_train(cfg: PipelineConfig, store: ArtifactStore,
     return store.get_or_build("train", key, build)
 
 
-def _eval_devices(cfg: PipelineConfig, dev: torch.device) -> int:
-    """``cfg.eval_devices``, with 0 read as every device of ``dev``'s
-    type."""
-    if cfg.eval_devices:
-        return cfg.eval_devices
-    return torch.cuda.device_count() if dev.type == "cuda" else 1
+def _eval_devices(cfg: PipelineConfig, dev: torch.device
+                  ) -> List[torch.device]:
+    """The devices of ``cfg.eval_devices`` for an engine on ``dev``
+    (`device.device_list`: 0 reads as every device of ``dev``'s type)."""
+    return device_lib.device_list(cfg.eval_devices, dev)
 
 
 def stage_engine(cfg: PipelineConfig, store: ArtifactStore,

@@ -24,12 +24,34 @@ gives the paper's schedule.
     own generator, so it follows the same trajectory as a single
     `fit_two_stage` with that seed.
 
+Devices. Both take ``devices=``: the reference's count (``1`` no split,
+``0`` every local device of ``device``'s type, ``N`` at most N) or an
+explicit sequence of devices, which may name one device several times.
+
+* ``fit_ensemble`` splits each architecture group's member axis over the
+  largest prefix of the devices that divides it
+  (`distributed.meshes.shard_leading_axis`, axis "member"): each slice
+  takes its members' parameters, plans, the data and its own dropout
+  generators to its device and runs the vmapped loop there, with no
+  communication; the slices on distinct devices run in threads of their
+  own, those on one device one after another. Members equal the
+  one-device fit's.
+* ``TrainConfig(data_parallel=True)`` splits the sample axis of a single
+  fit over the devices in the same way (axis "data"). Every step, each
+  device computes the loss terms and gradients of the minibatch rows it
+  holds, over divisors of the whole minibatch (`models.losses`'
+  ``denoms``), on its replica of the parameters; the gradients are summed
+  on the parameters' device, Adam runs there, and the replicas take the
+  new parameters. The one split that reduces: it equals the unsplit fit
+  up to the summation order. For an ensemble the member split is used.
+
 The surrogate is trained through the plain layer under autograd, as the
 reference trains through plain `jnp`: the `gnn_mp` kernel has no
 backward pass, and serves the trained model (`engine.from_gnn`).
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -40,6 +62,7 @@ from torch.utils import _pytree as pytree
 from repro_torch import device as device_lib
 from repro_torch.core import models
 from repro_torch.core.dataset import AccelDataset
+from repro_torch.device import DevicesLike
 
 BACKENDS = ("scan", "loop")
 
@@ -56,7 +79,7 @@ class TrainConfig:
     patience: int = 0            # >0 enables early stopping on a val split
     val_frac: float = 0.1        # held-out fraction when patience > 0
     min_delta: float = 0.0       # required val-loss improvement
-    data_parallel: bool = False  # shard the sample axis over devices
+    data_parallel: bool = False  # split the sample axis over devices=
 
     @staticmethod
     def paper_faithful() -> "TrainConfig":
@@ -204,10 +227,6 @@ def _run_inputs(cfg: models.TwoStageConfig, tc: TrainConfig, seed: int,
 def _check_config(tc: TrainConfig) -> None:
     if tc.backend not in BACKENDS:
         raise ValueError(f"unknown backend {tc.backend!r}")
-    if tc.data_parallel and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "data-parallel training over several CUDA devices is not "
-            "ported yet; on one device data_parallel is a no-op")
 
 
 def _split_for_val(tc: TrainConfig, ds_train, ds_val):
@@ -258,10 +277,71 @@ def _make_step(cfg: models.TwoStageConfig, data, spec, use_dropout: bool,
     return fn
 
 
+def _make_dp_step(cfg: models.TwoStageConfig, data, spec,
+                  devs: Sequence[torch.device]):
+    """The data-parallel counterpart of `_make_step` for a single fit, or
+    None when no prefix of more than one of ``devs`` divides the sample
+    count: (flat params, idx, w, keep) -> (flat grads, loss), with ``idx``
+    and ``w`` on the host and the result on the parameters' device.
+
+    The sample axis is split over the devices (`shard_leading_axis`, axis
+    "data"); each device computes the loss terms of the minibatch rows it
+    holds over the whole minibatch's divisors, and their gradients on its
+    replica of the parameters. Every device's part is issued before the
+    gradients and losses are summed in device order."""
+    from repro_torch.distributed import meshes
+    n = data["x"].shape[0]
+    sh = meshes.shard_leading_axis(data, n, axis_name="data", devices=devs)
+    if not isinstance(sh, meshes.Sharded):
+        return None
+    parts = [(d, *_split_const(shard))
+             for d, shard in zip(sh.mesh.device_list(), sh.shards)]
+    per = n // len(parts)
+    dt = data["x"].dtype
+    um_rows = data["unit_mask"].sum(-1).cpu()      # exact small integers
+
+    def one(flat, batch, keep, denoms):
+        return models.losses(cfg, pytree.tree_unflatten(flat, spec), batch,
+                             keep=keep, denoms=denoms)[0]
+
+    grad_fn = torch.func.grad_and_value(one)
+
+    def step(flat, idx, w, keep):
+        home = flat[0].device
+        denoms = (torch.clamp(w.sum(), min=1.0),
+                  torch.clamp((w * um_rows[idx].to(w.dtype)).sum(), min=1.0))
+        owner = idx // per
+        out = []
+        for i, (d, var, const) in enumerate(parts):
+            sel = torch.nonzero(owner == i)[:, 0]
+            if not len(sel):
+                continue
+            local = (idx[sel] - i * per).to(d)
+            batch = {k: v[local] for k, v in var.items()}
+            for k, row in const.items():
+                batch[k] = row.expand((len(sel),) + row.shape)
+            batch["w"] = w[sel].to(device=d, dtype=dt)
+            kd = None if keep is None else keep[:, :, sel.to(keep.device)
+                                                ].to(d)
+            out.append(grad_fn([p.to(d) for p in flat], batch, kd,
+                               tuple(x.to(device=d, dtype=dt)
+                                     for x in denoms)))
+        grads = [g.to(home) for g in out[0][0]]
+        loss = out[0][1].to(home)
+        for g_d, l_d in out[1:]:
+            torch._foreach_add_(grads, [g.to(home) for g in g_d])
+            loss = loss + l_d.to(home)
+        return grads, loss
+
+    return step
+
+
 def _fit(cfg: models.TwoStageConfig, tc: TrainConfig, data, params0, idx,
-         w, generator, val_data=None):
+         w, generator, val_data=None, devices=None):
     """The training loop. ``idx``/``w`` is the (epochs, steps, bs) batch
-    plan; ``generator`` draws the dropout masks (None: no dropout).
+    plan; ``generator`` draws the dropout masks (None: no dropout). With
+    ``devices`` (several), a single fit's sample axis is split over them
+    (`_make_dp_step`).
 
     For an ensemble group the parameters carry a leading member axis,
     the plan is (members, epochs, steps, bs) and ``generator`` is one
@@ -273,11 +353,16 @@ def _fit(cfg: models.TwoStageConfig, tc: TrainConfig, data, params0, idx,
     lead = (idx.shape[0],) if stacked else ()
     E, S = idx.shape[-3:-1]
     dev = pytree.tree_leaves(params0)[0].device
-    idx, w = idx.to(dev), w.to(dev)
     flat, spec = pytree.tree_flatten(params0)
     flat = [p.detach().clone() for p in flat]
     use_do = cfg.gnn.dropout > 0 and generator is not None
-    step = _make_step(cfg, data, spec, use_do, stacked)
+    step = None
+    if devices is not None and len(devices) > 1 and not stacked:
+        step = _make_dp_step(cfg, data, spec, devices)
+        idx, w = idx.cpu(), w.cpu()
+    if step is None:
+        idx, w = idx.to(dev), w.to(dev)
+        step = _make_step(cfg, data, spec, use_do, stacked)
     N = data["x"].shape[1]
     bs = idx.shape[-1]
     early = tc.patience > 0 and val_data is not None
@@ -341,9 +426,11 @@ def fit_two_stage(cfg: models.TwoStageConfig, ds_train: AccelDataset,
                   log_every: int = 0, return_history: bool = False,
                   ds_val: Optional[AccelDataset] = None,
                   params0: Optional[models.TwoStageParams] = None,
-                  device=None):
+                  device=None, devices: DevicesLike = 1):
     """Train the two-stage model on ``device`` (default: the CUDA card);
-    returns params (and a `FitHistory` if asked).
+    returns params (and a `FitHistory` if asked). With
+    ``tc.data_parallel``, the sample axis is split over ``devices``
+    (module docstring); otherwise ``devices`` has nothing to split.
 
     With ``tc.patience > 0``, a validation split (``ds_val``, or
     ``tc.val_frac`` carved off the tail of ``ds_train``) drives early
@@ -359,8 +446,10 @@ def fit_two_stage(cfg: models.TwoStageConfig, ds_train: AccelDataset,
     n = ds_train.y.shape[0]
     init, idx, w, gen = _run_inputs(cfg, tc, tc.seed, n, dev)
     params0 = init if params0 is None else _to_device(params0, dev)
+    devs = device_lib.device_list(devices, dev) if tc.data_parallel \
+        else None
     params, (tr, vls, act) = _fit(cfg, tc, data, params0, idx, w, gen,
-                                  val_data)
+                                  val_data, devices=devs)
     if log_every:
         for ep in range(tc.epochs):
             if act[ep] and (ep + 1) % log_every == 0:
@@ -381,13 +470,80 @@ def _stack(trees):
     return pytree.tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+def _fit_split(cfg: models.TwoStageConfig, tc: TrainConfig, data,
+               params0, idx, w, seeds: Sequence[int], val_data,
+               devs: Sequence[torch.device]):
+    """`_fit` of a group of stacked members with the member axis split
+    over ``devs`` (`shard_leading_axis`, axis "member"); the members'
+    dropout generators are made from ``seeds`` on each slice's device.
+    Returns what `_fit` returns, gathered on ``params0``'s device."""
+    from repro_torch.distributed import meshes
+    home = pytree.tree_leaves(params0)[0].device
+    use_do = cfg.gnn.dropout > 0
+    sh = meshes.shard_leading_axis((params0, idx, w), idx.shape[0],
+                                   axis_name="member", devices=devs)
+    if not isinstance(sh, meshes.Sharded):
+        gens = [_dropout_generator(s, home) for s in seeds] \
+            if use_do else None
+        return _fit(cfg, tc, data, params0, idx, w, gens, val_data)
+    slice_devs = sh.mesh.device_list()
+    per = len(seeds) // len(slice_devs)
+    copies: Dict[torch.device, Tuple] = {}
+    for d in slice_devs:
+        if d not in copies:
+            copies[d] = (pytree.tree_map(lambda a: a.to(d), data),
+                         None if val_data is None else
+                         pytree.tree_map(lambda a: a.to(d), val_data))
+    results: List = [None] * len(slice_devs)
+
+    def run(i: int) -> None:
+        d = slice_devs[i]
+        p_i, idx_i, w_i = sh.shards[i]
+        gens = [_dropout_generator(s, d) for s in
+                seeds[i * per:(i + 1) * per]] if use_do else None
+        results[i] = _fit(cfg, tc, copies[d][0], p_i, idx_i, w_i, gens,
+                          copies[d][1])
+
+    by_dev: Dict[torch.device, List[int]] = {}
+    for i, d in enumerate(slice_devs):
+        by_dev.setdefault(d, []).append(i)
+    if len(by_dev) == 1:
+        for i in range(len(slice_devs)):
+            run(i)
+    else:
+        errors: List[BaseException] = []
+
+        def worker(ids: List[int]) -> None:
+            try:
+                for i in ids:
+                    run(i)
+            except BaseException as e:       # re-raised on this thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=worker, args=(ids,))
+                   for ids in by_dev.values()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+    params = pytree.tree_map(lambda *xs: torch.cat([x.to(home) for x in xs]),
+                             *[r[0] for r in results])
+    hist = tuple(np.concatenate([r[1][j] for r in results], 0)
+                 for j in range(3))
+    return params, hist
+
+
 def fit_ensemble(cfg: models.TwoStageConfig, ds_train: AccelDataset,
                  tc: TrainConfig = TrainConfig(), n_members: int = 8,
                  archs: Optional[Sequence[str]] = None,
-                 ds_val: Optional[AccelDataset] = None, device=None
+                 ds_val: Optional[AccelDataset] = None, device=None,
+                 devices: DevicesLike = 1
                  ) -> Tuple[EnsembleParams, Dict[str, np.ndarray]]:
     """Train ``n_members`` independent models on ``device``, each
-    architecture group as one run over stacked parameters.
+    architecture group as one run over stacked parameters, its member
+    axis split over ``devices`` (module docstring).
 
     Member m uses seed ``tc.seed + m`` for its init, its batch plan and
     its dropout stream, so it follows a single
@@ -407,6 +563,7 @@ def fit_ensemble(cfg: models.TwoStageConfig, ds_train: AccelDataset,
     val_data = None if ds_val is None else _as_data(ds_val, dev)
     data = _as_data(ds_train, dev)
     n = ds_train.y.shape[0]
+    devs = device_lib.device_list(devices, dev)
 
     groups: List[Tuple[models.TwoStageConfig, models.TwoStageParams]] = []
     hist_tr, hist_eps, order = [], [], []
@@ -415,11 +572,10 @@ def fit_ensemble(cfg: models.TwoStageConfig, ds_train: AccelDataset,
         g_cfg = replace(cfg, gnn=replace(cfg.gnn, arch=arch))
         runs = [_run_inputs(g_cfg, tc, tc.seed + m, n, dev)
                 for m in members]
-        params0, idx, w, gens = (list(r) for r in zip(*runs))
-        gens = gens if g_cfg.gnn.dropout > 0 else None
-        params, (tr, _vls, act) = _fit(g_cfg, tc, data, _stack(params0),
-                                       torch.stack(idx), torch.stack(w),
-                                       gens, val_data)
+        params0, idx, w, _gens = (list(r) for r in zip(*runs))
+        params, (tr, _vls, act) = _fit_split(
+            g_cfg, tc, data, _stack(params0), torch.stack(idx),
+            torch.stack(w), [tc.seed + m for m in members], val_data, devs)
         groups.append((g_cfg, params))
         hist_tr.append(tr)
         hist_eps.append(act.sum(-1))

@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the reference's mask value
@@ -924,6 +926,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int S, int heads, int B,
 }
 
 constexpr int kErrTensorMap = -1;  // no driver entry point, or a bad map
+constexpr int kMaxDevices = 16;    // devices whose launch state is kept
 constexpr int kErrPlan = -2;       // the caller's plan is not the kernel's
 
 template <int D>
@@ -939,14 +942,20 @@ int launch_bf16(const Params& p, const int* plan, cudaStream_t stream) {
     return kErrTensorMap;
   Shape s{p.B, p.H, p.KV, p.S, p.causal, p.scale,
           static_cast<__nv_bfloat16*>(p.o), p.os};
-  static int sms = 0;
+  // the SM count, and the shared-memory attribute (which holds for the
+  // current device only), kept per device: set on a device's first launch
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 ||
+      device >= kMaxDevices)
+    return (int)cudaErrorInvalidDevice;
+  static std::atomic<int> sms_of[kMaxDevices];
+  int sms = sms_of[device].load();
   if (sms == 0) {
-    int device = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     cudaFuncSetAttribute(flash_wgmma_kernel<D>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          P::kSmem);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    sms_of[device].store(sms);
   }
   // persistent: one block an SM walks the work items (counted in int)
   const long long items = (long long)((p.S + P::kBQ - 1) / P::kBQ) * p.B * p.H;

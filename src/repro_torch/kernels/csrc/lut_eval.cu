@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -105,24 +107,41 @@ lut_global_kernel(const int* __restrict__ lut, int n_lut,
   __stcs(out + e, lookup(lut, n_lut, key, false));
 }
 
+constexpr int kMaxDevices = 16;  // devices whose launch state is kept
+
+// one device's launch state of a shared-table kernel
+struct LaunchState {
+  int smem = -1, per_sm = 0, sms = 0;
+};
+
 template <bool kHasB>
 int launch_shared(const int* lut, int n_lut, const int* a, const int* b,
                   int* out, long long m, int wb, cudaStream_t stream) {
   auto kernel = lut_shared_kernel<kHasB>;
   const int smem = n_lut * (int)sizeof(int);
-  // the occupancy of the last table size and the SM count, kept: the
-  // queries cost host time on every launch otherwise
-  static int last_smem = -1, per_sm = 0, sms = 0;
-  if (smem != last_smem) {
-    int device = 0;
+  // the occupancy of the last table size and the SM count, kept per
+  // device (the shared-memory attribute holds for the current device
+  // only): the queries cost host time on every launch otherwise. The
+  // featurize worker thread and the main thread both launch, so the state
+  // is read, set and launched under one lock: another table size cannot
+  // lower the attribute between this setting and this launch.
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 ||
+      device >= kMaxDevices)
+    return (int)cudaErrorInvalidDevice;
+  static std::mutex lock;
+  static LaunchState state[kMaxDevices];
+  std::lock_guard<std::mutex> hold(lock);
+  LaunchState& st = state[device];
+  if (smem != st.smem) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          smem);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                  smem);
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    last_smem = smem;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&st.per_sm, kernel,
+                                                  kThreads, smem);
+    cudaDeviceGetAttribute(&st.sms, cudaDevAttrMultiProcessorCount, device);
+    st.smem = smem;
   }
+  const int per_sm = st.per_sm, sms = st.sms;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   // 16-byte vectors need a, b and out on 16-byte boundaries (a fresh
   // tensor is; a view may start anywhere)

@@ -376,9 +376,13 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda():
 
 
 def test_from_gnn_refuses_several_devices():
-    with pytest.raises(NotImplementedError):
-        SurrogateEngine.from_gnn(None, None, None, None, {}, devices=2,
-                                 device="cpu")
+    """Several devices split the chunks (tests/test_torch_engine_sharded.py);
+    what is refused is a count below 0 or a device name in place of a
+    count or a list, before anything is built."""
+    for bad in (-1, -8, "cuda:1"):
+        with pytest.raises(ValueError, match="devices"):
+            SurrogateEngine.from_gnn(None, None, None, None, {},
+                                     devices=bad, device="cpu")
 
 
 def test_port_imports_neither_jax_nor_the_reference():

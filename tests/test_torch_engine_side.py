@@ -110,9 +110,12 @@ def test_shared_view_rows_match_the_reference(side, app):
     with pytest.raises(ValueError, match="not in merged"):
         SurrogateEngine.from_gnn_shared(tcfg, tparams, tm, "dct8", tent,
                                         device="cpu")
-    with pytest.raises(NotImplementedError):
-        SurrogateEngine.from_gnn_shared(tcfg, tparams, tm, app, tent,
-                                        devices=2, device="cpu")
+    # the view splits its chunks as from_gnn does: the same rows
+    split = SurrogateEngine.from_gnn_shared(tcfg, tparams, tm, app, tent,
+                                            chunk_size=16, devices=["cpu"] * 4,
+                                            device="cpu")
+    assert split.devices == 4
+    np.testing.assert_array_equal(split(fresh), teng(fresh))
 
 
 @pytest.mark.parametrize("app", APPS)

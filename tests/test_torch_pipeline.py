@@ -410,10 +410,18 @@ def test_ensemble_members_set_pareto_uncertainty():
 
 
 def test_eval_devices_above_one_raise():
-    with pytest.raises(NotImplementedError, match="one device"):
-        P.run_staged(tiny_cfg(eval_devices=2, dse_budget=60), device=CPU)
-    # 0 reads as every device of the type: one CPU
-    assert P._eval_devices(tiny_cfg(eval_devices=0), torch.device(CPU)) == 1
+    """A count reads as at most that many local devices of the run's type
+    (one CPU here), 0 as all of them; a negative count raises. A tuple of
+    devices splits the engine's chunks (tests/test_torch_training_sharded
+    .py holds its front to the unsplit run's)."""
+    res = P.run_staged(tiny_cfg(eval_devices=2, dse_budget=60), device=CPU)
+    assert res.engine.devices == 1
+    with pytest.raises(ValueError, match="devices"):
+        P.run_staged(tiny_cfg(eval_devices=-1, dse_budget=60), device=CPU)
+    cpu = torch.device(CPU)
+    assert P._eval_devices(tiny_cfg(eval_devices=0), cpu) == [cpu]
+    assert P._eval_devices(tiny_cfg(eval_devices=("cpu",) * 3), cpu) == \
+        [cpu] * 3
 
 
 def test_entry_points_without_a_card_raise():

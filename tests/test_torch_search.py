@@ -292,13 +292,14 @@ def test_fleet_ranks_auto_and_bad_backend(monkeypatch):
     called = []
     real = tislands._ranks_kernel_torch
     monkeypatch.setattr(tislands, "_ranks_kernel_torch",
-                        lambda R, device=None: called.append(1) or
-                        real(R, "cpu"))
+                        lambda R, devs: called.append(1) or real(R, devs))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    np.testing.assert_array_equal(tislands.fleet_ranks(F), want)
+    np.testing.assert_array_equal(tislands.fleet_ranks(F, device="cpu"),
+                                  want)
     assert not called
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    np.testing.assert_array_equal(tislands.fleet_ranks(F), want)
+    np.testing.assert_array_equal(tislands.fleet_ranks(F, device="cpu"),
+                                  want)
     assert called
     with pytest.raises(ValueError, match="nds_backend"):
         tislands.fleet_ranks(F, backend="jax")
