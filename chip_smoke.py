@@ -11,8 +11,8 @@ tensor-core instructions in each one's SASS, holds each kernel against
 its plain PyTorch version at the main paths' shapes (gnn_mp also at
 N = 21 and 64, F = 1, an odd Fo, H x 1e3 and the LM bridge's N = 7
 layers; flash_attention also at
-Granite-20B's and Qwen2.5-32B's D = 128 prefills, ragged, full and
-D = 16/32 shapes) and times both, and the one PyTorch call that computes
+Granite-20B's and Qwen2.5-32B's D = 128 prefills, Granite-3-2B's shards
+on a (2, 2) mesh, ragged, full and D = 16/32 shapes) and times both, and the one PyTorch call that computes
 the same function where there is one, with CUDA events around a CUDA
 graph of the calls, then drives the port's two main paths:
 
@@ -103,6 +103,19 @@ graph of the calls, then drives the port's two main paths:
   the model cut to two layers on the card against the CPU (bf16 and
   float32), and a restart drill of `launch.train.train` (a crash, a
   restore, the end state against uninterrupted runs);
+- the dense LM over a (data, model) mesh (`lm_mesh_slice` line):
+  Granite-3-2B at full width and depth on a (2, 2) mesh over every card,
+  or card 0 named four times (`split_devices`): the tp training step of
+  `launch.steps.plan` (float32 masters stored by BASE_RULES, bf16 compute
+  copies gathered once a step, K3 at each shard's 16 query heads) over 8
+  x 1024 tokens in two micro-batches, remat on, against the unsplit step
+  from the same initial state (loss and first moments), with a device
+  profile of a warm sharded step; serve8 (prefill of 8 x 1024 tokens,
+  32 decode steps on the int8 cache whose slots split over "model")
+  against the unsplit int8 run fed the same tokens; `ef_allreduce` over
+  "data" on one layer's gradients against the reference's formula; and
+  the elastic restart of `launch.train.train` at two layers in float32,
+  crashed on (2, 2) and restarted onto (4, 1) and one device;
 - ApproxPilot-LM (`bridge_slice` line): `lm_bridge.train_surrogate` on
   Qwen2.5-32B's train_4k op graph at the reference's bench settings (400
   samples, 40 epochs), alone and as a 4-member ensemble, its engine
@@ -482,6 +495,11 @@ FA_SHAPES = [
     ("d32_s333", 4, 8, 2, 333, 32, "bfloat16", True),
     ("d16_s77", 4, 4, 2, 77, 16, "bfloat16", True),
     ("granite3_2b_gpipe_micro", 2, 32, 8, 1024, 64, "bfloat16", True),
+    # a model shard of Granite-3-2B on the (2, 2) mesh: 16 query heads,
+    # 4 KV heads; 2 rows a training micro-batch, 4 a prefill
+    ("granite3_2b_mesh_train_shard", 2, 16, 4, 1024, 64, "bfloat16", True),
+    ("granite3_2b_mesh_prefill_shard", 4, 16, 4, 1024, 64, "bfloat16",
+     True),
 ]
 
 
@@ -3419,6 +3437,389 @@ def split_slice_phase(card: str, dev, devs, gaussian, trained, kept, *,
     return report, launches
 
 
+# -- the LM over a (data, model) mesh: Granite-3-2B, tp training, serve8 ------
+MESH_ARCH, MESH_SHAPE = "granite-3-2b", (2, 2)
+MESH_BATCH, MESH_SEQ, MESH_ACCUM, MESH_TIMED = 8, 1024, 2, 2
+MESH_PROMPT, MESH_NEW = 1024, 32
+# bf16 bars of the sharded run against the unsplit one: the loss (the
+# reference's own bar between its presets, tests/test_sharding.py), the
+# first moment (a tenth of the gradient) of the checked leaves, as the
+# two-layer card-vs-CPU gradient bar of the training slice
+MESH_LOSS_ATOL, MESH_GRAD_REL = 5e-3, 5e-2
+MESH_DRILL = dict(n_layers=2, batch=8, seq=64, steps=3, crash_at=2,
+                  ckpt_every=2)
+MESH_DRILL_REL = 1e-4      # float32, the card's atomics in the embedding
+MESH_LEAVES = ("embed/tokens", "blocks/attn/wq", "blocks/attn/wk",
+               "blocks/mlp/w_down", "blocks/norm1", "head/w")
+
+
+def _leaf(tree, path):
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def _first_layer(t):
+    """A checked leaf's first layer (a stacked leaf), as float32 on the
+    host."""
+    from repro_torch.distributed import meshes as M
+    if M.is_placed(t):
+        t = t.gather()
+    t = t.detach()
+    return (t[0] if t.dim() == 3 else t).float().cpu().clone()
+
+
+def lm_mesh_slice_phase(card: str, dev, devs, cfg=None,
+                        shape=MESH_SHAPE, batch: int = MESH_BATCH,
+                        seq: int = MESH_SEQ, accum: int = MESH_ACCUM,
+                        timed: int = MESH_TIMED, prompt: int = MESH_PROMPT,
+                        new: int = MESH_NEW, drill=MESH_DRILL,
+                        profile: bool = True):
+    """The dense LM over a (data, model) mesh of ``devs`` (cycled to the
+    mesh's size): the tp training step (`launch.steps.plan`, float32
+    masters stored by BASE_RULES, bf16 compute copies gathered once a
+    step) against the unsplit step from the same initial state; serve8
+    serving (TP-placed bf16 weights, the int8 cache's slots over "model")
+    against the unsplit int8 run fed the same tokens; `ef_allreduce` over
+    "data" on one layer's gradients; the elastic restart drill at two
+    layers in float32. Returns (report, K3 launches of the mesh runs)."""
+    import dataclasses
+    import gc
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import meshes as M
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.fault import FaultInjector, HostFailure
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models import decoding, transformer
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    cfg = cfg or get_arch(MESH_ARCH)
+    cuda = dev.type == "cuda"
+    n = int(math.prod(shape))
+    mesh_devs = [devs[i % len(devs)] for i in range(n)]
+    mesh = make_mesh(shape, ("data", "model"), mesh_devs)
+    lay = spmd.Layout(cfg, mesh)
+    report = {"card": card, "arch": cfg.name, "n_layers": cfg.n_layers,
+              "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+              "n_kv_heads": cfg.n_kv_heads, "mesh": dict(mesh.shape),
+              "devices": [str(d) for d in mesh_devs],
+              "distinct_cards": len(set(mesh_devs)),
+              "split_heads": lay.split_heads, "split_ff": lay.split_ff}
+    t0 = time.perf_counter()
+    timing = {}
+
+    def peak_gib():
+        return (torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda
+                else "not measured: no card")
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def k3():
+        return fa.LAUNCHES.value
+
+    shape_t = ShapeConfig("train", seq, batch, "train", grad_accum=accum)
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch)
+    tokens_per_step = batch * seq
+    mesh_k3 = 0
+
+    # -- training: the unsplit step, then the tp step from the same state --
+    free()
+    params, opt = train_lib.build_state(cfg, dev)
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    report["params"] = n_params
+    step1 = steps.make_train_step(cfg, shape_t)
+    unsplit_ms, unsplit = [], {}
+    for i in range(1 + timed):
+        b = batch_on(pipe.batch_at(i), {}, dev)
+        (params, opt, m), ms = timed_ms(dev, lambda: step1(params, opt, b))
+        if i == 0:
+            unsplit = {"loss": float(m["loss"]),
+                       "grad_norm": float(m["grad_norm"]),
+                       "m": {p: _first_layer(_leaf(opt.m, p))
+                             for p in MESH_LEAVES}}
+        else:
+            unsplit_ms.append(ms)
+    train = {"batch": batch, "seq": seq, "grad_accum": accum,
+             "remat": cfg.remat, "unsplit": {
+                 "loss_step0": unsplit["loss"],
+                 "ms_per_step": sum(unsplit_ms) / len(unsplit_ms),
+                 "step_ms": unsplit_ms, "peak_gib": peak_gib()}}
+    train["unsplit"]["tokens_per_s"] = (
+        tokens_per_step / train["unsplit"]["ms_per_step"] * 1e3)
+    del params, opt, m, b
+    free()
+    timing["unsplit_train"] = time.perf_counter() - t0
+
+    rules = steps.resolve_rules("tp")
+    fn, _specs, ins, _outs, _don = steps.plan(cfg, shape_t, mesh, rules)
+    params, opt = train_lib.build_state(cfg, dev, mesh=mesh)
+    state_bytes = M.nbytes_per_position((params, opt))
+    train["peak_gib_state"] = peak_gib()
+    # forward and remat's recompute, every layer, position, micro-batch
+    per_step = 2 * accum * cfg.n_layers * n
+    sharded_ms, losses, gnorms, launches_each = [], [], [], []
+    for i in range(1 + timed):
+        b = pipe.batch_at(i)
+        before = k3()
+        (params, opt, m), ms = timed_ms(dev, lambda: fn(params, opt, b))
+        launches_each.append(k3() - before)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        if i == 0:
+            got_m = {p: _first_layer(_leaf(opt.m, p)) for p in MESH_LEAVES}
+        else:
+            sharded_ms.append(ms)
+    mesh_k3 += sum(launches_each)
+    train["sharded"] = {
+        "preset": "tp", "ms_per_step": sum(sharded_ms) / len(sharded_ms),
+        "step_ms": sharded_ms, "losses": losses, "grad_norms": gnorms,
+        "peak_gib": peak_gib(), "k3_launches_per_step": launches_each,
+        "k3_launches_expected": per_step,
+        "state_bytes_per_position": state_bytes}
+    train["sharded"]["tokens_per_s"] = (
+        tokens_per_step / train["sharded"]["ms_per_step"] * 1e3)
+    train["sharded_over_unsplit"] = (train["sharded"]["ms_per_step"]
+                                     / train["unsplit"]["ms_per_step"])
+    rel = {p: float((got_m[p] - unsplit["m"][p]).norm()
+                    / unsplit["m"][p].norm().clamp_min(1e-30))
+           for p in MESH_LEAVES}
+    loss_gap = abs(losses[0] - unsplit["loss"])
+    train["checks"] = {"loss_gap_step0": loss_gap,
+                       "loss_bar": MESH_LOSS_ATOL,
+                       "grad_norm_step0": [gnorms[0], unsplit["grad_norm"]],
+                       "first_moment_rel_l2_layer0": rel,
+                       "first_moment_bar": MESH_GRAD_REL}
+    check(all(map(math.isfinite, losses + gnorms)),
+          "mesh training: a non-finite loss or grad norm")
+    check(loss_gap <= MESH_LOSS_ATOL,
+          f"mesh tp step: loss {losses[0]} against the unsplit "
+          f"{unsplit['loss']}")
+    check(max(rel.values()) <= MESH_GRAD_REL,
+          f"mesh tp step: first moments against the unsplit step's {rel}")
+    check(not cuda or all(e == per_step for e in launches_each),
+          f"mesh tp step: {launches_each} K3 launches a step, not "
+          f"{per_step} (forward and recompute, every layer, position and "
+          f"micro-batch)")
+    if cuda and profile:
+        b = pipe.batch_at(1 + timed)
+        before = k3()
+        train["step_device_profile"] = device_profile(
+            lambda: fn(params, opt, b), spans=(*ops.SPANS, adamw.SPAN))
+        mesh_k3 += k3() - before
+    report["train"] = train
+    del params, opt, m, fn, b
+    free()
+    timing["sharded_train"] = time.perf_counter() - t0
+
+    # -- serving: serve8 over the mesh against the unsplit int8 run ---------
+    serve = {"batch": batch, "prompt": prompt, "new_tokens": new,
+             "preset": "serve8"}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = transformer.build_param_table(cfg).init(
+        gen, device=dev, dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=dev, dtype=torch.int32)
+    max_len = prompt + new
+
+    def unsplit_run(c, prm, feed=None):
+        last, cache = decoding.prefill(c, prm, {"tokens": toks},
+                                       max_len=max_len)
+        cache = decoding.quantize_cache(c, cache)
+        out, fed, ms = [last.float()], [], []
+        for t in range(new):
+            nxt = (out[-1].argmax(-1, keepdim=True).int() if feed is None
+                   else feed[t])
+            fed.append(nxt)
+            (lg, cache), d = timed_ms(dev, lambda: decoding.decode_step(
+                c, prm, cache, nxt, prompt + t))
+            ms.append(d)
+            out.append(lg[:, 0].float())
+        return out, fed, ms, cache
+
+    def agree(a_list, b_list):
+        """The share of (step, row) whose greedy tokens agree."""
+        hits = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                   for a, b in zip(a_list, b_list))
+        return hits / sum(a.shape[0] for a in a_list)
+
+    _, pre_ms_u = timed_ms(dev, lambda: decoding.prefill(
+        cfg, params, {"tokens": toks}, max_len=max_len))
+    want, feed, dec_u, ucache = unsplit_run(cfg, params)
+    if cuda and profile:
+        serve["unsplit_decode_device_profile"] = device_profile(
+            lambda: decoding.decode_step(cfg, params, ucache, feed[-1],
+                                         max_len - 1))
+    del ucache
+    # the bar: twice the unsplit path's own bf16-vs-float32 gap at the
+    # same prompts and fed tokens, as the CPU test holds it
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    ref32, _f, _m, _c = unsplit_run(c32, p32, feed)
+    del p32, _c
+    free()
+    own = max(float((a - b).abs().max()) for a, b in zip(want, ref32))
+    own_agree = agree(want, ref32)
+    del ref32
+    serve["unsplit"] = {"prefill_warm_ms": pre_ms_u,
+                        "decode_ms_per_step": sum(dec_u[1:])
+                        / max(len(dec_u) - 1, 1)}
+    dshape = ShapeConfig("decode", max_len, batch, "decode")
+    dfn, _s, dins, _o, _d = steps.plan(cfg, dshape, mesh,
+                                       steps.resolve_rules("serve8"))
+    P = M.place_tree(params, dins[0])
+    serve["param_bytes_per_position"] = M.nbytes_per_position(P)
+    tok_pl = M.data_sharding(mesh, batch, 2)
+    tplaced = M.place(toks, tok_pl)
+    spmd.prefill(cfg, mesh, P, tplaced, max_len=max_len)     # warm
+    before = k3()
+    (lg, cache), pre_ms = timed_ms(dev, lambda: spmd.prefill(
+        cfg, mesh, P, tplaced, max_len=max_len))
+    prefill_k3 = k3() - before
+    mesh_k3 += prefill_k3
+    cache = spmd.quantize_cache(cfg, cache)
+    serve["cache_bytes_per_position"] = M.nbytes_per_position(cache)
+    got = [lg.gather(dev).float()]
+    dec_ms = []
+    for t in range(new):
+        (lg, cache), d = timed_ms(dev, lambda: dfn(P, cache, feed[t],
+                                                   prompt + t))
+        dec_ms.append(d)
+        got.append(lg.gather(dev)[:, 0].float())
+    serve["sharded"] = {"prefill_warm_ms": pre_ms,
+                        "decode_ms_per_step": sum(dec_ms[1:])
+                        / max(len(dec_ms) - 1, 1),
+                        "k3_launches_prefill": prefill_k3,
+                        "k3_launches_expected": cfg.n_layers * n,
+                        "peak_gib": peak_gib()}
+    if cuda and profile:
+        # the last step again (its slot rewritten with the same token)
+        serve["sharded"]["decode_device_profile"] = device_profile(
+            lambda: dfn(P, cache, feed[-1], max_len - 1))
+    gaps = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    bar = 2 * own
+    serve["checks"] = {
+        "logits_max_abs_gap": max(gaps), "prefill_gap": gaps[0],
+        "bar": bar, "bar_rule": "2 x the unsplit run's own bf16-vs-float32 "
+        "max abs gap at the same prompts and fed tokens",
+        "unsplit_bf16_vs_float32_gap": own,
+        "logits_max_abs": max(float(w.abs().max()) for w in want),
+        "greedy_agree_share": agree(got, want),
+        "unsplit_bf16_vs_float32_greedy_agree_share": own_agree}
+    check(max(gaps) <= bar and all(map(finite, got)),
+          f"serve8 over the mesh against the unsplit int8 run: gaps {gaps}"
+          f", bar {bar}")
+    report["serve"] = serve
+    del params, P, cache, lg, got, want
+    free()
+    timing["serve"] = time.perf_counter() - t0
+
+    # -- ef_allreduce over "data": one layer's gradients at full width ------
+    table = transformer.build_param_table(cfg)
+    layer_paths = [("blocks/attn/" + k) for k in ("wq", "wk", "wv", "wo")] \
+        + [("blocks/mlp/" + k) for k in ("w_gate", "w_up", "w_down")]
+    g, res, want_avg = {}, {}, {}
+    for path in layer_paths:
+        shp = table.defs[path][0][1:]
+        pieces = [torch.randn(shp, device=d, generator=None) * 1e-3
+                  for d in mesh_devs]
+        pl = M.Placement(mesh, M.P())
+        g[path] = M.ShardedTensor(pl, shp, pieces, ("data",))
+    (avg, res), ef_ms = timed_ms(dev, lambda: comp.ef_allreduce(
+        g, None, "data"))
+    worst = 0.0
+    for path in layer_paths:
+        for grp in M._groups(mesh, ("data",)):
+            qs = [comp.quantize(g[path].pieces[j].float()) for j in grp]
+            tot = sum(q.to(torch.int32) for q, _ in qs)
+            s_mean = sum(s for _, s in qs) / len(grp)
+            ref_avg = tot.float() * s_mean / len(grp)
+            for j in grp:
+                worst = max(worst, float((avg[path].pieces[j] - ref_avg)
+                                         .abs().max()))
+    report["ef_allreduce"] = {
+        "axis": "data", "leaves": layer_paths,
+        "elements": sum(int(torch.Size(table.defs[p][0][1:]).numel())
+                        for p in layer_paths), "ms": ef_ms,
+        "max_abs_vs_formula": worst}
+    check(worst == 0.0, f"ef_allreduce over data: {worst} from the "
+          f"reference's formula")
+    del g, avg, res
+    free()
+    timing["ef"] = time.perf_counter() - t0
+
+    # -- the elastic restart: (2, 2) onto (4, 1) and one device -------------
+    c2 = dataclasses.replace(cfg, n_layers=drill["n_layers"],
+                             dtype="float32")
+    dshape = ShapeConfig("drill", drill["seq"], drill["batch"], "train")
+    kw = dict(ckpt_every=drill["ckpt_every"], log_every=0, device=dev)
+    rest = {**drill}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = train_lib.train(c2, dshape, drill["steps"], None, mesh=mesh,
+                              **kw)
+        refl = [x.gather(dev) if M.is_placed(x) else x
+                for x in tree_leaves((ref["params"], ref["opt"]))]
+        del ref
+        try:
+            train_lib.train(c2, dshape, drill["steps"], tmp + "/a",
+                            injector=FaultInjector(
+                                crash_at=[drill["crash_at"]]),
+                            restarts_left=0, mesh=mesh, **kw)
+            crashed = False
+        except HostFailure:
+            crashed = True
+        check(crashed, "mesh restart drill: the injected crash did not "
+              "happen")
+        for shp in ((4, 1), (1, 1)):
+            k = int(math.prod(shp))
+            m2 = make_mesh(shp, ("data", "model"),
+                           [mesh_devs[i % len(mesh_devs)] for i in range(k)])
+            d = f"{tmp}/m{shp[0]}x{shp[1]}"
+            shutil.copytree(tmp + "/a", d)
+            t = time.perf_counter()
+            out = train_lib.train(c2, dshape, drill["steps"], d, mesh=m2,
+                                  **kw)
+            leaves = [x.gather(dev) if M.is_placed(x) else x
+                      for x in tree_leaves((out["params"], out["opt"]))]
+            worst = max(float((a.float() - b.float()).norm()
+                              / b.float().norm().clamp_min(1e-30))
+                        for a, b in zip(leaves, refl))
+            rest[f"onto_{shp[0]}x{shp[1]}"] = {
+                "final_step": out["final_step"], "mesh": out["mesh"],
+                "losses": out["losses"], "max_leaf_rel_l2": worst,
+                "s": time.perf_counter() - t}
+            check(out["final_step"] == drill["steps"]
+                  and worst <= MESH_DRILL_REL,
+                  f"mesh restart onto {shp}: step {out['final_step']}, "
+                  f"{worst} from the uninterrupted (2, 2) run")
+            del out, leaves
+    rest["bar"] = MESH_DRILL_REL
+    report["restart_drill"] = rest
+    del refl
+    free()
+    timing["restart"] = time.perf_counter() - t0
+    report["timing_s"] = timing
+    report["wall_s"] = time.perf_counter() - t0
+    report["launches"] = {"flash_attention": mesh_k3}
+    return report, mesh_k3
+
+
+
 def main() -> int:
     try:
         import torch
@@ -3514,6 +3915,11 @@ def main() -> int:
     print("lm_train_slice " + json.dumps(train_lm_report), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    mesh_report, mesh_k3 = lm_mesh_slice_phase(card, torch.device("cuda"),
+                                               split_devices())
+    print("lm_mesh_slice " + json.dumps(mesh_report), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     fams = fam_report["models"]
     # (label, arch, kind, seq, batch, grad_accum, max_len, measured ms)
     paths = [
@@ -3565,7 +3971,7 @@ def main() -> int:
          "launches": lm_launches["flash_attention"]
          + moe_launches["flash_attention"] + fam_launches
          + train_lm_launches["flash_attention"]
-         + split_launches["flash_attention"],
+         + split_launches["flash_attention"] + mesh_k3,
          "max_abs_err": fr["max_abs_err"], "ms": fr["ms"],
          "plain_ms": fr["plain_ms"], "bound_ms": fr["bound_ms"],
          "bound_by": fr["bound_by"], "library_ms": fr["library_ms"]},

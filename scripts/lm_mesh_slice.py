@@ -1,0 +1,54 @@
+"""`chip_smoke.py`'s LM-over-a-mesh phase alone, on the card.
+
+    python3 scripts/lm_mesh_slice.py
+
+Builds the kernels, holds K3 at the mesh's per-shard shapes (Granite-3-2B
+on a (2, 2) mesh: 16 query heads and 4 KV heads a shard, 2 rows a
+training micro-batch, 4 a prefill) against its plain version and SDPA,
+then runs `chip_smoke.lm_mesh_slice_phase` over every card, or card 0
+named four times (`chip_smoke.split_devices`). Prints the card line, a
+``fa [...]`` line and the ``lm_mesh_slice {...}`` line; exits 1 when a
+check fails. A few minutes of command on an H100.
+"""
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("lm_mesh_slice: no CUDA device is available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    card = cs.card_line()
+    print(card, flush=True)
+    t = time.perf_counter()
+    build.build()
+    print(f"build: {time.perf_counter() - t:.1f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = cs.flash_attention_phase(
+        gen, [r for r in cs.FA_SHAPES if "_mesh_" in r[0]])
+    print("fa " + json.dumps(rows), flush=True)
+    report, _ = cs.lm_mesh_slice_phase(card, torch.device("cuda"),
+                                       cs.split_devices())
+    print("lm_mesh_slice " + json.dumps(report), flush=True)
+    if cs.FAILURES:
+        print("lm_mesh_slice: " + "; ".join(cs.FAILURES), file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,6 +23,11 @@ knows neither type); the manifest names the real type.
   written.
 - Retention keeps the last ``keep_last`` steps.
 - `restore` rebuilds the caller's tree on the caller's device.
+- Elastic restore: a leaf placed on a mesh
+  (`distributed.meshes.ShardedTensor`) is saved as its whole logical
+  array, and `restore(..., shardings=)` places each leaf by the current
+  mesh's `Placement`s, so a run may restart on another mesh shape or
+  device count.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.distributed import meshes as M
 from repro_torch.models.layers import tree_leaves
 
 # types NumPy cannot hold: stored as integer bits of the same width
@@ -60,6 +66,8 @@ def _unflatten(like, it):
 
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     """(the array written to disk, the leaf's dtype name)."""
+    if M.is_placed(leaf):
+        leaf = leaf.gather("cpu")
     if not isinstance(leaf, torch.Tensor):
         arr = np.asarray(leaf)
         return arr, str(arr.dtype)
@@ -135,11 +143,13 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
 
 
 def restore(ckpt_dir: str | Path, tree_like, step: Optional[int] = None,
-            device: DeviceLike = None):
+            device: DeviceLike = None, shardings=None):
     """(the tree saved at ``step`` (the latest if None) in the structure
-    of ``tree_like``, the step). Each leaf goes to ``device`` if given,
-    else to the device of its leaf in ``tree_like`` (the CPU for a
-    non-tensor leaf)."""
+    of ``tree_like``, the step). With ``shardings`` (a tree of
+    `Placement`s in that structure) each leaf is placed by its own
+    (`meshes.place`); else it goes to ``device`` if given, else to the
+    device of its leaf in ``tree_like`` (the CPU for a non-tensor
+    leaf)."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -153,10 +163,16 @@ def restore(ckpt_dir: str | Path, tree_like, step: Optional[int] = None,
     if manifest["n_leaves"] != len(like):
         raise ValueError(f"leaf count mismatch: {manifest['n_leaves']} "
                          f"saved, {len(like)} in the tree")
+    pls = tree_leaves(shardings) if shardings is not None else None
     out = []
     for i, leaf in enumerate(like):
         t = _from_numpy(np.load(d / f"arr_{i}.npy"),
                         manifest["leaves"][i]["dtype"])
+        if pls is not None:
+            out.append(M.place(t, pls[i]))
+            continue
+        if M.is_placed(leaf):
+            leaf = leaf.pieces[0]
         dev = device if device is not None else (
             leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
         out.append(t.to(dev))
@@ -194,8 +210,10 @@ class AsyncCheckpointer:
         if self._err:
             raise self._err
         host = _unflatten(tree, iter(
-            [x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor)
-             else x for x in tree_leaves(tree)]))
+            [x.gather("cpu") if M.is_placed(x)
+             else x.detach().to("cpu", copy=True)
+             if isinstance(x, torch.Tensor) else x
+             for x in tree_leaves(tree)]))
         self._q.put((step, host))          # blocks if a save is in flight
 
     def wait(self) -> None:

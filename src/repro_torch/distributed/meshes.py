@@ -21,9 +21,16 @@ unsplit one. One process holds the device list (single-controller): each
 slice is copied to its device, every slice is dispatched before any is
 collected, and the results are gathered on the primary device. A device
 named several times in the list runs its slices one after another.
+
+The LM over a mesh (`distributed.spmd`) holds its tensors placed:
+`ShardedTensor` (a piece per mesh position, `place`, `gather`,
+`map_placed`), the collectives over a named axis (`all_gather`,
+`reduce_scatter`, `all_reduce`, `reshard`) and `sync_replicas`; notes
+before `ShardedTensor`.
 """
 from __future__ import annotations
 
+import functools
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -331,3 +338,458 @@ def data_parallel_mesh(min_devices: int = 1,
     if len(devs) < min_devices:
         return None
     return mesh_of(devs, (len(devs),), ("data",))
+
+
+# --------------------------------------------------------------------------
+# placed tensors and collectives over a named axis
+# --------------------------------------------------------------------------
+#
+# The counterpart of a `jax.Array` with a `NamedSharding`: a `ShardedTensor`
+# holds one piece per mesh position, in mesh order (row-major over the
+# mesh's axes). A dim that the spec gives to axis ``a`` (or a tuple of
+# axes) is cut into ``mesh.shape[a]`` equal blocks; the piece of a
+# position is the block of its coordinate on that axis; replicated dims
+# are whole. Each piece lives on its position's device, so a device named
+# k times holds k pieces. A tensor may also be *partial* over some axes:
+# its logical value is the sum of the pieces across those axes (the
+# unreduced output of a row-parallel product, or per-device gradients).
+#
+# The collectives are single-controller: one process moves pieces between
+# devices with copies and sums them in float32, always in mesh order, so a
+# result is the same on every device of a group and does not depend on
+# the order of work. All three are differentiable (autograd Functions):
+# the transpose of a gather is a reduce-scatter, and the transpose of an
+# all-reduce an all-reduce. NCCL would not serve here: it refuses two
+# ranks on one card, and the tests name one CPU eight times.
+
+
+@functools.lru_cache(maxsize=256)
+def _positions(mesh: Mesh) -> Tuple[Dict[str, int], ...]:
+    return tuple(dict(zip(mesh.axis_names, idx))
+                 for idx in np.ndindex(*mesh.devices.shape))
+
+
+def positions(mesh: Mesh) -> List[Dict[str, int]]:
+    """Every position's coordinates ({axis: index}), in mesh order."""
+    return [dict(c) for c in _positions(mesh)]
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def block_of(mesh: Mesh, spec: PartitionSpec, shape: Tuple[int, ...],
+             coords: Dict[str, int]) -> Tuple[Tuple[int, int], ...]:
+    """The (lo, hi) range of every dim that the position ``coords`` holds
+    of a tensor of ``shape`` placed by ``spec`` (a tuple of axes splits
+    row-major, the first axis outermost, as JAX's)."""
+    out = []
+    for k, dim in enumerate(shape):
+        axes = _axes_of(spec[k]) if k < len(spec) else ()
+        n, i = 1, 0
+        for a in axes:
+            i = i * mesh.shape[a] + coords[a]
+            n *= mesh.shape[a]
+        if dim % n:
+            raise ValueError(f"dim {k} of {tuple(shape)} does not split "
+                             f"into {n} blocks over {axes}")
+        size = dim // n
+        out.append((i * size, (i + 1) * size))
+    return tuple(out)
+
+
+def _region(block, within) -> Tuple[slice, ...]:
+    """Slices of ``block`` (global ranges) inside a piece holding
+    ``within``."""
+    return tuple(slice(lo - w0, hi - w0)
+                 for (lo, hi), (w0, _w1) in zip(block, within))
+
+
+def _overlap(a, b):
+    out = []
+    for (a0, a1), (b0, b1) in zip(a, b):
+        lo, hi = max(a0, b0), min(a1, b1)
+        if lo >= hi:
+            return None
+        out.append((lo, hi))
+    return tuple(out)
+
+
+class ShardedTensor:
+    """A tensor placed on a mesh (module notes above): ``pieces[i]`` is
+    mesh position i's block, on that position's device. ``partial``
+    names the axes over which the pieces are unreduced summands."""
+
+    def __init__(self, placement: Placement, shape: Sequence[int],
+                 pieces: Sequence[torch.Tensor],
+                 partial: Tuple[str, ...] = ()):
+        self.placement = placement
+        self.shape = torch.Size(shape)
+        self.pieces = list(pieces)
+        self.partial = tuple(partial)
+        assert len(self.pieces) == placement.mesh.size
+
+    @classmethod
+    def from_pieces(cls, placement: Placement, pieces, partial=()):
+        """The placed tensor whose pieces are ``pieces``; its logical shape
+        is the first piece's times the split of each dim."""
+        mesh, spec = placement.mesh, placement.spec
+        shp = list(pieces[0].shape)
+        for k in range(len(shp)):
+            if k < len(spec):
+                shp[k] *= axis_size(mesh, spec[k])
+        return cls(placement, shp, pieces, partial)
+
+    @property
+    def mesh(self) -> Mesh:
+        return self.placement.mesh
+
+    @property
+    def spec(self) -> PartitionSpec:
+        return self.placement.spec
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.pieces[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def blocks(self) -> List[Tuple[Tuple[int, int], ...]]:
+        return [block_of(self.mesh, self.spec, self.shape, c)
+                for c in positions(self.mesh)]
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole logical tensor on ``device`` (default: the mesh's
+        first device); a partial tensor is summed (float32, mesh order)
+        and returned in float32."""
+        dst = torch.device(device) if device is not None \
+            else self.mesh.device_list()[0]
+        if self.partial:
+            return all_reduce(self, self.partial).gather(dst)
+        out = torch.empty(self.shape, dtype=self.dtype, device=dst)
+        seen = set()
+        for piece, blk in zip(self.pieces, self.blocks()):
+            if blk not in seen:
+                seen.add(blk)
+                out[tuple(slice(lo, hi) for lo, hi in blk)].copy_(
+                    piece.detach())
+        return out
+
+    def __repr__(self) -> str:
+        return (f"ShardedTensor(shape={tuple(self.shape)}, "
+                f"dtype={self.dtype}, spec={self.spec}, "
+                f"partial={self.partial})")
+
+
+def place(tensor: torch.Tensor, placement: Placement,
+          dtype: Optional[torch.dtype] = None) -> ShardedTensor:
+    """``tensor`` cut into ``placement``'s pieces, each copied to its
+    position's device (a distinct tensor per position, also where a
+    device is named several times)."""
+    mesh = placement.mesh
+    shape = tuple(tensor.shape)
+    pieces = []
+    for dev, c in zip(mesh.device_list(), positions(mesh)):
+        blk = block_of(mesh, placement.spec, shape, c)
+        piece = tensor[tuple(slice(lo, hi) for lo, hi in blk)]
+        pieces.append(piece.to(dev, dtype=dtype or tensor.dtype,
+                               copy=True).contiguous())
+    return ShardedTensor(placement, shape, pieces)
+
+
+def map_placed(fn, *xs: ShardedTensor, placement: Optional[Placement] = None,
+               partial: Optional[Tuple[str, ...]] = None) -> ShardedTensor:
+    """``fn`` applied at every position to the pieces of ``xs`` (placed on
+    one mesh); the result keeps the first's placement and partial axes
+    unless given."""
+    x0 = xs[0]
+    pieces = [fn(*ps) for ps in zip(*(x.pieces for x in xs))]
+    return ShardedTensor.from_pieces(
+        placement or x0.placement, pieces,
+        x0.partial if partial is None else partial)
+
+
+def is_placed(x) -> bool:
+    return isinstance(x, ShardedTensor)
+
+
+def place_tree(tree, placements, dtype: Optional[torch.dtype] = None):
+    """`place` over matching trees of tensors and `Placement`s."""
+    if isinstance(tree, dict):
+        return {k: place_tree(v, placements[k], dtype)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(place_tree(v, p, dtype)
+                            for v, p in zip(tree, placements)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place_tree(v, p, dtype)
+                          for v, p in zip(tree, placements))
+    if is_placed(tree):
+        return reshard(tree, placements, dtype)
+    return place(tree, placements, dtype)
+
+
+def nbytes_per_position(tree) -> List[int]:
+    """Bytes each mesh position holds of the placed leaves of ``tree``
+    (all on one mesh), in mesh order."""
+    out: Optional[List[int]] = None
+    for x in pytree.tree_leaves(tree, is_leaf=is_placed):
+        if not is_placed(x):
+            continue
+        b = [p.numel() * p.element_size() for p in x.pieces]
+        out = b if out is None else [u + v for u, v in zip(out, b)]
+    return out or []
+
+
+def nbytes_per_device(tree) -> Dict[str, int]:
+    """Bytes each device holds of the placed leaves of ``tree``; a device
+    named k times counts its k positions' pieces."""
+    out: Dict[str, int] = {}
+    for x in pytree.tree_leaves(tree, is_leaf=is_placed):
+        if not is_placed(x):
+            continue
+        for dev, p in zip(x.mesh.device_list(), x.pieces):
+            out[str(dev)] = out.get(str(dev), 0) + p.numel() * \
+                p.element_size()
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _groups(mesh: Mesh, over: Tuple[str, ...]) -> List[List[int]]:
+    """Positions grouped by their coordinates off the axes ``over``: each
+    group lists the positions (mesh order) that differ only along
+    ``over``."""
+    keyed: "OrderedDict[tuple, List[int]]" = OrderedDict()
+    for i, c in enumerate(positions(mesh)):
+        key = tuple(v for a, v in c.items() if a not in over)
+        keyed.setdefault(key, []).append(i)
+    return list(keyed.values())
+
+
+def _holder(coords: List[Dict[str, int]], devs, hs: List[int], i: int
+            ) -> int:
+    """The holder (among positions ``hs``) position i reads a block from:
+    one on i's device that shares most of i's coordinates, else the one
+    that shares most; the first in mesh order on ties."""
+    def score(j):
+        same = sum(coords[j][a] == v for a, v in coords[i].items())
+        return (devs[j] == devs[i], same)
+    best = max(score(j) for j in hs)
+    return next(j for j in hs if score(j) == best)
+
+
+@functools.lru_cache(maxsize=4096)
+def _exchange_plan(mesh: Mesh, src_spec: PartitionSpec,
+                   dst_spec: PartitionSpec, shape: Tuple[int, ...],
+                   partial: Tuple[str, ...]):
+    """What `_Exchange` moves, computed once per (mesh, specs, shape):
+    the source and destination blocks, and for a non-partial source each
+    destination's reads (source position, global region)."""
+    coords = _positions(mesh)
+    devs = mesh.device_list()
+    sblk = tuple(block_of(mesh, src_spec, shape, c) for c in coords)
+    dblk = tuple(block_of(mesh, dst_spec, shape, c) for c in coords)
+    if partial:
+        return sblk, dblk, _groups(mesh, partial), None
+    holders: Dict[tuple, List[int]] = {}
+    for j, b in enumerate(sblk):
+        holders.setdefault(b, []).append(j)
+    reads = []
+    for i in range(len(devs)):
+        for b, hs in holders.items():
+            ov = _overlap(b, dblk[i])
+            if ov is not None:
+                reads.append((i, _holder(list(coords), devs, hs, i), ov))
+    return sblk, dblk, None, tuple(reads)
+
+
+class _Exchange(torch.autograd.Function):
+    """Pieces of ``src`` -> pieces of the placement ``dst`` (not partial).
+
+    Forward: every destination piece is assembled from the source: a
+    non-partial source's blocks are copied from one holder each
+    (`_holder`: its own piece, else a group peer's); a partial source is
+    summed in float32 over the destination's group (positions that differ
+    only along the partial axes), once per group and block on the group's
+    first device, and copied to the rest, so every device of a group
+    holds the same values.
+    Backward, the transpose: a non-partial source piece receives the
+    float32 sum, in mesh order, of the gradients of the destination
+    regions read from it (the transpose of a gather is a reduce-scatter);
+    a partial source piece receives the sum over its group's destination
+    pieces (the transpose of an all-reduce is an all-reduce). The copies
+    of a replicated block each receive what their own readers sent:
+    `sync_replicas` sums them, as a parameter's replicas need."""
+
+    @staticmethod
+    def forward(ctx, src_meta, dst: Placement, dtype, *pieces):
+        src_pl, shape, partial = src_meta
+        mesh = src_pl.mesh
+        devs = mesh.device_list()
+        sblk, dblk, groups, reads = _exchange_plan(
+            mesh, src_pl.spec, dst.spec, tuple(shape), tuple(partial))
+        out: List[Optional[torch.Tensor]] = [None] * len(devs)
+        if partial:
+            for grp in groups:
+                done: Dict[tuple, torch.Tensor] = {}
+                for i in grp:
+                    key = dblk[i]
+                    if key not in done:
+                        acc = None
+                        for j in grp:        # mesh order
+                            part = pieces[j][_region(key, sblk[j])].to(
+                                devs[grp[0]], torch.float32)
+                            acc = part if acc is None else acc + part
+                        done[key] = acc
+                    out[i] = done[key].to(devs[i], dtype or pieces[0].dtype,
+                                          copy=True).contiguous()
+        else:
+            for i, dev in enumerate(devs):
+                out[i] = torch.empty([hi - lo for lo, hi in dblk[i]],
+                                     dtype=dtype or pieces[0].dtype,
+                                     device=dev)
+            for i, j, ov in reads:
+                out[i][_region(ov, dblk[i])].copy_(
+                    pieces[j][_region(ov, sblk[j])])
+        ctx.meta = (mesh, partial, sblk, dblk, groups, reads,
+                    [p.dtype for p in pieces])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, partial, sblk, dblk, groups, reads, dtypes = ctx.meta
+        devs = mesh.device_list()
+        acc: List[Optional[torch.Tensor]] = [None] * len(devs)
+
+        def add(j, region, g):
+            if acc[j] is None:
+                acc[j] = torch.zeros([hi - lo for lo, hi in sblk[j]],
+                                     dtype=torch.float32, device=devs[j])
+            acc[j][_region(region, sblk[j])] += g.to(devs[j],
+                                                     torch.float32)
+
+        if partial:
+            for grp in groups:
+                for j in grp:
+                    for i in grp:                   # mesh order
+                        ov = _overlap(sblk[j], dblk[i])
+                        if grads[i] is not None and ov is not None:
+                            add(j, ov, grads[i][_region(ov, dblk[i])])
+        else:
+            for i, j, ov in reads:                  # mesh order of i
+                if grads[i] is not None:
+                    add(j, ov, grads[i][_region(ov, dblk[i])])
+        gin = [None if a is None else a.to(dt)
+               for a, dt in zip(acc, dtypes)]
+        return (None, None, None, *gin)
+
+
+def sync_replicas(x: ShardedTensor) -> ShardedTensor:
+    """Sum, in place, the pieces that hold the same block (float32, mesh
+    order) and give each copy the sum: the all-reduce of a replicated
+    parameter's gradients over its copies."""
+    with torch.no_grad():
+        holders: Dict[tuple, List[int]] = {}
+        for j, b in enumerate(x.blocks()):
+            holders.setdefault(b, []).append(j)
+        for hs in holders.values():
+            if len(hs) < 2:
+                continue
+            first = x.pieces[hs[0]]
+            tot = None
+            for j in hs:
+                t = x.pieces[j].to(first.device, torch.float32)
+                tot = t if tot is None else tot + t
+            for j in hs:
+                x.pieces[j].copy_(tot)
+    return x
+
+
+def global_norm(xs: Sequence[ShardedTensor]) -> torch.Tensor:
+    """The float32 L2 norm of the placed leaves ``xs`` together, each
+    logical element once: a leaf's squared sum over one piece of each
+    distinct block (mesh order), the leaves' sums added in their order on
+    the mesh's first device. `optim.adamw.global_norm` of the gathered
+    leaves, without a replicated block counted once per copy."""
+    dev = xs[0].mesh.device_list()[0]
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for x in xs:
+            leaf, seen = None, set()
+            for piece, blk in zip(x.pieces, x.blocks()):
+                if blk in seen:
+                    continue
+                seen.add(blk)
+                s = piece.float().square().sum().to(dev)
+                leaf = s if leaf is None else leaf + s
+            total = total + leaf
+    return torch.sqrt(total)
+
+
+def reshard(x: ShardedTensor, placement: Placement,
+            dtype: Optional[torch.dtype] = None) -> ShardedTensor:
+    """``x`` on ``placement`` (cast to ``dtype`` on the way), through
+    `_Exchange`; differentiable. A partial ``x`` is reduced. Returns ``x``
+    itself when nothing moves."""
+    if (not x.partial and _padded(placement.spec, x.ndim)
+            == _padded(x.spec, x.ndim) and placement.mesh is x.mesh
+            and (dtype is None or dtype == x.dtype)):
+        return x
+    pieces = _Exchange.apply((x.placement, tuple(x.shape), x.partial),
+                             placement, dtype, *x.pieces)
+    return ShardedTensor(placement, x.shape, pieces)
+
+
+def _padded(spec: PartitionSpec, ndim: int) -> tuple:
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+def _without(spec: PartitionSpec, axis: str, dim: int) -> PartitionSpec:
+    """``spec`` with ``axis`` taken off dim ``dim``."""
+    parts = list(spec)
+    parts[dim] = tuple(a for a in _axes_of(parts[dim]) if a != axis)
+    return P(*parts)
+
+
+def all_gather(x: ShardedTensor, axis: str, dim: int) -> ShardedTensor:
+    """``x`` with dim ``dim`` whole across ``axis`` (which it was split
+    over); the backward reduce-scatters."""
+    if axis not in _axes_of(list(x.spec)[dim] if dim < len(x.spec)
+                            else None):
+        raise ValueError(f"dim {dim} of {x} is not split over {axis!r}")
+    return reshard(x, Placement(x.mesh, _without(x.spec, axis, dim)))
+
+
+def reduce_scatter(x: ShardedTensor, axis: str, dim: int,
+                   dtype: Optional[torch.dtype] = None) -> ShardedTensor:
+    """The sum of ``x``'s pieces over ``axis`` (``x`` partial over it),
+    float32 in mesh order, with dim ``dim`` split over ``axis``; the
+    backward all-gathers."""
+    if axis not in x.partial:
+        raise ValueError(f"{x} is not partial over {axis!r}")
+    parts = list(x.spec) + [None] * (dim + 1 - len(x.spec))
+    parts[dim] = _axes_of(parts[dim]) + (axis,)
+    dst = Placement(x.mesh, P(*parts))
+    pieces = _Exchange.apply((x.placement, tuple(x.shape), (axis,)), dst,
+                             dtype or torch.float32, *x.pieces)
+    return ShardedTensor(dst, x.shape, pieces,
+                         tuple(a for a in x.partial if a != axis))
+
+
+def all_reduce(x: ShardedTensor, axis, dtype: Optional[torch.dtype] = None
+               ) -> ShardedTensor:
+    """The sum of ``x``'s pieces over ``axis`` (a name or a tuple of
+    names, all among ``x.partial``), float32 in mesh order, the same on
+    every device of each group (cast to ``dtype``, default float32);
+    differentiable, the backward an all-reduce of the gradients."""
+    axes = _axes_of(axis)
+    if not set(axes) <= set(x.partial):
+        raise ValueError(f"{x} is not partial over {axes}")
+    pieces = _Exchange.apply((x.placement, tuple(x.shape), axes),
+                             x.placement, dtype or torch.float32, *x.pieces)
+    return ShardedTensor(x.placement, x.shape, pieces,
+                         tuple(a for a in x.partial if a not in axes))

@@ -1,0 +1,754 @@
+"""The dense LM family over a (data, model) mesh, single-controller.
+
+No file of the JAX package corresponds to this one: there, GSPMD
+partitions `repro.models.transformer.loss_fn` and
+`repro.models.decoding` by the shardings of `repro.launch.steps.plan`.
+Here one process runs the same functions piece by piece over the
+positions of a `distributed.meshes.Mesh`, and the cross-position work is
+`meshes`' collectives (copies and float32 sums in mesh order).
+
+The split (Megatron over "model", data parallelism over ("pod", "data")):
+- Batch rows follow the batch's placement (`steps.batch_shardings`);
+  every position runs its rows with the one-card block functions.
+- Model shard r of m owns query heads [r·H/m, (r+1)·H/m) and the KV
+  heads h // G of those heads, which it hands to K3
+  (`models.attention.attention`) at that slice; and ff columns
+  [r·f/m, (r+1)·f/m). The products into heads and ff columns are
+  column-parallel; ``wo`` and ``w_down`` are row-parallel: each shard's
+  partial product is float32 (`mm_f32`), and `meshes.all_reduce` sums
+  the partials in float32 before the one rounding to the compute type
+  (bf16 partials summed in bf16 would make the result depend on the
+  mesh). When H or the group mapping does not split evenly (H % m, or
+  neither of H/m and G divides the other), every model shard computes
+  all heads; when m does not divide f, all ff columns.
+- Whatever the preset, each shard computes only its own heads and ff
+  columns: the presets differ only in where the weights are stored and
+  when they are gathered. A layer's weights are read through `views`:
+  each leaf is `meshes.reshard`-ed to the placement its shard needs
+  (its model block where the stored block is that block, else whole),
+  cast to the compute type, and cut to the shard's range locally.
+  `reshard`'s transpose reduce-scatters the gradients onto the stored
+  placement.
+- The embedding and the LM head keep the vocabulary whole on every
+  shard (Granite's 49,155 divides by no model axis); the chunked NLL
+  runs on each model shard's block of the sequence.
+- The loss is global: the NLL and the count of labels >= 0 are summed
+  over every position before the division.
+
+Serving (`prefill`, `decode_step`) holds the cache under
+`meshes.cache_shardings`: batch over data, the slots over "model".
+Prefill computes each shard's heads as training does, then writes every
+shard's block of the sequence. A decode step too projects each shard's
+own heads; it gathers the queries across "model" and the new token's KV
+heads onto the shard that owns slot ``step % W``, which writes them;
+each shard attends over its own slots with every head (unnormalised
+output, row max and row sum in float32), merged across "model" by
+log-sum-exp; and ``wo`` is row-parallel, as in training.
+
+Only the dense family runs here (`check_supported`): the other families
+and the context-parallel preset raise `NotImplementedError` on a mesh of
+more than one position.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.distributed import meshes as M
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import decoding, transformer
+from repro_torch.models.layers import (activation, apply_rope, fdot,
+                                       rms_norm, rope_angles)
+
+NOT_PORTED = ("ROADMAP.md queue 1: only the dense family runs over a mesh "
+              "of more than one position")
+
+
+def supports(cfg: ArchConfig, rules: Optional[Dict[str, Any]] = None
+             ) -> bool:
+    """Whether this module runs ``cfg`` under ``rules`` on a mesh of more
+    than one position: the dense family, not the context-parallel
+    preset."""
+    dense = (cfg.family == "dense" and not cfg.is_moe and not cfg.attn_free
+             and not cfg.enc_dec and not cfg.n_vision_tokens)
+    return dense and not (rules and rules.get("context_parallel"))
+
+
+def check_supported(cfg: ArchConfig, mesh: M.Mesh,
+                    rules: Optional[Dict[str, Any]] = None) -> None:
+    """Raise `NotImplementedError` for what this module does not run on
+    ``mesh`` (`supports`): a non-dense family or the context-parallel
+    preset, on a mesh of more than one position. Nothing falls back to
+    one device."""
+    if mesh.size <= 1 or supports(cfg, rules):
+        return
+    if supports(cfg):
+        raise NotImplementedError(
+            f"the context-parallel preset on a mesh of {mesh.size} "
+            f"positions: {NOT_PORTED} (the cp preset is its next slice)")
+    raise NotImplementedError(
+        f"{cfg.name} ({cfg.family}) on a mesh of {mesh.size} "
+        f"positions: {NOT_PORTED}")
+
+
+# --------------------------------------------------------------------------
+# the float32 row-parallel product
+# --------------------------------------------------------------------------
+
+def _mm_out_f32(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x2 (N, K) @ w (K, F) with float32 products and sums, float32 out:
+    ``torch.mm(..., out_dtype=float32)`` on the card (no float32 copies
+    of the operands), the float32 copies' product on the CPU."""
+    if x2.dtype == torch.float32:
+        return x2 @ w.float()
+    if x2.is_cuda:
+        return torch.mm(x2, w.to(x2.dtype), out_dtype=torch.float32)
+    return x2.float() @ w.float()
+
+
+class _MmF32(torch.autograd.Function):
+    """The float32 partial of a row-parallel product. The backward is
+    `layers.fdot`'s: the gradient in the operands' type through their
+    type's products."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        shp = x.shape
+        return _mm_out_f32(x.reshape(-1, shp[-1]), w).reshape(
+            *shp[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        wc = w.to(x.dtype)
+        gc = g.to(x.dtype)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = gc @ wc.T
+        if ctx.needs_input_grad[1]:
+            gw = (x.reshape(-1, x.shape[-1]).T
+                  @ gc.reshape(-1, gc.shape[-1])).to(w.dtype)
+        return gx, gw
+
+
+def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, F) as float32 (`_MmF32`)."""
+    return _MmF32.apply(x, w)
+
+
+# --------------------------------------------------------------------------
+# the split
+# --------------------------------------------------------------------------
+
+# which dim of a per-layer leaf the model axis cuts, and by what range
+# ("q": query heads, "kv": key/value heads, "ff": ff columns)
+_SPLIT = {"attn/wq": (1, "q"), "attn/wk": (1, "kv"), "attn/wv": (1, "kv"),
+          "attn/wo": (0, "q"), "attn/bq": (0, "q"), "attn/bk": (0, "kv"),
+          "attn/bv": (0, "kv"), "mlp/w_gate": (1, "ff"),
+          "mlp/w_up": (1, "ff"), "mlp/w_down": (0, "ff")}
+
+
+class Layout:
+    """The split of ``cfg`` over ``mesh`` (module docstring)."""
+
+    def __init__(self, cfg: ArchConfig, mesh: M.Mesh):
+        self.cfg, self.mesh = cfg, mesh
+        self.coords = M.positions(mesh)
+        self.devs = mesh.device_list()
+        self.n = mesh.size
+        self.m = mesh.shape.get("model", 1)
+        H, KV = cfg.n_heads, cfg.n_kv_heads
+        self.G = H // KV
+        hq = H // self.m
+        self.split_heads = (self.m > 1 and H % self.m == 0
+                            and (hq % self.G == 0 or self.G % hq == 0))
+        self.split_ff = self.m > 1 and cfg.d_ff % self.m == 0
+        self._want: Dict[tuple, M.PartitionSpec] = {}
+        # each position's group over "model" (the positions that hold the
+        # same batch rows), in mesh order
+        self.group: List[List[int]] = [[] for _ in range(self.n)]
+        for grp in M._groups(mesh, ("model",)):
+            for i in grp:
+                self.group[i] = grp
+
+    def r(self, i: int) -> int:
+        return self.coords[i].get("model", 0)
+
+    def heads(self, i: int) -> Tuple[int, int]:
+        """Query heads of position i."""
+        H = self.cfg.n_heads
+        if not self.split_heads:
+            return 0, H
+        hq = H // self.m
+        return self.r(i) * hq, (self.r(i) + 1) * hq
+
+    def kv_heads(self, i: int) -> Tuple[int, int]:
+        """KV heads h // G of position i's query heads."""
+        lo, hi = self.heads(i)
+        return lo // self.G, (hi - 1) // self.G + 1
+
+    def _range(self, kind: str, i: int) -> Optional[Tuple[int, int]]:
+        hd = self.cfg.resolved_head_dim
+        if kind == "ff":
+            if not self.split_ff:
+                return None
+            f = self.cfg.d_ff // self.m
+            return self.r(i) * f, (self.r(i) + 1) * f
+        if not self.split_heads:
+            return None
+        lo, hi = self.heads(i) if kind == "q" else self.kv_heads(i)
+        return lo * hd, hi * hd
+
+    def view(self, x: M.ShardedTensor, dtype: torch.dtype,
+             split: Optional[Tuple[int, str]] = None) -> List[torch.Tensor]:
+        """Every position's piece of ``x`` as its shard computes with it:
+        resharded (`meshes.reshard`, differentiable) to its model block
+        on the split dim where the stored block is that block, else
+        whole; cast to ``dtype``; cut to the shard's range."""
+        key = (x.spec, tuple(x.shape), split)
+        if key not in self._want:
+            spec = list(x.spec) + [None] * (x.ndim - len(x.spec))
+            want = [None] * x.ndim
+            if split is not None:
+                dim, kind = split
+                keep = spec[dim] == "model" and all(
+                    self._range(kind, i) == M.block_of(
+                        self.mesh, x.spec, tuple(x.shape), c)[dim]
+                    for i, c in enumerate(self.coords))
+                if keep:
+                    want[dim] = "model"
+            self._want[key] = M.P(*want)
+        want = self._want[key]
+        y = M.reshard(x, M.Placement(self.mesh, want), dtype)
+        out = []
+        for i, piece in enumerate(y.pieces):
+            if split is not None and want[split[0]] is None:
+                rng = self._range(split[1], i)
+                if rng is not None:
+                    piece = piece.narrow(split[0], rng[0], rng[1] - rng[0])
+            out.append(piece)
+        return out
+
+    def layer_views(self, lsrc: Dict[str, M.ShardedTensor],
+                    dtype: torch.dtype, splits=_SPLIT
+                    ) -> List[Dict[str, Dict]]:
+        """One layer's weights (``{"attn/wq": placed, ...}``) as every
+        position's nested dict of compute tensors, each leaf cut by its
+        entry of ``splits`` (whole without one)."""
+        per: List[Dict[str, Any]] = [dict() for _ in range(self.n)]
+        for path, x in lsrc.items():
+            for i, t in enumerate(self.view(x, dtype, splits.get(path))):
+                node = per[i]
+                *head, last = path.split("/")
+                for h in head:
+                    node = node.setdefault(h, {})
+                node[last] = t
+        return per
+
+
+def layer_sources(blocks) -> List[Dict[str, M.ShardedTensor]]:
+    """The stacked placed block leaves as per-layer placed leaves (the
+    "layers" dim is never split): a list over layers of {path: placed}."""
+    flat: Dict[str, M.ShardedTensor] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}/{k}" if prefix else k)
+        else:
+            flat[prefix] = node
+    walk(blocks, "")
+    out: List[Dict[str, M.ShardedTensor]] = []
+    for path, x in flat.items():
+        assert not len(x.spec) or x.spec[0] is None, (path, x.spec)
+        layers = [p.unbind(0) for p in x.pieces]
+        pl = M.Placement(x.mesh, M.P(*list(x.spec)[1:]))
+        for li in range(x.shape[0]):
+            if len(out) <= li:
+                out.append({})
+            out[li][path] = M.ShardedTensor(pl, x.shape[1:],
+                                            [ls[li] for ls in layers])
+    return out
+
+
+def _row_parallel(lay: Layout, parts: List[torch.Tensor], spec0,
+                  dtype: torch.dtype) -> List[torch.Tensor]:
+    """Sum the float32 partials of a row-parallel product over "model"
+    (`meshes.all_reduce`), each position's copy in ``dtype``; ``spec0``
+    places the partials' rows."""
+    x = M.ShardedTensor.from_pieces(M.Placement(lay.mesh, M.P(spec0)),
+                                    parts, ("model",))
+    return M.all_reduce(x, "model", dtype).pieces
+
+
+# --------------------------------------------------------------------------
+# the forward
+# --------------------------------------------------------------------------
+
+def _project(cfg, p, nx):
+    B, S, _ = nx.shape
+    hd = cfg.resolved_head_dim
+    q, k, v = fdot(nx, p["wq"]), fdot(nx, p["wk"]), fdot(nx, p["wv"])
+    if cfg.qkv_bias and "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
+            v.reshape(B, S, -1, hd))
+
+
+def _attn_out(cfg, p, nx, positions, is_global):
+    q, k, v = _project(cfg, p, nx)
+    if cfg.rope_theta:
+        ang = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                          cfg.mrope_sections)
+        q, k = apply_rope(q, ang), apply_rope(k, ang)
+    o = attn_lib.attention(q, k, v, causal=True, window=cfg.swa_window,
+                           chunk=cfg.attn_chunk, is_global=is_global)
+    return o.reshape(*nx.shape[:2], -1), (k, v)
+
+
+def _block(cfg, lay: Layout, lsrc, xs, positions, spec0, is_global,
+           collect: bool):
+    """One decoder layer at every position. Returns (the layers' outputs,
+    each position's (k, v) of its KV heads if ``collect``)."""
+    dt = xs[0].dtype
+    w = lay.layer_views(lsrc, dt)
+    kvs = []
+    parts, outs = [], []
+    for i, x in enumerate(xs):
+        nx = rms_norm(x, w[i]["norm1"], cfg.norm_eps)
+        o, kv = _attn_out(cfg, w[i]["attn"], nx, positions[i], is_global)
+        if collect:
+            kvs.append(kv)
+        if lay.split_heads:
+            parts.append(mm_f32(o, w[i]["attn"]["wo"]))
+        else:
+            outs.append(x + fdot(o, w[i]["attn"]["wo"]))
+    if lay.split_heads:
+        outs = [x + a for x, a in zip(xs, _row_parallel(lay, parts, spec0,
+                                                          dt))]
+    return _mlp_all(cfg, lay, w, outs, spec0, dt), kvs
+
+
+def _mlp_all(cfg, lay: Layout, w, xs, spec0, dt):
+    """The residual MLP of a layer at every position: w_gate and w_up
+    column-parallel, w_down row-parallel when the ff columns split."""
+    act = activation(cfg.act)
+    parts, res = [], []
+    for i, x in enumerate(xs):
+        p = w[i]["mlp"]
+        nx = rms_norm(x, w[i]["norm2"], cfg.norm_eps)
+        h = act(fdot(nx, p["w_gate"])) * fdot(nx, p["w_up"])
+        if lay.split_ff:
+            parts.append(mm_f32(h, p["w_down"]))
+        else:
+            res.append(x + fdot(h, p["w_down"]))
+    if lay.split_ff:
+        res = [x + a for x, a in zip(xs, _row_parallel(lay, parts, spec0,
+                                                         dt))]
+    return res
+
+
+def run_blocks(cfg: ArchConfig, lay: Layout, src, tokens: M.ShardedTensor,
+               remat: bool = False, collect: bool = False):
+    """Embed, every layer and the final norm at every position. ``src``
+    is the placed parameter tree (any placement, any type: `Layout.view`
+    casts to the compute type). Returns (each position's hidden (B_i, S,
+    d), each layer's per-position (k, v) if ``collect``)."""
+    dt = getattr(torch, cfg.dtype)
+    spec0 = tokens.spec[0] if len(tokens.spec) else None
+    tables = lay.view(src["embed"]["tokens"], dt)
+    xs, positions = [], []
+    for i, tok in enumerate(tokens.pieces):
+        xs.append(tables[i][tok.long()])
+        B, S = tok.shape
+        positions.append(torch.arange(S, dtype=torch.int32,
+                                      device=tok.device).expand(B, S))
+    kv_layers = []
+    for li, lsrc in enumerate(layer_sources(src["blocks"])):
+        xs, kvs = transformer._remat(
+            _block, remat, cfg, lay, lsrc, xs, positions, spec0,
+            transformer.is_global_layer(cfg, li), collect)
+        if collect:
+            kv_layers.append(kvs)
+    norms = lay.view(src["final_norm"], dt)
+    xs = [rms_norm(x, g, cfg.norm_eps) for x, g in zip(xs, norms)]
+    return xs, kv_layers
+
+
+def _head(cfg, lay: Layout, src, dt) -> List[torch.Tensor]:
+    if cfg.tie_embeddings:
+        return [t.T for t in lay.view(src["embed"]["tokens"], dt)]
+    return lay.view(src["head"]["w"], dt)
+
+
+def _seq_block(lay: Layout, i: int, S: int) -> Tuple[int, int]:
+    """The block of the sequence whose NLL position i sums: its model
+    shard's S/m positions (all of them at shard 0 when m does not divide
+    S)."""
+    m, r = lay.m, lay.r(i)
+    if S % m == 0:
+        return r * (S // m), (r + 1) * (S // m)
+    return (0, S) if r == 0 else (0, 0)
+
+
+def loss_fn(cfg: ArchConfig, mesh: M.Mesh, src, batch: Dict[str, Any]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """`models.transformer.loss_fn` over ``mesh``: ``src`` the placed
+    parameters, ``batch`` {"tokens", "labels"} placed with their rows
+    over the batch axes. Returns (loss, {"loss", "moe_aux"}) on the mesh's
+    first device: the NLL summed over every position and divided by the
+    global count of labels >= 0."""
+    check_supported(cfg, mesh)
+    lay = Layout(cfg, mesh)
+    tokens, labels = batch["tokens"], batch["labels"]
+    for c in M.batch_axes(mesh):
+        if c not in M._axes_of(tokens.spec[0] if len(tokens.spec) else None):
+            if mesh.shape[c] > 1:
+                raise ValueError(
+                    f"a training batch of {tokens.shape[0]} rows does not "
+                    f"split over the mesh's {c!r} axis ({mesh.shape[c]})")
+    hidden, _ = run_blocks(cfg, lay, src, tokens,
+                           remat=cfg.remat and torch.is_grad_enabled())
+    dt = hidden[0].dtype
+    heads = _head(cfg, lay, src, dt)
+    tots, cnts = [], []
+    for i, (h, lab) in enumerate(zip(hidden, labels.pieces)):
+        head = heads[i].to(dt).float()
+        S = h.shape[1]
+        lo, hi = _seq_block(lay, i, S)
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        n = hi - lo
+        c = min(transformer.LOSS_CHUNK, n) if n else 0
+        if c and n % c:
+            c = n
+        for a in range(lo, hi, c or 1):
+            s, k = transformer._remat(
+                transformer._chunk_nll, True, h[:, a:a + c],
+                lab[:, a:a + c], head)
+            tot, cnt = tot + s, cnt + k
+        tots.append(tot)
+        cnts.append(cnt)
+    every = tuple(mesh.axis_names)
+    rep = M.Placement(mesh, M.P())
+    tot = M.all_reduce(M.ShardedTensor(rep, (), tots, every), every)
+    cnt = M.all_reduce(M.ShardedTensor(rep, (), cnts, every), every)
+    loss = tot.pieces[0] / torch.clamp(cnt.pieces[0], min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss, {"loss": loss, "moe_aux": aux}
+
+
+# --------------------------------------------------------------------------
+# serving
+# --------------------------------------------------------------------------
+
+def _cache_slots(lay: Layout, spec, W: int, i: int) -> Tuple[int, int]:
+    """The slots of a cache placed by ``spec`` ((L, B, W, KV, D)) that
+    position i holds."""
+    spec = M.P(None, None, *list(spec)[2:3])
+    return M.block_of(lay.mesh, spec, (1, 1, W), lay.coords[i])[2]
+
+
+def prefill(cfg: ArchConfig, mesh: M.Mesh, src, tokens: M.ShardedTensor,
+            max_len: int = 0):
+    """`models.decoding.prefill` over ``mesh``: returns (last logits (B,
+    V) placed with their rows over the batch axes, the bf16 cache of
+    ``max(max_len, S)`` slots placed by `meshes.cache_shardings`). Every
+    shard computes its heads (K3 at its head slice) and the cache takes
+    each model shard's block of the sequence, all KV heads
+    (`quantize_cache` makes the int8 one)."""
+    check_supported(cfg, mesh)
+    lay = Layout(cfg, mesh)
+    with torch.no_grad():
+        hidden, kv_layers = run_blocks(cfg, lay, src, tokens, collect=True)
+        dt = hidden[0].dtype
+        heads = _head(cfg, lay, src, dt)
+        logits = [fdot(h[:, -1], w.to(dt)) for h, w in zip(hidden, heads)]
+    B, S = tokens.shape
+    W = decoding._cache_width(cfg, max(max_len, S))
+    L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    spec = decoding.cache_spec(cfg, ShapeConfig("prefill", W, B, "prefill"))
+    pls = M.cache_shardings(mesh, {k: torch.empty(s, device="meta")
+                                   for k, (s, _d) in spec.items()})
+    kspec = pls["k"].spec
+    pieces: Dict[str, List[torch.Tensor]] = {k: [] for k in spec}
+    for i in range(lay.n):
+        b0, b1 = M.block_of(mesh, kspec, (L, B, W, KV, D),
+                            lay.coords[i])[1]
+        s0, s1 = _cache_slots(lay, kspec, W, i)
+        # the rows of position i: the same rows on every model shard
+        src_rows = _row_owner(lay, tokens, i, b0, b1)
+        ks, vs = [], []
+        for li in range(L):
+            k, v = _whole_kv(lay, kv_layers[li], src_rows, lay.devs[i])
+            ks.append(k)
+            vs.append(v)
+        k = torch.stack(ks).to(torch.bfloat16)       # (L, b, S, KV, D)
+        v = torch.stack(vs).to(torch.bfloat16)
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=lay.devs[i]).expand(b1 - b0, S)
+        k, v, pos = _slots(k, v, pos, W, s0, s1)
+        parts = {"k": k, "v": v, "pos": pos}
+        for name in spec:
+            pieces[name].append(parts[name].contiguous())
+    cache = {name: M.ShardedTensor(pls[name], spec[name][0], pieces[name])
+             for name in spec}
+    lpl = M.data_sharding(mesh, B, 2)
+    out = _by_rows(lay, logits, tokens, lpl, (B, logits[0].shape[-1]))
+    return out, cache
+
+
+def quantize_cache(cfg: ArchConfig, cache: Dict[str, M.ShardedTensor]
+                   ) -> Dict[str, M.ShardedTensor]:
+    """A placed bf16 cache (a prefill's) as the int8 cache of the kv8 and
+    serve8 presets: every piece through `decoding.quantize_cache` (a piece
+    holds whole (KV, D) rows, so the scales are the unsplit cache's); the
+    scales placed as k and v."""
+    out = dict(cache)
+    for name in ("k", "v"):
+        x = cache[name]
+        pairs = [decoding._quantize_kv(p) for p in x.pieces]
+        out[name] = M.ShardedTensor(x.placement, x.shape,
+                                    [q for q, _ in pairs])
+        out[f"{name}_scale"] = M.ShardedTensor(
+            x.placement, tuple(x.shape[:-1]) + (1,), [s for _, s in pairs])
+    return out
+
+
+def _rows_of(lay: Layout, x: M.ShardedTensor, i: int) -> Tuple[int, int]:
+    return M.block_of(lay.mesh, x.spec, tuple(x.shape), lay.coords[i])[0]
+
+
+def _row_owner(lay: Layout, x: M.ShardedTensor, i: int, b0: int,
+               b1: int) -> List[Tuple[int, int, int]]:
+    """Where rows [b0, b1) of the batch placed as ``x`` were computed:
+    (position j, local lo, local hi) for each block of rows, j the first
+    model shard 0 (mesh order) holding the block."""
+    out, seen = [], set()
+    for j in range(lay.n):
+        if lay.r(j) != 0:
+            continue
+        r0, r1 = _rows_of(lay, x, j)
+        lo, hi = max(r0, b0), min(r1, b1)
+        if lo < hi and (r0, r1) not in seen:
+            seen.add((r0, r1))
+            out.append((j, lo - r0, hi - r0))
+    return out
+
+
+def _heads_whole(lay: Layout, parts, ranges, grp, dev) -> torch.Tensor:
+    """The whole head dim (dim 2) of a model group's per-shard tensors:
+    ``parts[j]`` holds heads ``ranges(j)``; each head is taken from the
+    first shard of ``grp`` (mesh order) that holds it, onto ``dev``."""
+    out, have = [], 0
+    for j in grp:
+        lo, hi = ranges(j)
+        if hi <= have:
+            continue
+        out.append(parts[j][:, :, have - lo:].to(dev))
+        have = hi
+    return out[0] if len(out) == 1 else torch.cat(out, dim=2)
+
+
+def _whole_kv(lay: Layout, kvs, rows, dev):
+    """All KV heads of the rows ``rows`` (from `_row_owner`): each KV head
+    from the first model shard (mesh order) that computed it."""
+    ks, vs = [], []
+    for j, lo, hi in rows:
+        grp = lay.group[j]
+        ks.append(_heads_whole(lay, [kv[0][lo:hi] for kv in kvs],
+                               lay.kv_heads, grp, dev))
+        vs.append(_heads_whole(lay, [kv[1][lo:hi] for kv in kvs],
+                               lay.kv_heads, grp, dev))
+    return torch.cat(ks), torch.cat(vs)
+
+
+def _slots(k, v, pos, W: int, s0: int, s1: int):
+    """A prompt's k, v (L, b, S, KV, D) and positions (b, S) as the ring
+    of W slots (`decoding._pad_cache_entry` per layer), cut to slots
+    [s0, s1)."""
+    S = k.shape[2]
+    if W <= S:
+        sl = slice(S - W, S)
+        k, v, pos = k[:, :, sl], v[:, :, sl], pos[:, sl]
+        k, v = k.roll(S % W, dims=2), v.roll(S % W, dims=2)
+        pos = pos.roll(S % W, dims=1)
+    else:
+        padk = k.new_zeros(k.shape[:2] + (W - S,) + k.shape[3:])
+        k = torch.cat([k, padk], dim=2)
+        v = torch.cat([v, padk], dim=2)
+        pos = torch.cat([pos, pos.new_full((pos.shape[0], W - S), -1)],
+                        dim=1)
+    return k[:, :, s0:s1], v[:, :, s0:s1], pos[:, s0:s1]
+
+
+def _by_rows(lay: Layout, per_pos: List[torch.Tensor], rows_of,
+             placement: M.Placement, shape) -> M.ShardedTensor:
+    """A placed tensor of ``placement`` (rows over the batch axes) from
+    each position's results for its rows of ``rows_of``."""
+    pieces = []
+    for i in range(lay.n):
+        b0, b1 = M.block_of(lay.mesh, placement.spec, tuple(shape),
+                            lay.coords[i])[0]
+        parts = []
+        for j, lo, hi in _row_owner(lay, rows_of, i, b0, b1):
+            parts.append(per_pos[j][lo:hi].to(lay.devs[i], copy=True))
+        pieces.append(torch.cat(parts).contiguous())
+    return M.ShardedTensor(placement, shape, pieces)
+
+
+def decode_step(cfg: ArchConfig, mesh: M.Mesh, src, cache: Dict[str, Any],
+                tokens: M.ShardedTensor, step: int):
+    """`models.decoding.decode_step` over ``mesh``: ``cache`` placed by
+    `meshes.cache_shardings` (bf16, or int8 with its scales) is updated
+    in place; returns (logits (B, 1, V) placed with their rows over the
+    batch axes, the cache).
+
+    Each model shard projects its own query heads and their KV heads, as
+    training does. The queries are gathered whole across "model" (every
+    shard attends over its slots with every head); the new token's KV
+    heads only onto the shard that owns slot ``step % W``. The merged
+    attention's own heads go through the shard's rows of ``wo``
+    (row-parallel, float32 partials summed across "model")."""
+    check_supported(cfg, mesh)
+    lay = Layout(cfg, mesh)
+    step = int(step)
+    dt = getattr(torch, cfg.dtype)
+    hd = cfg.resolved_head_dim
+    kspec = cache["k"].spec
+    W = cache["k"].shape[2]
+    int8 = cache["k"].dtype == torch.int8
+    slot = step % W
+    window = cfg.swa_window if cfg.swa_window else 0
+    spec0 = tokens.spec[0] if len(tokens.spec) else None
+    B = tokens.shape[0]
+    with torch.no_grad():
+        tables = lay.view(src["embed"]["tokens"], dt)
+        xs = [tables[i][tok.long()] for i, tok in enumerate(tokens.pieces)]
+        for li, lsrc in enumerate(layer_sources(src["blocks"])):
+            w = lay.layer_views(lsrc, dt)
+            qs, ks, vs = [], [], []
+            for i, x in enumerate(xs):
+                nx = rms_norm(x, w[i]["norm1"], cfg.norm_eps)
+                q, k, v = _project(cfg, w[i]["attn"], nx)
+                if cfg.rope_theta:
+                    pos = torch.full((nx.shape[0], 1), step,
+                                     dtype=torch.int32, device=nx.device)
+                    ang = rope_angles(pos, hd, cfg.rope_theta,
+                                      cfg.mrope_sections)
+                    q, k = apply_rope(q, ang), apply_rope(k, ang)
+                qs.append(q)
+                ks.append(k)
+                vs.append(v)
+            outs, ms, ls = [], [], []
+            for i in range(lay.n):
+                q = qs[i]
+                if lay.split_heads:
+                    q = _heads_whole(lay, qs, lay.heads, lay.group[i],
+                                     lay.devs[i])
+                s0, s1 = _cache_slots(lay, kspec, W, i)
+                ck, cv = cache["k"].pieces[i][li], cache["v"].pieces[i][li]
+                cpos = cache["pos"].pieces[i]
+                if s0 <= slot < s1:
+                    local = slot - s0
+                    k, v = ks[i], vs[i]
+                    if lay.split_heads:
+                        k = _heads_whole(lay, ks, lay.kv_heads, lay.group[i],
+                                         lay.devs[i])
+                        v = _heads_whole(lay, vs, lay.kv_heads, lay.group[i],
+                                         lay.devs[i])
+                    if int8:
+                        (kq, ksc), (vq, vsc) = (decoding._quantize_kv(k),
+                                                decoding._quantize_kv(v))
+                        ck[:, local] = kq[:, 0]
+                        cv[:, local] = vq[:, 0]
+                        cache["k_scale"].pieces[i][li][:, local] = ksc[:, 0]
+                        cache["v_scale"].pieces[i][li][:, local] = vsc[:, 0]
+                    else:
+                        ck[:, local] = k[:, 0].to(ck.dtype)
+                        cv[:, local] = v[:, 0].to(cv.dtype)
+                    if li == 0:
+                        cpos[:, local] = step
+                if int8:
+                    ck = decoding._dequantize_kv(
+                        ck, cache["k_scale"].pieces[i][li])
+                    cv = decoding._dequantize_kv(
+                        cv, cache["v_scale"].pieces[i][li])
+                o, mx, sm = _partial_attention(q, ck, cv, cpos, window,
+                                               step)
+                outs.append(o)
+                ms.append(mx)
+                ls.append(sm)
+            merged = _merge(lay, kspec, outs, ms, ls)
+            parts, new = [], []
+            for i, x in enumerate(xs):
+                lo, hi = lay.heads(i)
+                o = merged[i][:, lo:hi].to(dt).reshape(x.shape[0], 1, -1)
+                if lay.split_heads:
+                    parts.append(mm_f32(o, w[i]["attn"]["wo"]))
+                else:
+                    new.append(x + o @ w[i]["attn"]["wo"])
+            if lay.split_heads:
+                new = [x + a for x, a in zip(
+                    xs, _row_parallel(lay, parts, spec0, dt))]
+            xs = _mlp_all(cfg, lay, w, new, spec0, dt)
+        norms = lay.view(src["final_norm"], dt)
+        heads = _head(cfg, lay, src, dt)
+        logits = [rms_norm(x, g, cfg.norm_eps) @ h.to(dt)
+                  for x, g, h in zip(xs, norms, heads)]
+    lpl = M.data_sharding(mesh, B, 3)
+    return _by_rows(lay, logits, tokens, lpl,
+                    (B, 1, logits[0].shape[-1])), cache
+
+
+def _partial_attention(q, ck, cv, cpos, window: int, step: int):
+    """One shard's attention of q (B, 1, H, D) over its slots: the
+    unnormalised float32 output (B, KV, G, D), the row max and the row
+    sum (B, KV, G); a shard with no valid slot gives zeros and a max of
+    -inf."""
+    B, _one, H, D = q.shape
+    KV = ck.shape[2]
+    G = H // KV
+    q4 = q.reshape(B, KV, G, D) * D ** -0.5
+    s = torch.einsum("bkgd,bskd->bkgs", q4.float(), ck.float())
+    valid = cpos >= 0
+    if window:
+        valid &= (step - cpos) < window
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    mx = s.amax(dim=-1)
+    safe = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+    p = torch.exp(s - safe[..., None])
+    o = torch.einsum("bkgs,bskd->bkgd", p, cv.float())
+    return o, mx, p.sum(dim=-1)
+
+
+def _merge(lay: Layout, kspec, outs, ms, ls) -> List[torch.Tensor]:
+    """Merge the shards' partial attentions across "model" by log-sum-
+    exp, float32 in mesh order; every position gets its group's result
+    (B, H, D). A cache whose slots are not split needs no merge."""
+    split = len(kspec) > 2 and kspec[2] == "model"
+    if not split:
+        return [(o / l[..., None]).reshape(o.shape[0], -1, o.shape[-1])
+                for o, l in zip(outs, ls)]
+    res: List[Optional[torch.Tensor]] = [None] * lay.n
+    for grp in M._groups(lay.mesh, ("model",)):
+        dev = lay.devs[grp[0]]
+        mx = None
+        for j in grp:
+            mj = ms[j].to(dev)
+            mx = mj if mx is None else torch.maximum(mx, mj)
+        o_acc, l_acc = None, None
+        for j in grp:
+            f = torch.exp(ms[j].to(dev) - mx)
+            oj = outs[j].to(dev) * f[..., None]
+            lj = ls[j].to(dev) * f
+            o_acc = oj if o_acc is None else o_acc + oj
+            l_acc = lj if l_acc is None else l_acc + lj
+        o = o_acc / l_acc[..., None]
+        o = o.reshape(o.shape[0], -1, o.shape[-1])
+        for j in grp:
+            res[j] = o.to(lay.devs[j], copy=True)
+    return res

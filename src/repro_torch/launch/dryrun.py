@@ -18,9 +18,12 @@ Against the reference: one card, so ``"mesh": "1"`` and ``"chips": 1``
 and no collective bytes. Nothing is lowered or compiled, so there are no
 ``lower_s``/``compile_s``: ``count_s`` is the count's host seconds. The
 reference's ``--multi-pod``, ``--both-meshes`` and ``--rules`` choose
-meshes and sharding rules, which belong to the multi-card work; they are
-left out. RWKV-6's recurrence is a step loop of three ops a token and a
-layer, so its cells walk millions of ops and take minutes.
+meshes and sharding rules; the port now has the rules and the plans
+(`launch.steps.plan`) but counts one card here: the flags come with the
+per-device counts on 256- and 512-position meshes, the third of the
+slices after the dense LM on a mesh (ROADMAP.md queue 1). RWKV-6's
+recurrence is a step loop of three ops a token and a layer, so its cells
+walk millions of ops and take minutes.
 """
 from __future__ import annotations
 

@@ -3,8 +3,10 @@
 The port of `repro.models.layers`. Parameters live in nested dicts of
 tensors whose paths and stacked leading ``L`` axis are the reference's
 (``blocks/attn/wq`` is (L, d, H*hd) in both), so weights carry across
-unchanged (`params_from_numpy`). The logical sharding axes of the
-reference's table have no counterpart on one card and are not kept.
+unchanged (`params_from_numpy`). Every parameter is declared with the
+reference's *logical axis names* (`ParamTable.logical_axes`), which
+`distributed.meshes.param_shardings` maps to mesh axes, so the same
+declaration serves one card and a (data, model) mesh.
 """
 from __future__ import annotations
 
@@ -22,19 +24,68 @@ Initializer = str  # "normal" | "zeros" | "ones" | "embed"
 # float32 elements of a normal leaf drawn at once by `ParamTable.init`
 DRAW_ELEMS = 1 << 26
 
+# Logical axis vocabulary (the reference's; `distributed.meshes` maps it):
+#   "layers"  : stacked layer dim (never sharded)
+#   "embed"   : d_model dims             -> fsdp ("data") axis
+#   "vocab"   : vocabulary dim           -> "model" axis
+#   "heads"   : flattened n_heads*hd dim -> "model" axis
+#   "kv"      : flattened n_kv*hd dim    -> "model" axis
+#   "ff"      : feed-forward hidden dim  -> "model" axis
+#   "experts" : MoE expert dim           -> "model" axis (if divisible)
+#   None      : replicated
+
+PROD_MODEL_AXIS = 16   # "model" axis size on the production meshes
+
+
+def head_axis(n_heads: int) -> str:
+    """Logical axis of a flat (n_heads*head_dim) dim: "heads" when the
+    head count divides the production model axis, else "heads_flat"
+    (which the tensor-parallel rules replicate)."""
+    return "heads" if n_heads % PROD_MODEL_AXIS == 0 else "heads_flat"
+
+
+def kv_axis(n_kv_heads: int) -> str:
+    """The same choice for a flat (n_kv_heads*head_dim) dim."""
+    return "kv" if n_kv_heads % PROD_MODEL_AXIS == 0 else "kv_flat"
+
 
 class ParamTable:
-    """Declarative parameter registry: path -> (shape, init, scale)."""
+    """Declarative parameter registry: path -> (shape, init, scale), and
+    path -> logical axes (`axes`)."""
 
     def __init__(self):
         self.defs: Dict[str, Tuple[Tuple[int, ...], Initializer, float]] = {}
+        self.axes: Dict[str, Tuple[Optional[str], ...]] = {}
 
     def add(self, path: str, shape: Sequence[int],
+            axes: Optional[Sequence[Optional[str]]] = None,
             init: Initializer = "normal", scale: Optional[float] = None):
+        """Declare ``path``; ``axes`` names each dim's logical axis (None
+        for every dim: replicated)."""
+        axes = (None,) * len(shape) if axes is None else tuple(axes)
+        assert len(shape) == len(axes), (path, shape, axes)
         if scale is None:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             scale = 1.0 / math.sqrt(max(fan_in, 1))
         self.defs[path] = (tuple(int(s) for s in shape), init, scale)
+        self.axes[path] = axes
+
+    def shapes(self, dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+        """The tree of parameters as meta tensors of ``dtype`` (shapes
+        only, no storage)."""
+        out: Dict[str, Any] = {}
+        for path, (shape, _k, _s) in sorted(self.defs.items()):
+            _assign(out, path, torch.empty(shape, dtype=dtype,
+                                           device="meta"))
+        return out
+
+    def logical_axes(self) -> Dict[str, Any]:
+        """The tree of logical axes (a tuple per leaf), in the structure
+        of `shapes`."""
+        out: Dict[str, Any] = {}
+        for path in sorted(self.defs):
+            _assign(out, path, self.axes[path])
+        return out
 
     def init(self, gen: torch.Generator, device: DeviceLike = None,
              dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
@@ -77,9 +128,12 @@ def _assign(tree: Dict[str, Any], path: str, value: Any) -> None:
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a tree of dicts and lists."""
+    """Apply ``fn`` to every leaf of a tree of dicts, lists and tuples (a
+    NamedTuple keeps its type)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)

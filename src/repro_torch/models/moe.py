@@ -38,10 +38,13 @@ SPANS = ("moe_router", "moe_dispatch", "moe_experts", "moe_combine")
 def declare_moe(t: ParamTable, prefix: str, cfg: ArchConfig, n_layers: int):
     d, E, f = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
     L = n_layers
-    t.add(f"{prefix}/router", (L, d, E))
-    t.add(f"{prefix}/w_gate", (L, E, d, f))
-    t.add(f"{prefix}/w_up", (L, E, d, f))
-    t.add(f"{prefix}/w_down", (L, E, f, d))
+    t.add(f"{prefix}/router", (L, d, E), ("layers", "embed", None))
+    t.add(f"{prefix}/w_gate", (L, E, d, f),
+          ("layers", "experts", "embed", "ff"))
+    t.add(f"{prefix}/w_up", (L, E, d, f),
+          ("layers", "experts", "embed", "ff"))
+    t.add(f"{prefix}/w_down", (L, E, f, d),
+          ("layers", "experts", "ff", "embed"))
 
 
 def capacity(cfg: ArchConfig, n_tokens: int,

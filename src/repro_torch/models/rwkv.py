@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import ParamTable
+from repro_torch.models.layers import ParamTable, head_axis
 
 LORA_R = 64
 
@@ -31,21 +31,24 @@ def declare_rwkv(t: ParamTable, prefix: str, cfg: ArchConfig, n_layers: int):
     H = cfg.n_heads
     Dh = cfg.resolved_head_dim
     for name in ("r", "k", "v", "g", "w"):
-        t.add(f"{prefix}/mix_{name}", (L, d), init="zeros")
+        t.add(f"{prefix}/mix_{name}", (L, d), ("layers", "embed"),
+              init="zeros")
+    ha = head_axis(H)
     for name in ("r", "k", "v", "g"):
-        t.add(f"{prefix}/w_{name}", (L, d, H * Dh))
-    t.add(f"{prefix}/w0", (L, H * Dh), init="zeros")
-    t.add(f"{prefix}/w_lora_a", (L, d, LORA_R))
-    t.add(f"{prefix}/w_lora_b", (L, LORA_R, H * Dh))
-    t.add(f"{prefix}/u_bonus", (L, H, Dh), init="zeros")
-    t.add(f"{prefix}/ln_g", (L, H * Dh), init="ones")
-    t.add(f"{prefix}/w_o", (L, H * Dh, d))
+        t.add(f"{prefix}/w_{name}", (L, d, H * Dh), ("layers", "embed", ha))
+    t.add(f"{prefix}/w0", (L, H * Dh), ("layers", ha), init="zeros")
+    t.add(f"{prefix}/w_lora_a", (L, d, LORA_R), ("layers", "embed", None))
+    t.add(f"{prefix}/w_lora_b", (L, LORA_R, H * Dh), ("layers", None, ha))
+    t.add(f"{prefix}/u_bonus", (L, H, Dh), ("layers", None, None),
+          init="zeros")
+    t.add(f"{prefix}/ln_g", (L, H * Dh), ("layers", ha), init="ones")
+    t.add(f"{prefix}/w_o", (L, H * Dh, d), ("layers", ha, "embed"))
     # channel-mix (rwkv ffn)
-    t.add(f"{prefix}/cmix_k", (L, d), init="zeros")
-    t.add(f"{prefix}/cmix_r", (L, d), init="zeros")
-    t.add(f"{prefix}/c_wr", (L, d, d))
-    t.add(f"{prefix}/c_wk", (L, d, cfg.d_ff))
-    t.add(f"{prefix}/c_wv", (L, cfg.d_ff, d))
+    t.add(f"{prefix}/cmix_k", (L, d), ("layers", "embed"), init="zeros")
+    t.add(f"{prefix}/cmix_r", (L, d), ("layers", "embed"), init="zeros")
+    t.add(f"{prefix}/c_wr", (L, d, d), ("layers", "embed", None))
+    t.add(f"{prefix}/c_wk", (L, d, cfg.d_ff), ("layers", "embed", "ff"))
+    t.add(f"{prefix}/c_wv", (L, cfg.d_ff, d), ("layers", "ff", "embed"))
 
 
 def _shift(x: torch.Tensor, x_prev: Optional[torch.Tensor]) -> torch.Tensor:

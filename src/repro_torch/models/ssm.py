@@ -19,20 +19,21 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ParamTable
+from repro_torch.models.layers import ParamTable, head_axis
 
 
 def declare_ssm(t: ParamTable, prefix: str, cfg: ArchConfig, n_layers: int):
     d, H = cfg.d_model, cfg.n_heads
     Dh = cfg.resolved_head_dim
     N, L = cfg.ssm_state, n_layers
-    t.add(f"{prefix}/in_proj", (L, d, H * Dh))
-    t.add(f"{prefix}/gate_proj", (L, d, H * Dh))
-    t.add(f"{prefix}/bc_proj", (L, d, 2 * N))
-    t.add(f"{prefix}/dt_proj", (L, d, H))
-    t.add(f"{prefix}/a_log", (L, H), init="zeros")
-    t.add(f"{prefix}/d_skip", (L, H), init="ones")
-    t.add(f"{prefix}/out_proj", (L, H * Dh, d))
+    ha = head_axis(H)
+    t.add(f"{prefix}/in_proj", (L, d, H * Dh), ("layers", "embed", ha))
+    t.add(f"{prefix}/gate_proj", (L, d, H * Dh), ("layers", "embed", ha))
+    t.add(f"{prefix}/bc_proj", (L, d, 2 * N), ("layers", "embed", None))
+    t.add(f"{prefix}/dt_proj", (L, d, H), ("layers", "embed", None))
+    t.add(f"{prefix}/a_log", (L, H), ("layers", None), init="zeros")
+    t.add(f"{prefix}/d_skip", (L, H), ("layers", None), init="ones")
+    t.add(f"{prefix}/out_proj", (L, H * Dh, d), ("layers", ha, "embed"))
 
 
 def _ssm_inputs(cfg: ArchConfig, p: Dict[str, torch.Tensor],

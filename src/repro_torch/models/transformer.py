@@ -37,7 +37,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (ParamTable, activation, apply_rope,
-                                       fdot, rms_norm, rope_angles,
+                                       fdot, head_axis, kv_axis, rms_norm,
+                                       rope_angles,
                                        sinusoidal_at, sinusoidal_positions,
                                        tree_map)
 
@@ -62,51 +63,56 @@ def _declare_attn(t: ParamTable, prefix: str, cfg: ArchConfig, L: int,
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    t.add(f"{prefix}/wq", (L, d, H * hd))
-    t.add(f"{prefix}/wk", (L, d, KV * hd))
-    t.add(f"{prefix}/wv", (L, d, KV * hd))
-    t.add(f"{prefix}/wo", (L, H * hd, d))
+    # head counts that do not divide the production model axis get the
+    # "_flat" logical axes, which the tensor-parallel rules replicate
+    ha, ka = head_axis(H), kv_axis(KV)
+    t.add(f"{prefix}/wq", (L, d, H * hd), ("layers", "embed", ha))
+    t.add(f"{prefix}/wk", (L, d, KV * hd), ("layers", "embed", ka))
+    t.add(f"{prefix}/wv", (L, d, KV * hd), ("layers", "embed", ka))
+    t.add(f"{prefix}/wo", (L, H * hd, d), ("layers", ha, "embed"))
     if cfg.qkv_bias and not cross:
-        t.add(f"{prefix}/bq", (L, H * hd), init="zeros")
-        t.add(f"{prefix}/bk", (L, KV * hd), init="zeros")
-        t.add(f"{prefix}/bv", (L, KV * hd), init="zeros")
+        t.add(f"{prefix}/bq", (L, H * hd), ("layers", ha), init="zeros")
+        t.add(f"{prefix}/bk", (L, KV * hd), ("layers", ka), init="zeros")
+        t.add(f"{prefix}/bv", (L, KV * hd), ("layers", ka), init="zeros")
 
 
 def _declare_mlp(t: ParamTable, prefix: str, cfg: ArchConfig, L: int):
     d, f = cfg.d_model, cfg.d_ff
-    t.add(f"{prefix}/w_gate", (L, d, f))
-    t.add(f"{prefix}/w_up", (L, d, f))
-    t.add(f"{prefix}/w_down", (L, f, d))
+    t.add(f"{prefix}/w_gate", (L, d, f), ("layers", "embed", "ff"))
+    t.add(f"{prefix}/w_up", (L, d, f), ("layers", "embed", "ff"))
+    t.add(f"{prefix}/w_down", (L, f, d), ("layers", "ff", "embed"))
 
 
 def build_param_table(cfg: ArchConfig) -> ParamTable:
     t = ParamTable()
     d, L = cfg.d_model, cfg.n_layers
-    t.add("embed/tokens", (cfg.vocab_size, d), init="embed", scale=0.02)
+    t.add("embed/tokens", (cfg.vocab_size, d), ("vocab", "embed"),
+          init="embed", scale=0.02)
     if not cfg.tie_embeddings:
-        t.add("head/w", (d, cfg.vocab_size))
-    t.add("final_norm", (d,), init="ones")
-    t.add("blocks/norm1", (L, d), init="ones")
-    t.add("blocks/norm2", (L, d), init="ones")
+        t.add("head/w", (d, cfg.vocab_size), ("embed", "vocab"))
+    t.add("final_norm", (d,), (None,), init="ones")
+    t.add("blocks/norm1", (L, d), ("layers", None), init="ones")
+    t.add("blocks/norm2", (L, d), ("layers", None), init="ones")
     if cfg.attn_free:                                     # rwkv6
         rwkv_lib.declare_rwkv(t, "blocks/rwkv", cfg, L)
         return t
     _declare_attn(t, "blocks/attn", cfg, L)
     if cfg.family == "hybrid":
         ssm_lib.declare_ssm(t, "blocks/ssm", cfg, L)
-        t.add("blocks/fuse_scale", (L, 2, d), init="ones")
+        t.add("blocks/fuse_scale", (L, 2, d), ("layers", None, None),
+              init="ones")
     if cfg.is_moe:
         moe_lib.declare_moe(t, "blocks/moe", cfg, L)
     else:
         _declare_mlp(t, "blocks/mlp", cfg, L)
     if cfg.enc_dec:                                       # whisper
         Le = cfg.enc_layers
-        t.add("enc_blocks/norm1", (Le, d), init="ones")
-        t.add("enc_blocks/norm2", (Le, d), init="ones")
+        t.add("enc_blocks/norm1", (Le, d), ("layers", None), init="ones")
+        t.add("enc_blocks/norm2", (Le, d), ("layers", None), init="ones")
         _declare_attn(t, "enc_blocks/attn", cfg, Le)
         _declare_mlp(t, "enc_blocks/mlp", cfg, Le)
-        t.add("enc_final_norm", (d,), init="ones")
-        t.add("blocks/norm3", (L, d), init="ones")
+        t.add("enc_final_norm", (d,), (None,), init="ones")
+        t.add("blocks/norm3", (L, d), ("layers", None), init="ones")
         _declare_attn(t, "blocks/xattn", cfg, L, cross=True)
     return t
 

@@ -8,14 +8,16 @@ parameters); the moments are float32 whatever the parameters' type.
 hold two copies of a 1.4 B-parameter model's state) and returns them.
 Every scalar (the step, the learning rate, the bias corrections) stays
 a tensor on the parameters' device, computed in float32 as the reference
-computes it, so a step never waits for the host. The update runs under
-a ``torch.profiler.record_function`` span (`SPAN`), which a profiler
-reads to split a step's device time.
+computes it, so a step never waits for the host. The leaves may lie on
+several devices (a mesh step passes its pieces): each leaf's update takes
+the step's scalars on its own device. The update runs under a
+``torch.profiler.record_function`` span (`SPAN`), which a profiler reads
+to split a step's device time.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -79,13 +81,17 @@ def clip_by_global_norm(grads, max_norm: float):
 
 def update(grads, state: AdamWState, params, lr_fn: Callable,
            b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
-           max_grad_norm=1.0) -> Tuple[Any, AdamWState, Dict]:
+           max_grad_norm=1.0, grad_norm: Optional[torch.Tensor] = None
+           ) -> Tuple[Any, AdamWState, Dict]:
     """One AdamW step: clip (`clip_by_global_norm`, one leaf at a time),
     moments, bias-corrected update with decoupled decay. Writes
     ``params``, ``state.m`` and ``state.v`` in place and returns (params,
-    new state, {"grad_norm", "lr"})."""
+    new state, {"grad_norm", "lr"}). ``grad_norm`` is the gradients'
+    global norm where the caller has it (a mesh step's pieces hold
+    replicated blocks more than once, so it computes the norm itself:
+    `distributed.meshes.global_norm`); else `global_norm` of ``grads``."""
     with torch.no_grad(), record_function(SPAN):
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if grad_norm is None else grad_norm
         scale = _clip_scale(gnorm, max_grad_norm)
         step = state.step + 1
         lr = lr_fn(step)
@@ -94,14 +100,19 @@ def update(grads, state: AdamWState, params, lr_fn: Callable,
                                device=stepf.device) ** stepf
         bc2 = 1 - torch.tensor(b2, dtype=torch.float32,
                                device=stepf.device) ** stepf
+        consts = {step.device: (scale, bc1, bc2, lr)}
         for p, g, m, v in zip(leaves(params), leaves(grads),
                               leaves(state.m), leaves(state.v)):
-            g = g.float() * scale          # clipped, one leaf at a time
+            if p.device not in consts:
+                consts[p.device] = tuple(t.to(p.device)
+                                         for t in (scale, bc1, bc2, lr))
+            sc, c1, c2, lr_ = consts[p.device]
+            g = g.float() * sc             # clipped, one leaf at a time
             m.mul_(b1).add_(g * (1 - b1))
             v.mul_(b2).add_(g.square().mul_(1 - b2))
-            u = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
+            u = (m / c1).div_((v / c2).sqrt_().add_(eps))
             p32 = p.float()
             u.add_(weight_decay * p32)
-            p.copy_(p32 - lr * u)
+            p.copy_(p32 - lr_ * u)
     return params, AdamWState(step, state.m, state.v), {
         "grad_norm": gnorm, "lr": lr}
