@@ -12,7 +12,10 @@ its plain PyTorch version at the main paths' shapes (gnn_mp also at
 N = 21 and 64, F = 1, an odd Fo, H x 1e3 and the LM bridge's N = 7
 layers; flash_attention also at
 Granite-20B's and Qwen2.5-32B's D = 128 prefills, Granite-3-2B's shards
-on a (2, 2) mesh, ragged, full and D = 16/32 shapes) and times both, and the one PyTorch call that computes
+on a (2, 2) mesh, Moonlight's on (1, 4), fewer queries than keys
+(Granite-3-2B's context-parallel shards, Whisper's cross-attention),
+ragged, full and D = 16/32 shapes) and times both, and the one PyTorch
+call that computes
 the same function where there is one, with CUDA events around a CUDA
 graph of the calls, then drives the port's two main paths:
 
@@ -85,8 +88,9 @@ graph of the calls, then drives the port's two main paths:
   on a 16 x 16 grid; `flash_attention` in every layer), Whisper
   large-v3 (8 stub clips of 1500 frames through the encoder, full-mask
   `flash_attention` in every encoder layer, a 224-token decoder prompt
-  with causal `flash_attention` in every decoder layer and plain
-  cross-attention) and RWKV-6 3B (8 prompts of 1024 tokens, the
+  with causal `flash_attention` in every decoder layer and full-mask
+  `flash_attention` in its cross-attention, 224 queries over 1500
+  frames) and RWKV-6 3B (8 prompts of 1024 tokens, the
   recurrence a step loop); 32 greedy decode steps each, a two-layer
   prefill + 4 steps vs longer-prefill check in bf16 (RWKV's float32
   state too) and a two-layer card-against-CPU check; Qwen2-VL's 32
@@ -110,12 +114,25 @@ graph of the calls, then drives the port's two main paths:
   copies gathered once a step, K3 at each shard's 16 query heads) over 8
   x 1024 tokens in two micro-batches, remat on, against the unsplit step
   from the same initial state (loss and first moments), with a device
-  profile of a warm sharded step; serve8 (prefill of 8 x 1024 tokens,
-  32 decode steps on the int8 cache whose slots split over "model")
-  against the unsplit int8 run fed the same tokens; `ef_allreduce` over
+  profile of a warm sharded step; the cp preset's step from the same
+  state (context parallelism: each model shard projects its 512
+  positions with every head, K3 takes them over the keys up to its
+  block's end) against the unsplit and tp steps; serve8 (prefill of 8 x
+  1024 tokens, 32 decode steps on the int8 cache whose slots split over
+  "model") against the unsplit int8 run fed the same tokens, and a cp
+  prefill against the unsplit and tp ones; `ef_allreduce` over
   "data" on one layer's gradients against the reference's formula; and
   the elastic restart of `launch.train.train` at two layers in float32,
   crashed on (2, 2) and restarted onto (4, 1) and one device;
+- the mixture-of-experts family over a mesh (`lm_mesh_moe_slice` line),
+  expert parallelism: Moonlight-16B-A3B at full width and depth on (1,
+  4) (each shard 4 heads and 16 experts), serve8 prefill of 8 x 1024
+  tokens and 32 decode steps against the unsplit one-card int8 run of
+  the same weights, at twice that run's own gap to float32 compute; and
+  its tp training step at full width and 3 of its 48 layers on (2, 2),
+  8 x 1024 tokens in two micro-batches, remat on, against the unsplit
+  step (loss, first moments); capacity drops at the config's factor,
+  the dropped share split and unsplit, device profiles by MoE stage;
 - ApproxPilot-LM (`bridge_slice` line): `lm_bridge.train_surrogate` on
   Qwen2.5-32B's train_4k op graph at the reference's bench settings (400
   samples, 40 epochs), alone and as a 4-member ensemble, its engine
@@ -472,7 +489,8 @@ def lut_eval_phase(gen):
     return rows
 
 
-# K3's shapes: (label, B, H, KV, S, D, dtype, causal). The first is the
+# K3's shapes: (label, B, H, KV, S, D, dtype, causal), S an int (Sq = Sk)
+# or a pair (Sq, Sk) of fewer queries than keys. The first is the
 # Hymba-1.5B prefill (the kernels line reports it), the second the
 # Moonlight-16B-A3B prefill (MHA: one query head per KV head); the other
 # D = 128 rows are Granite-20B (MQA) and Qwen2.5-32B (GQA) prefills of
@@ -500,7 +518,48 @@ FA_SHAPES = [
     ("granite3_2b_mesh_train_shard", 2, 16, 4, 1024, 64, "bfloat16", True),
     ("granite3_2b_mesh_prefill_shard", 4, 16, 4, 1024, 64, "bfloat16",
      True),
+    # Moonlight-16B-A3B's model shard on the (1, 4) serving mesh: 4 of its
+    # 16 heads (MHA), 8 prompts of 1024 tokens
+    ("moonlight_mesh_shard_d128", 8, 4, 4, 1024, 128, "bfloat16", True),
+    # Granite-3-2B's context-parallel shards on the (2, 2) mesh: a model
+    # shard's 512 queries over the keys up to its block's end, every head,
+    # 2 rows (a training micro-batch); the first block's keys are its own
+    ("granite3_2b_cp_shard0", 2, 32, 8, (512, 512), 64, "bfloat16", True),
+    ("granite3_2b_cp_shard1", 2, 32, 8, (512, 1024), 64, "bfloat16", True),
+    # Whisper-large-v3's cross-attention: the decoder's 224-token prompt
+    # over the encoder's 1500 frames, a full mask
+    ("whisper_cross_224x1500", 8, 20, 20, (224, 1500), 64, "bfloat16",
+     False),
+    # ragged lengths below the tiles, and the float32 path, at Sq < Sk
+    ("ragged_d32_200x333", 2, 8, 2, (200, 333), 32, "bfloat16", True),
+    ("float32_256x768", 2, 8, 2, (256, 768), 64, "float32", True),
 ]
+
+
+def fa_lengths(S):
+    """(Sq, Sk) of a K3 shape's S."""
+    return tuple(S) if isinstance(S, (tuple, list)) else (S, S)
+
+
+def fa_pairs(Sq: int, Sk: int, causal: bool) -> float:
+    """Query-key pairs K3 computes: under ``causal`` row i reads keys up
+    to its position Sk - Sq + i (the bottom-right triangle and the
+    rectangle left of it), else all Sq x Sk."""
+    return Sq * (Sk - Sq) + Sq * (Sq + 1) / 2 if causal else Sq * Sk
+
+
+def sdpa(q, k, v, causal: bool):
+    """The library's attention over the same inputs: SDPA with its own
+    causal flag where Sq == Sk (aligned top-left, the same mask there), and
+    with the bottom-right causal bias where Sq < Sk."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    Sq, Sk = q.shape[2], k.shape[2]
+    if causal and Sq != Sk:
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=causal_lower_right(Sq, Sk), enable_gqa=True)
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                          enable_gqa=True)
 
 
 def flash_attention_phase(gen, shapes=FA_SHAPES):
@@ -508,15 +567,16 @@ def flash_attention_phase(gen, shapes=FA_SHAPES):
     tensors read in place: bf16 at the per-element and per-row bars,
     float32 at FA_F32_TOL."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     dev = torch.device("cuda")
     rows = []
     for label, B, H, KV, S, D, dt, causal in shapes:
         dt = getattr(torch, dt)
-        q, k, v = (torch.randn(B, S, n, D, device=dev, generator=gen).to(dt)
-                   .transpose(1, 2) for n in (H, KV, KV))
+        Sq, Sk = fa_lengths(S)
+        q, k, v = (torch.randn(B, n_s, n, D, device=dev, generator=gen)
+                   .to(dt).transpose(1, 2)
+                   for n, n_s in ((H, Sq), (KV, Sk), (KV, Sk)))
         got = fa.flash_attention(q, k, v, causal=causal).float()
         want = ref.flash_attention_ref(q, k, v, causal=causal).float()
         err = (got - want).abs()
@@ -534,18 +594,18 @@ def flash_attention_phase(gen, shapes=FA_SHAPES):
             del p_abs_v
         else:
             ok = torch.allclose(got, want, rtol=FA_F32_TOL, atol=FA_F32_TOL)
-        check(ok, f"flash_attention {label} {B}x{H}/{KV}x{S}x{D} {dt} "
-              f"disagrees with its plain version: {acc}")
+        check(ok, f"flash_attention {label} {B}x{H}/{KV}x{Sq}x{Sk}x{D} "
+              f"{dt} disagrees with its plain version: {acc}")
         del got, want, err
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 20)
         plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v,
                                                         causal=causal), 5)
-        library = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True), 20)
-        # query-key pairs (causal: S(S+1)/2), 2 products of 2D FLOP each
-        pairs = S * (S + 1) / 2 if causal else S * S
-        flops = 4 * B * H * D * pairs
-        nbytes = q.element_size() * (2 * B * H * S * D + 2 * B * KV * S * D)
+        library = cuda_ms(lambda: sdpa(q, k, v, causal), 20)
+        # query-key pairs (`fa_pairs`), 2 products of 2D FLOP each; q and
+        # o once, k and v once
+        flops = 4 * B * H * D * fa_pairs(Sq, Sk, causal)
+        nbytes = q.element_size() * (2 * B * H * Sq * D
+                                     + 2 * B * KV * Sk * D)
         peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
         bnd, by = bound_ms(nbytes, flops, peak)
         rows.append({"label": label, "shape": [B, H, KV, S, D],
@@ -1894,25 +1954,23 @@ def lm_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
 
 @contextmanager
 def recorded_routes():
-    """While open, record each `moe.moe_ffn` call's routing: a list of
-    (idx (T, k), keep (T, k)) per call, from `moe.route` on the call's
-    input. `transformer` and `decoding` call the function through the
-    module, so the recording sees every layer; it measures, and the
-    layer's result is unchanged."""
+    """While open, record every `moe.place` call's routing, (experts (T,
+    k), kept (T, k)): the one-card layer calls it once through
+    `moe.route`, a mesh once per position. It measures; the layer's
+    result is unchanged."""
     from repro_torch.models import moe
-    real = moe.moe_ffn
+    real = moe.place
     seen = []
 
-    def recording(cfg, p, x, deterministic_capacity=0):
-        r = moe.route(cfg, p["router"], x.reshape(-1, x.shape[-1]),
-                      deterministic_capacity)
+    def recording(ch, C, before=None):
+        r = real(ch, C, before)
         seen.append((r.idx, r.keep.view(r.idx.shape)))
-        return real(cfg, p, x, deterministic_capacity)
-    moe.moe_ffn = recording
+        return r
+    moe.place = recording
     try:
         yield seen
     finally:
-        moe.moe_ffn = real
+        moe.place = real
 
 
 def dropped_share(routes) -> float:
@@ -2165,6 +2223,8 @@ def moe_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
 # the last three LM families at full width and depth: (arch, decoder
 # prompt tokens, decode horizon). Whisper's decoder prompt is 224 tokens,
 # half of its 448-token text context; its encoder reads 1500 frames.
+# layers of RWKV-6's prefill under the profiler (of 32)
+RWKV_PROFILE_LAYERS = 8
 FAMILIES = (("qwen2-vl-7b", LM_PROMPT, LM_MAX_LEN),
             ("whisper-large-v3", 224, 224 + LM_STEPS),
             ("rwkv6-3b", LM_PROMPT, LM_MAX_LEN))
@@ -2307,10 +2367,11 @@ def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
     if cfg.n_vision_tokens:
         report["vision_tokens"] = cfg.n_vision_tokens
     cuda = dev.type == "cuda"
-    # K3 a prefill: every decoder layer's self-attention, and every
-    # encoder layer's (Whisper); RWKV has no attention
-    per_run = 0 if cfg.attn_free or not cuda else (cfg.n_layers
-                                                   + cfg.enc_layers)
+    # K3 a prefill: every decoder layer's self-attention, and Whisper's
+    # every encoder layer and every decoder layer's cross-attention (224
+    # queries over 1500 frames, a full mask); RWKV has no attention
+    per_run = 0 if cfg.attn_free or not cuda else (
+        cfg.n_layers * (2 if cfg.enc_dec else 1) + cfg.enc_layers)
     checks = {}
 
     def peak_gib():
@@ -2390,10 +2451,22 @@ def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
             del fed, seen
             lap("int8_kv")
 
-        # where one warm prefill's and one decode step's device time goes
+        # where one warm prefill's and one decode step's device time goes.
+        # RWKV's prefill is a step loop of ~3 kernels a token and layer:
+        # the profiler's post-processing of all 32 layers' ~100k kernels
+        # took ~100 s, so its prefill is profiled over the first
+        # `RWKV_PROFILE_LAYERS` layers (its decode step over all)
         if cuda:
-            report["prefill_device_profile"] = device_profile(
-                lambda: prefill(params, prompt))
+            if cfg.attn_free:
+                c_p, p_p = cut_layers(cfg, params, RWKV_PROFILE_LAYERS)
+                pre_p = steps.make_prefill_step(c_p, max_len=max_len)
+                report["prefill_device_profile"] = {
+                    "layers": RWKV_PROFILE_LAYERS, **device_profile(
+                        lambda: pre_p(p_p, prompt))}
+                del c_p, p_p, pre_p
+            else:
+                report["prefill_device_profile"] = device_profile(
+                    lambda: prefill(params, prompt))
             _, cache = prefill(params, prompt)
             report["decode_step_device_profile"] = device_profile(
                 lambda: decode(params, cache, tok, prompt_len))
@@ -2445,7 +2518,7 @@ def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
         fa.LAUNCHES.reset()
         last_d, cache_d = pre2(p2, b2)
         check(fa.LAUNCHES.value == (0 if cfg.attn_free or not cuda else
-                                    2 + 2 * bool(cfg.enc_dec)),
+                                    2 + 4 * bool(cfg.enc_dec)),
               f"{cfg.name}: the two-layer prefill did not run K3 in each "
               f"attention layer")
         last_c, cache_c = pre2(tree_map(lambda a: a.cpu(), p2),
@@ -3437,8 +3510,7 @@ def split_slice_phase(card: str, dev, devs, gaussian, trained, kept, *,
     return report, launches
 
 
-# -- the LM over a (data, model) mesh: Granite-3-2B, tp training, serve8 ------
-MESH_ARCH, MESH_SHAPE = "granite-3-2b", (2, 2)
+# -- the LM over a (data, model) mesh: what the dense and MoE phases share --
 MESH_BATCH, MESH_SEQ, MESH_ACCUM, MESH_TIMED = 8, 1024, 2, 2
 MESH_PROMPT, MESH_NEW = 1024, 32
 # bf16 bars of the sharded run against the unsplit one: the loss (the
@@ -3446,11 +3518,10 @@ MESH_PROMPT, MESH_NEW = 1024, 32
 # first moment (a tenth of the gradient) of the checked leaves, as the
 # two-layer card-vs-CPU gradient bar of the training slice
 MESH_LOSS_ATOL, MESH_GRAD_REL = 5e-3, 5e-2
-MESH_DRILL = dict(n_layers=2, batch=8, seq=64, steps=3, crash_at=2,
-                  ckpt_every=2)
-MESH_DRILL_REL = 1e-4      # float32, the card's atomics in the embedding
-MESH_LEAVES = ("embed/tokens", "blocks/attn/wq", "blocks/attn/wk",
-               "blocks/mlp/w_down", "blocks/norm1", "head/w")
+# float32 compute: the sharded step within 1e-5 (relative) of the unsplit
+# one, loss and first moments, the bar of the CPU tests (another
+# summation order of the same float32 products)
+MESH_F32_REL = 1e-5
 
 
 def _leaf(tree, path):
@@ -3469,6 +3540,205 @@ def _first_layer(t):
     return (t[0] if t.dim() == 3 else t).float().cpu().clone()
 
 
+def peak_gib(dev):
+    import torch
+    return (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else "not measured: no card")
+
+
+def free_card(dev) -> None:
+    """Collect garbage and, on the card, empty the cache and restart the
+    peak."""
+    import gc
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def k3_launches() -> int:
+    from repro_torch.kernels import flash_attention as fa
+    return fa.LAUNCHES.value
+
+
+def mesh_on(devs, shape):
+    """A ("data", "model") mesh of ``shape`` over ``devs`` cycled to its
+    size, and its devices."""
+    import math
+    from repro_torch.launch.mesh import make_mesh
+    ds = [devs[i % len(devs)] for i in range(int(math.prod(shape)))]
+    return make_mesh(shape, ("data", "model"), ds), ds
+
+
+def rel_l2_each(a: dict, b: dict) -> dict:
+    """Relative L2 of each of ``a``'s tensors against ``b``'s."""
+    return {p: float((a[p] - b[p]).norm() / b[p].norm().clamp_min(1e-30))
+            for p in a}
+
+
+def max_gap(a_list, b_list) -> float:
+    return max(float((a - b).abs().max()) for a, b in zip(a_list, b_list))
+
+
+def greedy_agree(a_list, b_list) -> float:
+    """The share of (step, row) whose greedy tokens agree."""
+    hits = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+               for a, b in zip(a_list, b_list))
+    return hits / sum(a.shape[0] for a in a_list)
+
+
+def train_run(dev, step, state, batch_at, n_steps: int, leaves,
+              routes: bool = False):
+    """``step`` run ``n_steps`` times from ``state`` (params, opt) on
+    ``batch_at(i)``, each timed on the device. Returns (state, run): each
+    step's loss, grad norm and K3 launches, the wall ms of the steps after
+    the first and their mean, the first step's metrics, the first layer's
+    first moments of ``leaves`` after it and, with ``routes``, its
+    recorded `moe.place` calls."""
+    from contextlib import nullcontext
+    params, opt = state
+    run = {"losses": [], "grad_norms": [], "k3_per_step": [], "step_ms": []}
+    for i in range(n_steps):
+        b = batch_at(i)
+        before = k3_launches()
+        with (recorded_routes() if routes and i == 0
+              else nullcontext([])) as seen:
+            (params, opt, m), ms = timed_ms(dev, lambda: step(params, opt,
+                                                              b))
+        run["k3_per_step"].append(k3_launches() - before)
+        run["losses"].append(float(m["loss"]))
+        run["grad_norms"].append(float(m["grad_norm"]))
+        if i == 0:
+            run["first_step_ms"] = ms
+            run["metrics0"] = {k: float(m[k]) for k in
+                               ("loss", "grad_norm", "moe_aux") if k in m}
+            run["m0"] = {p: _first_layer(_leaf(opt.m, p)) for p in leaves}
+            run["routes0"] = [(a.cpu(), k.cpu()) for a, k in seen]
+        else:
+            run["step_ms"].append(ms)
+    run["ms_per_step"] = (sum(run["step_ms"]) / len(run["step_ms"])
+                          if run["step_ms"] else None)
+    return (params, opt), run
+
+
+def held_train(label: str, run: dict, want: dict, bars: dict,
+               loss_bar: float, per_step: int, cuda: bool) -> dict:
+    """Check a sharded training run against the unsplit ``want`` (both of
+    `train_run`): finite losses and norms, the first step's loss within
+    ``loss_bar`` of ``want``'s, each first moment of ``bars`` within its
+    bar (relative L2), and, on the card, ``per_step`` K3 launches a
+    step. Returns the readings."""
+    import math
+    rel = rel_l2_each(run["m0"], want["m0"])
+    loss_gap = abs(run["losses"][0] - want["losses"][0])
+    over = {p: [rel[p], bar] for p, bar in bars.items() if not rel[p] <= bar}
+    check(all(map(math.isfinite, run["losses"] + run["grad_norms"])),
+          f"{label}: a non-finite loss or grad norm")
+    check(loss_gap <= loss_bar, f"{label}: loss {run['losses'][0]} against "
+          f"{want['losses'][0]}, bar {loss_bar}")
+    check(not over, f"{label}: first moments over their bars {over}")
+    check(not cuda or all(e == per_step for e in run["k3_per_step"]),
+          f"{label}: {run['k3_per_step']} K3 launches a step, not "
+          f"{per_step} (forward and recompute, every layer, position and "
+          f"micro-batch)")
+    return {"loss_gap_step0": loss_gap, "loss_bar": loss_bar,
+            "grad_norm_step0": [run["grad_norms"][0],
+                                want["grad_norms"][0]],
+            "first_moment_rel_l2_layer0": rel, "first_moment_bars": bars}
+
+
+def serve8_unsplit(dev, cfg, params, toks, new: int, feed=None):
+    """The one-card int8 run: a prefill of ``toks`` (B, prompt), its cache
+    quantized, then ``new`` decode steps fed ``feed`` or greedy. Returns
+    (the prefill's last logits and each step's, float32; the tokens fed;
+    each step's wall ms; the cache)."""
+    from repro_torch.models import decoding
+    prompt = toks.shape[1]
+    last, cache = decoding.prefill(cfg, params, {"tokens": toks},
+                                   max_len=prompt + new)
+    cache = decoding.quantize_cache(cfg, cache)
+    out, fed, ms = [last.float()], [], []
+    for t in range(new):
+        nxt = (out[-1].argmax(-1, keepdim=True).int() if feed is None
+               else feed[t])
+        fed.append(nxt)
+        (lg, cache), d = timed_ms(dev, lambda: decoding.decode_step(
+            cfg, params, cache, nxt, prompt + t))
+        ms.append(d)
+        out.append(lg[:, 0].float())
+    return out, fed, ms, cache
+
+
+def serve8_mesh(dev, cfg, mesh, dfn, P, toks, feed, routes: bool = False):
+    """serve8 over ``mesh``: a warm prefill of ``toks`` placed by rows, a
+    timed one, its cache quantized, then the decode steps ``dfn`` of
+    `launch.steps.plan` fed ``feed``. Returns a dict: the logits
+    (float32, gathered on ``dev``) as `serve8_unsplit`'s, the prefill's
+    wall ms and K3 launches, each step's, the placed prompts, the cache
+    and, with ``routes``, the warm prefill's and the second step's
+    recorded `moe.place` calls."""
+    from contextlib import nullcontext
+    from repro_torch.distributed import meshes as M
+    from repro_torch.distributed import spmd
+    B, prompt = toks.shape
+    max_len = prompt + len(feed)
+    tplaced = M.place(toks, M.data_sharding(mesh, B, 2))
+    with (recorded_routes() if routes else nullcontext([])) as seen:
+        spmd.prefill(cfg, mesh, P, tplaced, max_len=max_len)     # warm
+    out = {"tokens": tplaced,
+           "prefill_routes": [(i.cpu(), k.cpu()) for i, k in seen]}
+    before = k3_launches()
+    (lg, cache), out["prefill_ms"] = timed_ms(dev, lambda: spmd.prefill(
+        cfg, mesh, P, tplaced, max_len=max_len))
+    out["prefill_k3"] = k3_launches() - before
+    cache = spmd.quantize_cache(cfg, cache)
+    out["cache_bytes_per_position"] = M.nbytes_per_position(cache)
+    got, step_ms, step_k3 = [lg.gather(dev).float()], [], []
+    for t in range(len(feed)):
+        before = k3_launches()
+        with (recorded_routes() if routes and t == 1
+              else nullcontext([])) as seen:
+            (lg, cache), d = timed_ms(dev, lambda: dfn(P, cache, feed[t],
+                                                       prompt + t))
+        if t == 1:
+            out["step_routes"] = list(seen)
+        step_k3.append(k3_launches() - before)
+        step_ms.append(d)
+        got.append(lg.gather(dev)[:, 0].float())
+    out.update(got=got, step_ms=step_ms, step_k3=step_k3, cache=cache)
+    return out
+
+
+def serve8_checks(label: str, got, want, own: float,
+                  own_agree: float) -> dict:
+    """Hold the sharded run's logits ``got`` against the unsplit run's
+    ``want`` at twice the unsplit run's own bf16-vs-float32 max gap
+    ``own`` (at the same prompts and fed tokens); greedy agreement is
+    reported beside the unsplit run's with float32 (random weights: no
+    floor). Returns the readings."""
+    gaps = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    bar = 2 * own
+    check(max(gaps) <= bar and all(map(finite, got)),
+          f"{label} against the unsplit int8 run: gaps {gaps}, bar {bar}")
+    return {"logits_max_abs_gap": max(gaps), "prefill_gap": gaps[0],
+            "bar": bar, "bar_rule": "2 x the unsplit run's own bf16-vs-"
+            "float32 max abs gap at the same prompts and fed tokens",
+            "unsplit_bf16_vs_float32_gap": own,
+            "logits_max_abs": max(float(w.abs().max()) for w in want),
+            "greedy_agree_share": greedy_agree(got, want),
+            "unsplit_bf16_vs_float32_greedy_agree_share": own_agree}
+
+
+# -- the LM over a (data, model) mesh: Granite-3-2B, tp training, serve8 ------
+MESH_ARCH, MESH_SHAPE = "granite-3-2b", (2, 2)
+MESH_DRILL = dict(n_layers=2, batch=8, seq=64, steps=3, crash_at=2,
+                  ckpt_every=2)
+MESH_DRILL_REL = 1e-4      # float32, the card's atomics in the embedding
+MESH_LEAVES = ("embed/tokens", "blocks/attn/wq", "blocks/attn/wk",
+               "blocks/mlp/w_down", "blocks/norm1", "head/w")
+
+
 def lm_mesh_slice_phase(card: str, dev, devs, cfg=None,
                         shape=MESH_SHAPE, batch: int = MESH_BATCH,
                         seq: int = MESH_SEQ, accum: int = MESH_ACCUM,
@@ -3478,13 +3748,16 @@ def lm_mesh_slice_phase(card: str, dev, devs, cfg=None,
     """The dense LM over a (data, model) mesh of ``devs`` (cycled to the
     mesh's size): the tp training step (`launch.steps.plan`, float32
     masters stored by BASE_RULES, bf16 compute copies gathered once a
-    step) against the unsplit step from the same initial state; serve8
-    serving (TP-placed bf16 weights, the int8 cache's slots over "model")
-    against the unsplit int8 run fed the same tokens; `ef_allreduce` over
-    "data" on one layer's gradients; the elastic restart drill at two
-    layers in float32. Returns (report, K3 launches of the mesh runs)."""
+    step) against the unsplit step from the same initial state, then the
+    cp preset's step (context parallelism: each model shard's block of
+    the sequence, K3 at its queries over the keys up to its block's end)
+    from that state against both; serve8 serving (TP-placed bf16 weights,
+    the int8 cache's slots over "model") against the unsplit int8 run fed
+    the same tokens, and a cp prefill against the unsplit and tp ones;
+    `ef_allreduce` over "data" on one layer's gradients; the elastic
+    restart drill at two layers in float32. Returns (report, K3 launches
+    of the mesh runs)."""
     import dataclasses
-    import gc
     import math
     import shutil
     import tempfile
@@ -3496,20 +3769,17 @@ def lm_mesh_slice_phase(card: str, dev, devs, cfg=None,
     from repro_torch.distributed import meshes as M
     from repro_torch.distributed import spmd
     from repro_torch.distributed.fault import FaultInjector, HostFailure
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.launch import train as train_lib
-    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import batch_on
     from repro_torch.models import decoding, transformer
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.optim import adamw
     cfg = cfg or get_arch(MESH_ARCH)
     cuda = dev.type == "cuda"
-    n = int(math.prod(shape))
-    mesh_devs = [devs[i % len(devs)] for i in range(n)]
-    mesh = make_mesh(shape, ("data", "model"), mesh_devs)
+    mesh, mesh_devs = mesh_on(devs, shape)
+    n = mesh.size
     lay = spmd.Layout(cfg, mesh)
     report = {"card": card, "arch": cfg.name, "n_layers": cfg.n_layers,
               "d_model": cfg.d_model, "n_heads": cfg.n_heads,
@@ -3519,113 +3789,87 @@ def lm_mesh_slice_phase(card: str, dev, devs, cfg=None,
               "split_heads": lay.split_heads, "split_ff": lay.split_ff}
     t0 = time.perf_counter()
     timing = {}
-
-    def peak_gib():
-        return (torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda
-                else "not measured: no card")
-
-    def free():
-        gc.collect()
-        if cuda:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(dev)
-
-    def k3():
-        return fa.LAUNCHES.value
-
     shape_t = ShapeConfig("train", seq, batch, "train", grad_accum=accum)
     pipe = TokenPipeline(cfg.vocab_size, seq, batch)
     tokens_per_step = batch * seq
     mesh_k3 = 0
 
     # -- training: the unsplit step, then the tp step from the same state --
-    free()
-    params, opt = train_lib.build_state(cfg, dev)
-    n_params = sum(a.numel() for a in tree_leaves(params))
-    report["params"] = n_params
-    step1 = steps.make_train_step(cfg, shape_t)
-    unsplit_ms, unsplit = [], {}
-    for i in range(1 + timed):
-        b = batch_on(pipe.batch_at(i), {}, dev)
-        (params, opt, m), ms = timed_ms(dev, lambda: step1(params, opt, b))
-        if i == 0:
-            unsplit = {"loss": float(m["loss"]),
-                       "grad_norm": float(m["grad_norm"]),
-                       "m": {p: _first_layer(_leaf(opt.m, p))
-                             for p in MESH_LEAVES}}
-        else:
-            unsplit_ms.append(ms)
+    free_card(dev)
+    state = train_lib.build_state(cfg, dev)
+    report["params"] = sum(a.numel() for a in tree_leaves(state[0]))
+    state, u = train_run(dev, steps.make_train_step(cfg, shape_t), state,
+                         lambda i: batch_on(pipe.batch_at(i), {}, dev),
+                         1 + timed, MESH_LEAVES)
     train = {"batch": batch, "seq": seq, "grad_accum": accum,
              "remat": cfg.remat, "unsplit": {
-                 "loss_step0": unsplit["loss"],
-                 "ms_per_step": sum(unsplit_ms) / len(unsplit_ms),
-                 "step_ms": unsplit_ms, "peak_gib": peak_gib()}}
-    train["unsplit"]["tokens_per_s"] = (
-        tokens_per_step / train["unsplit"]["ms_per_step"] * 1e3)
-    del params, opt, m, b
-    free()
+                 "loss_step0": u["losses"][0],
+                 "ms_per_step": u["ms_per_step"], "step_ms": u["step_ms"],
+                 "peak_gib": peak_gib(dev),
+                 "tokens_per_s": tokens_per_step / u["ms_per_step"] * 1e3}}
+    del state
+    free_card(dev)
     timing["unsplit_train"] = time.perf_counter() - t0
 
-    rules = steps.resolve_rules("tp")
-    fn, _specs, ins, _outs, _don = steps.plan(cfg, shape_t, mesh, rules)
-    params, opt = train_lib.build_state(cfg, dev, mesh=mesh)
-    state_bytes = M.nbytes_per_position((params, opt))
-    train["peak_gib_state"] = peak_gib()
+    fn = steps.plan(cfg, shape_t, mesh, steps.resolve_rules("tp"))[0]
+    state = train_lib.build_state(cfg, dev, mesh=mesh)
+    state_bytes = M.nbytes_per_position(state)
+    train["peak_gib_state"] = peak_gib(dev)
     # forward and remat's recompute, every layer, position, micro-batch
     per_step = 2 * accum * cfg.n_layers * n
-    sharded_ms, losses, gnorms, launches_each = [], [], [], []
-    for i in range(1 + timed):
-        b = pipe.batch_at(i)
-        before = k3()
-        (params, opt, m), ms = timed_ms(dev, lambda: fn(params, opt, b))
-        launches_each.append(k3() - before)
-        losses.append(float(m["loss"]))
-        gnorms.append(float(m["grad_norm"]))
-        if i == 0:
-            got_m = {p: _first_layer(_leaf(opt.m, p)) for p in MESH_LEAVES}
-        else:
-            sharded_ms.append(ms)
-    mesh_k3 += sum(launches_each)
+    state, tp = train_run(dev, fn, state, pipe.batch_at, 1 + timed,
+                          MESH_LEAVES)
+    mesh_k3 += sum(tp["k3_per_step"])
     train["sharded"] = {
-        "preset": "tp", "ms_per_step": sum(sharded_ms) / len(sharded_ms),
-        "step_ms": sharded_ms, "losses": losses, "grad_norms": gnorms,
-        "peak_gib": peak_gib(), "k3_launches_per_step": launches_each,
+        "preset": "tp", "ms_per_step": tp["ms_per_step"],
+        "step_ms": tp["step_ms"], "losses": tp["losses"],
+        "grad_norms": tp["grad_norms"], "peak_gib": peak_gib(dev),
+        "k3_launches_per_step": tp["k3_per_step"],
         "k3_launches_expected": per_step,
-        "state_bytes_per_position": state_bytes}
-    train["sharded"]["tokens_per_s"] = (
-        tokens_per_step / train["sharded"]["ms_per_step"] * 1e3)
-    train["sharded_over_unsplit"] = (train["sharded"]["ms_per_step"]
-                                     / train["unsplit"]["ms_per_step"])
-    rel = {p: float((got_m[p] - unsplit["m"][p]).norm()
-                    / unsplit["m"][p].norm().clamp_min(1e-30))
-           for p in MESH_LEAVES}
-    loss_gap = abs(losses[0] - unsplit["loss"])
-    train["checks"] = {"loss_gap_step0": loss_gap,
-                       "loss_bar": MESH_LOSS_ATOL,
-                       "grad_norm_step0": [gnorms[0], unsplit["grad_norm"]],
-                       "first_moment_rel_l2_layer0": rel,
-                       "first_moment_bar": MESH_GRAD_REL}
-    check(all(map(math.isfinite, losses + gnorms)),
-          "mesh training: a non-finite loss or grad norm")
-    check(loss_gap <= MESH_LOSS_ATOL,
-          f"mesh tp step: loss {losses[0]} against the unsplit "
-          f"{unsplit['loss']}")
-    check(max(rel.values()) <= MESH_GRAD_REL,
-          f"mesh tp step: first moments against the unsplit step's {rel}")
-    check(not cuda or all(e == per_step for e in launches_each),
-          f"mesh tp step: {launches_each} K3 launches a step, not "
-          f"{per_step} (forward and recompute, every layer, position and "
-          f"micro-batch)")
+        "state_bytes_per_position": state_bytes,
+        "tokens_per_s": tokens_per_step / tp["ms_per_step"] * 1e3}
+    train["sharded_over_unsplit"] = tp["ms_per_step"] / u["ms_per_step"]
+    bars = dict.fromkeys(MESH_LEAVES, MESH_GRAD_REL)
+    train["checks"] = held_train("mesh tp step", tp, u, bars,
+                                 MESH_LOSS_ATOL, per_step, cuda)
     if cuda and profile:
         b = pipe.batch_at(1 + timed)
-        before = k3()
+        before = k3_launches()
         train["step_device_profile"] = device_profile(
-            lambda: fn(params, opt, b), spans=(*ops.SPANS, adamw.SPAN))
-        mesh_k3 += k3() - before
-    report["train"] = train
-    del params, opt, m, fn, b
-    free()
+            lambda: fn(*state, b), spans=(*ops.SPANS, adamw.SPAN))
+        mesh_k3 += k3_launches() - before
+    del state, fn
+    free_card(dev)
     timing["sharded_train"] = time.perf_counter() - t0
+
+    # -- the cp preset's step from the same state: against the unsplit
+    # step and the tp step, at their bars
+    fn = steps.plan(cfg, shape_t, mesh, steps.resolve_rules("cp"))[0]
+    state = train_lib.build_state(cfg, dev, mesh=mesh)
+    state, cp_run = train_run(dev, fn, state, pipe.batch_at, 1 + timed,
+                              MESH_LEAVES)
+    mesh_k3 += sum(cp_run["k3_per_step"])
+    cp = {"preset": "cp", "ms_per_step": cp_run["ms_per_step"],
+          "step_ms": cp_run["step_ms"], "losses": cp_run["losses"],
+          "peak_gib": peak_gib(dev),
+          "k3_launches_per_step": cp_run["k3_per_step"],
+          "k3_launches_expected": per_step,
+          "k3_shapes": [[seq // lay.m, (r + 1) * seq // lay.m]
+                        for r in range(lay.m)],
+          "tokens_per_s": tokens_per_step / cp_run["ms_per_step"] * 1e3,
+          "cp_over_tp": cp_run["ms_per_step"] / tp["ms_per_step"],
+          "checks": {
+              "vs_unsplit": held_train("mesh cp step against the unsplit "
+                                       "step", cp_run, u, bars,
+                                       MESH_LOSS_ATOL, per_step, cuda),
+              "vs_tp": held_train("mesh cp step against the tp step",
+                                  cp_run, tp, bars, MESH_LOSS_ATOL,
+                                  per_step, cuda)}}
+    train["cp"] = cp
+    report["train"] = train
+    del state, fn, u, tp, cp_run
+    free_card(dev)
+    timing["cp_train"] = time.perf_counter() - t0
 
     # -- serving: serve8 over the mesh against the unsplit int8 run ---------
     serve = {"batch": batch, "prompt": prompt, "new_tokens": new,
@@ -3636,45 +3880,22 @@ def lm_mesh_slice_phase(card: str, dev, devs, cfg=None,
     toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
                          device=dev, dtype=torch.int32)
     max_len = prompt + new
-
-    def unsplit_run(c, prm, feed=None):
-        last, cache = decoding.prefill(c, prm, {"tokens": toks},
-                                       max_len=max_len)
-        cache = decoding.quantize_cache(c, cache)
-        out, fed, ms = [last.float()], [], []
-        for t in range(new):
-            nxt = (out[-1].argmax(-1, keepdim=True).int() if feed is None
-                   else feed[t])
-            fed.append(nxt)
-            (lg, cache), d = timed_ms(dev, lambda: decoding.decode_step(
-                c, prm, cache, nxt, prompt + t))
-            ms.append(d)
-            out.append(lg[:, 0].float())
-        return out, fed, ms, cache
-
-    def agree(a_list, b_list):
-        """The share of (step, row) whose greedy tokens agree."""
-        hits = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
-                   for a, b in zip(a_list, b_list))
-        return hits / sum(a.shape[0] for a in a_list)
-
     _, pre_ms_u = timed_ms(dev, lambda: decoding.prefill(
         cfg, params, {"tokens": toks}, max_len=max_len))
-    want, feed, dec_u, ucache = unsplit_run(cfg, params)
+    want, feed, dec_u, ucache = serve8_unsplit(dev, cfg, params, toks, new)
     if cuda and profile:
         serve["unsplit_decode_device_profile"] = device_profile(
             lambda: decoding.decode_step(cfg, params, ucache, feed[-1],
                                          max_len - 1))
     del ucache
-    # the bar: twice the unsplit path's own bf16-vs-float32 gap at the
-    # same prompts and fed tokens, as the CPU test holds it
+    # the bar's yardstick: the unsplit path in float32 at the same prompts
+    # and fed tokens, as the CPU test holds it
     c32 = dataclasses.replace(cfg, dtype="float32")
     p32 = tree_map(lambda t: t.float(), params)
-    ref32, _f, _m, _c = unsplit_run(c32, p32, feed)
-    del p32, _c
-    free()
-    own = max(float((a - b).abs().max()) for a, b in zip(want, ref32))
-    own_agree = agree(want, ref32)
+    ref32 = serve8_unsplit(dev, c32, p32, toks, new, feed)[0]
+    del p32
+    free_card(dev)
+    own, own_agree = max_gap(want, ref32), greedy_agree(want, ref32)
     del ref32
     serve["unsplit"] = {"prefill_warm_ms": pre_ms_u,
                         "decode_ms_per_step": sum(dec_u[1:])
@@ -3684,49 +3905,53 @@ def lm_mesh_slice_phase(card: str, dev, devs, cfg=None,
                                        steps.resolve_rules("serve8"))
     P = M.place_tree(params, dins[0])
     serve["param_bytes_per_position"] = M.nbytes_per_position(P)
-    tok_pl = M.data_sharding(mesh, batch, 2)
-    tplaced = M.place(toks, tok_pl)
-    spmd.prefill(cfg, mesh, P, tplaced, max_len=max_len)     # warm
-    before = k3()
-    (lg, cache), pre_ms = timed_ms(dev, lambda: spmd.prefill(
-        cfg, mesh, P, tplaced, max_len=max_len))
-    prefill_k3 = k3() - before
-    mesh_k3 += prefill_k3
-    cache = spmd.quantize_cache(cfg, cache)
-    serve["cache_bytes_per_position"] = M.nbytes_per_position(cache)
-    got = [lg.gather(dev).float()]
-    dec_ms = []
-    for t in range(new):
-        (lg, cache), d = timed_ms(dev, lambda: dfn(P, cache, feed[t],
-                                                   prompt + t))
-        dec_ms.append(d)
-        got.append(lg.gather(dev)[:, 0].float())
-    serve["sharded"] = {"prefill_warm_ms": pre_ms,
-                        "decode_ms_per_step": sum(dec_ms[1:])
-                        / max(len(dec_ms) - 1, 1),
-                        "k3_launches_prefill": prefill_k3,
+    run = serve8_mesh(dev, cfg, mesh, dfn, P, toks, feed)
+    mesh_k3 += run["prefill_k3"] + sum(run["step_k3"])
+    serve["cache_bytes_per_position"] = run["cache_bytes_per_position"]
+    serve["sharded"] = {"prefill_warm_ms": run["prefill_ms"],
+                        "decode_ms_per_step": sum(run["step_ms"][1:])
+                        / max(len(run["step_ms"]) - 1, 1),
+                        "k3_launches_prefill": run["prefill_k3"],
                         "k3_launches_expected": cfg.n_layers * n,
-                        "peak_gib": peak_gib()}
+                        "peak_gib": peak_gib(dev)}
     if cuda and profile:
         # the last step again (its slot rewritten with the same token)
         serve["sharded"]["decode_device_profile"] = device_profile(
-            lambda: dfn(P, cache, feed[-1], max_len - 1))
-    gaps = [float((a - b).abs().max()) for a, b in zip(got, want)]
-    bar = 2 * own
-    serve["checks"] = {
-        "logits_max_abs_gap": max(gaps), "prefill_gap": gaps[0],
-        "bar": bar, "bar_rule": "2 x the unsplit run's own bf16-vs-float32 "
-        "max abs gap at the same prompts and fed tokens",
-        "unsplit_bf16_vs_float32_gap": own,
-        "logits_max_abs": max(float(w.abs().max()) for w in want),
-        "greedy_agree_share": agree(got, want),
-        "unsplit_bf16_vs_float32_greedy_agree_share": own_agree}
-    check(max(gaps) <= bar and all(map(finite, got)),
-          f"serve8 over the mesh against the unsplit int8 run: gaps {gaps}"
-          f", bar {bar}")
+            lambda: dfn(P, run["cache"], feed[-1], max_len - 1))
+    got, tplaced = run["got"], run["tokens"]
+    serve["checks"] = serve8_checks("serve8 over the mesh", got, want, own,
+                                    own_agree)
+    bar = serve["checks"]["bar"]
+    # a cp prefill (each model shard its block of the prompt) against the
+    # unsplit prefill and the tp one, at the same bar
+    del P, run
+    free_card(dev)
+    pshape = ShapeConfig("prefill", prompt, batch, "prefill")
+    cfn, _s, cins, _o, _d = steps.plan(cfg, pshape, mesh,
+                                       steps.resolve_rules("cp"))
+    P = M.place_tree(params, cins[0])
+    cfn(P, {"tokens": tplaced})                              # warm
+    before = k3_launches()
+    (lg, _c), cp_ms = timed_ms(dev, lambda: cfn(P, {"tokens": tplaced}))
+    cp_k3 = k3_launches() - before
+    mesh_k3 += cp_k3
+    cp_last = lg.gather(dev).float()
+    cp_gap = float((cp_last - want[0]).abs().max())
+    serve["cp_prefill"] = {
+        "prefill_warm_ms": cp_ms, "peak_gib": peak_gib(dev),
+        "k3_launches_prefill": cp_k3,
+        "k3_launches_expected": cfg.n_layers * n,
+        "logits_max_abs_gap_vs_unsplit": cp_gap,
+        "logits_max_abs_gap_vs_tp": float((cp_last - got[0]).abs().max()),
+        "bar": bar}
+    check(cp_gap <= bar and finite(cp_last),
+          f"cp prefill over the mesh against the unsplit prefill: "
+          f"{cp_gap}, bar {bar}")
+    check(not cuda or cp_k3 == cfg.n_layers * n,
+          f"cp prefill: {cp_k3} K3 launches, not {cfg.n_layers * n}")
     report["serve"] = serve
-    del params, P, cache, lg, got, want
-    free()
+    del params, P, _c, lg, got, want
+    free_card(dev)
     timing["serve"] = time.perf_counter() - t0
 
     # -- ef_allreduce over "data": one layer's gradients at full width ------
@@ -3760,7 +3985,7 @@ def lm_mesh_slice_phase(card: str, dev, devs, cfg=None,
     check(worst == 0.0, f"ef_allreduce over data: {worst} from the "
           f"reference's formula")
     del g, avg, res
-    free()
+    free_card(dev)
     timing["ef"] = time.perf_counter() - t0
 
     # -- the elastic restart: (2, 2) onto (4, 1) and one device -------------
@@ -3786,9 +4011,7 @@ def lm_mesh_slice_phase(card: str, dev, devs, cfg=None,
         check(crashed, "mesh restart drill: the injected crash did not "
               "happen")
         for shp in ((4, 1), (1, 1)):
-            k = int(math.prod(shp))
-            m2 = make_mesh(shp, ("data", "model"),
-                           [mesh_devs[i % len(mesh_devs)] for i in range(k)])
+            m2, _ = mesh_on(mesh_devs, shp)
             d = f"{tmp}/m{shp[0]}x{shp[1]}"
             shutil.copytree(tmp + "/a", d)
             t = time.perf_counter()
@@ -3811,8 +4034,402 @@ def lm_mesh_slice_phase(card: str, dev, devs, cfg=None,
     rest["bar"] = MESH_DRILL_REL
     report["restart_drill"] = rest
     del refl
-    free()
+    free_card(dev)
     timing["restart"] = time.perf_counter() - t0
+    report["timing_s"] = timing
+    report["wall_s"] = time.perf_counter() - t0
+    report["launches"] = {"flash_attention": mesh_k3}
+    return report, mesh_k3
+
+
+# -- the MoE family over a (data, model) mesh: Moonlight-16B-A3B ------------
+# serving at full width and depth on (1, 4) (4 of its 16 heads and 16 of
+# its 64 experts a shard, each stored once), training at full width and 3
+# of its 48 layers on (2, 2) (float32 masters and two moments, ~9 GB a
+# layer with the gradients, do not fit 48 layers on one card)
+MOE_MESH_SERVE, MOE_MESH_TRAIN = (1, 4), (2, 2)
+MOE_MESH_TRAIN_LAYERS = 3
+# the float32 step: masters, moments, compute copies and gradients all
+# float32 do not fit 3 layers on (2, 2) (run out of memory on an H100)
+MOE_MESH_F32_LAYERS = 2
+MOE_MESH_TIMED = 1         # timed training steps after the first
+# the checked first moments: the weights every token reaches, and the
+# experts' (each sums only the tokens routed to it and kept)
+MOE_MESH_LEAVES = ("embed/tokens", "blocks/attn/wq", "blocks/attn/wk",
+                   "blocks/moe/router", "blocks/norm2", "head/w",
+                   "blocks/moe/w_gate", "blocks/moe/w_down")
+
+
+def place_consuming(tree: dict, placements):
+    """`meshes.place` of every leaf of ``tree`` by ``placements``, each
+    leaf taken out of ``tree`` once it is placed, so the card holds the
+    whole weights once and one leaf twice (its pieces beside it)."""
+    from repro_torch.distributed import meshes as M
+    out = {}
+    for k in list(tree):
+        v = tree.pop(k)
+        out[k] = (place_consuming(v, placements[k]) if isinstance(v, dict)
+                  else M.place(v, placements[k]))
+        del v
+    return out
+
+
+def position_rows(mesh, batch: int, seq: int, accum: int = 1) -> list:
+    """Each mesh position's rows [lo, hi) of a (batch, seq) batch placed
+    by rows, within a micro-batch of ``accum`` (a position's rows j::accum
+    are micro-batch j's)."""
+    from repro_torch.distributed import meshes as M
+    spec = M.data_sharding(mesh, batch, 2).spec
+    return [tuple(r // accum for r in M.block_of(mesh, spec, (batch, seq),
+                                                  c)[0])
+            for c in M.positions(mesh)]
+
+
+def global_routes(lay, calls, rows) -> list:
+    """A mesh's recorded `moe.place` calls (``lay.n`` positions a layer
+    call) as the whole batch's (experts, kept) of each layer call: the
+    model shard 0 positions' rows in the batch's order (``rows``, of
+    `position_rows`). Checks that every position routes as the first of
+    its group over "model" (the routing is replicated)."""
+    import torch
+    n = lay.n
+    check(len(calls) % n == 0, f"{len(calls)} recorded routings, not a "
+          f"multiple of the mesh's {n} positions")
+    out = []
+    for c in range(len(calls) // n):
+        per = calls[c * n:(c + 1) * n]
+        check(all(torch.equal(per[i][0], per[lay.group[i][0]][0])
+                  and torch.equal(per[i][1], per[lay.group[i][0]][1])
+                  for i in range(n)),
+              "the model shards of a data position routed otherwise")
+        blocks = {}
+        for i in range(n):
+            if lay.r(i) == 0:
+                blocks.setdefault(rows[i], per[i])
+        out.append((torch.cat([blocks[b][0] for b in sorted(blocks)]),
+                    torch.cat([blocks[b][1] for b in sorted(blocks)])))
+    return out
+
+
+def as_sets(routes) -> list:
+    """Recorded routings with each token's experts in ascending order and
+    its kept flags beside them: the token's (expert, kept) pairs as a set
+    (the order of its k choices follows their probabilities, which a
+    near-tie between two chosen experts may swap)."""
+    out = []
+    for idx, keep in routes:
+        idx, order = idx.sort(-1)
+        out.append((idx, keep.gather(-1, order)))
+    return out
+
+
+def routing_differs(a, b) -> list:
+    """Per layer call, the share of tokens whose experts (as a set) or
+    kept flags differ between the whole-batch routings ``a`` and ``b``."""
+    out = []
+    for (ia, ka), (ib, kb) in zip(as_sets(a), as_sets(b)):
+        d = (ia != ib).any(-1) | (ka != kb).any(-1)
+        out.append(float(d.float().mean()))
+    return out
+
+
+def per_layer(shares, n_layers: int, remat: bool) -> list:
+    """Layer-call shares of a training step as each layer's mean: a
+    micro-batch calls the layers forward, then, under remat, again in
+    reverse order as the backward recomputes them."""
+    span = 2 * n_layers if remat else n_layers
+    sums, counts = [0.0] * n_layers, [0] * n_layers
+    for c, s in enumerate(shares):
+        c %= span
+        li = c if c < n_layers else span - 1 - c
+        sums[li] += s
+        counts[li] += 1
+    return [s / max(k, 1) for s, k in zip(sums, counts)]
+
+
+def lm_mesh_moe_slice_phase(card: str, dev, devs, cfg=None,
+                            serve_shape=MOE_MESH_SERVE,
+                            train_shape=MOE_MESH_TRAIN,
+                            train_layers: int = MOE_MESH_TRAIN_LAYERS,
+                            f32_layers: int = MOE_MESH_F32_LAYERS,
+                            batch: int = MESH_BATCH, seq: int = MESH_SEQ,
+                            accum: int = MESH_ACCUM,
+                            timed: int = MOE_MESH_TIMED,
+                            prompt: int = MESH_PROMPT, new: int = MESH_NEW,
+                            profile: bool = True):
+    """The mixture-of-experts family over meshes of ``devs`` (cycled to
+    the mesh's size): serve8 serving (`launch.steps.plan`: TP-placed bf16
+    weights, the experts split over "model", the int8 cache's slots over
+    "model") of ``batch`` prompts of ``prompt`` tokens and ``new`` greedy
+    steps on ``serve_shape``, against the unsplit one-card int8 run of the
+    same weights fed the same tokens, at twice the unsplit run's own
+    bf16-vs-float32 gap (its float32 run computes in float32 over the same
+    bf16 weights); the tp training step on ``train_shape`` against the
+    unsplit step from the same state: in float32 compute at
+    ``f32_layers`` layers within 1e-5, every layer's experts and kept
+    flags bit-equal (so a wrong capacity or place fails), and in bf16 at
+    ``train_layers`` layers each first moment within twice the unsplit
+    step's own bf16-vs-float32 gap of that leaf. Returns (report, K3
+    launches of the mesh runs)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.distributed import meshes as M
+    from repro_torch.distributed import spmd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models import decoding, moe, transformer
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import adamw
+    cfg = cfg or get_arch(MOE_ARCH)
+    cuda = dev.type == "cuda"
+    t0 = time.perf_counter()
+    timing = {}
+    mesh_k3 = 0
+
+    # -- serving: serve8 on the serving mesh against the unsplit run -------
+    mesh, mesh_devs = mesh_on(devs, serve_shape)
+    n = mesh.size
+    lay = spmd.Layout(cfg, mesh)
+    report = {"card": card, "arch": cfg.name, "d_model": cfg.d_model,
+              "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+              "experts": cfg.n_experts, "top_k": cfg.top_k,
+              "capacity_factor": cfg.capacity_factor,
+              "devices": [str(d) for d in mesh_devs],
+              "distinct_cards": len(set(mesh_devs))}
+    serve = {"mesh": dict(mesh.shape), "n_layers": cfg.n_layers,
+             "batch": batch, "prompt": prompt, "new_tokens": new,
+             "preset": "serve8", "split_heads": lay.split_heads,
+             "split_experts": lay.split_experts,
+             "experts_per_shard": lay.experts(0)[1] - lay.experts(0)[0],
+             "capacity": {"prefill": moe.capacity(cfg, batch * prompt),
+                          "decode_step": moe.capacity(cfg, batch)}}
+    free_card(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    params = transformer.build_param_table(cfg).init(
+        gen, device=dev, dtype=torch.bfloat16)
+    serve["params"] = sum(t.numel() for t in tree_leaves(params))
+    serve["reduced"] = None
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=dev, dtype=torch.int32)
+    max_len = prompt + new
+    L = cfg.n_layers
+    with torch.no_grad():
+        decoding.prefill(cfg, params, {"tokens": toks},
+                         max_len=max_len)                      # warm
+        before = k3_launches()
+        _, pre_ms_u = timed_ms(dev, lambda: decoding.prefill(
+            cfg, params, {"tokens": toks}, max_len=max_len))
+        unsplit_k3 = k3_launches() - before
+        # the prefill's L calls of the layer, then L a decode step
+        with recorded_routes() as seen:
+            want, feed, dec_u, _c = serve8_unsplit(dev, cfg, params, toks,
+                                                   new)
+        del _c
+        routes_u = [(i.cpu(), k.cpu()) for i, k in seen[:L]]
+        drop_dec_u = dropped_share(seen[L:2 * L])
+        del seen
+        serve["unsplit"] = {
+            "prefill_warm_ms": pre_ms_u,
+            "prefill_tokens_per_s": batch * prompt / pre_ms_u * 1e3,
+            "decode_ms_per_step": sum(dec_u[1:]) / max(len(dec_u) - 1, 1),
+            "k3_launches_prefill": unsplit_k3,
+            "dropped_share_prefill": dropped_share(routes_u),
+            "dropped_share_decode_step": drop_dec_u,
+            "peak_gib": peak_gib(dev)}
+        serve["unsplit"]["decode_tokens_per_s"] = (
+            batch / serve["unsplit"]["decode_ms_per_step"] * 1e3)
+        # the bar: the unsplit run's own gap to float32 compute over the
+        # same bf16 weights (each product casts its weight: a float32 copy
+        # of 28 B parameters does not fit the card), fed the same tokens
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        ref32 = serve8_unsplit(dev, c32, params, toks, new, feed)[0]
+        own, own_agree = max_gap(want, ref32), greedy_agree(want, ref32)
+        serve["unsplit"]["peak_gib_float32_run"] = peak_gib(dev)
+        del ref32
+    timing["unsplit_serve"] = time.perf_counter() - t0
+
+    # the same weights placed on the mesh, leaf by leaf
+    dshape = ShapeConfig("decode", max_len, batch, "decode")
+    dfn, _s, dins, _o, _d = steps.plan(cfg, dshape, mesh,
+                                       steps.resolve_rules("serve8"))
+    free_card(dev)
+    P = place_consuming(params, dins[0])
+    del params
+    gc.collect()
+    serve["param_bytes_per_position"] = M.nbytes_per_position(P)
+    serve["peak_gib_after_placing"] = peak_gib(dev)
+    timing["place"] = time.perf_counter() - t0
+    run = serve8_mesh(dev, cfg, mesh, dfn, P, toks, feed, routes=True)
+    mesh_k3 += run["prefill_k3"] + sum(run["step_k3"])
+    routes_m = global_routes(lay, run.pop("prefill_routes"),
+                             position_rows(mesh, batch, prompt))
+    differs = routing_differs(routes_u, routes_m)
+    dec_ms = run["step_ms"]
+    serve["cache_bytes_per_position"] = run["cache_bytes_per_position"]
+    serve["sharded"] = {
+        "prefill_warm_ms": run["prefill_ms"],
+        "prefill_tokens_per_s": batch * prompt / run["prefill_ms"] * 1e3,
+        "decode_ms_per_step": sum(dec_ms[1:]) / max(len(dec_ms) - 1, 1),
+        "k3_launches_prefill": run["prefill_k3"],
+        "k3_launches_expected": cfg.n_layers * n,
+        "k3_launches_decode_step": max(run["step_k3"]),
+        "dropped_share_prefill": dropped_share(routes_m),
+        "dropped_share_decode_step": dropped_share(run.pop("step_routes")),
+        "routing_differs_share_prefill": sum(differs) / len(differs),
+        "routing_differs_share_prefill_per_layer": differs,
+        "peak_gib": peak_gib(dev)}
+    serve["sharded"]["decode_tokens_per_s"] = (
+        batch / serve["sharded"]["decode_ms_per_step"] * 1e3)
+    serve["sharded_over_unsplit"] = {
+        "prefill": run["prefill_ms"] / pre_ms_u,
+        "decode": (serve["sharded"]["decode_ms_per_step"]
+                   / serve["unsplit"]["decode_ms_per_step"])}
+    del routes_u, routes_m
+    if cuda and profile:
+        # the last step again (its slot rewritten with the same token)
+        serve["sharded"]["decode_device_profile"] = device_profile(
+            lambda: dfn(P, run["cache"], feed[-1], max_len - 1),
+            spans=moe.SPANS)
+    serve["checks"] = serve8_checks("moe serve8 over the mesh", run["got"],
+                                    want, own, own_agree)
+    check(not cuda or (run["prefill_k3"] == cfg.n_layers * n
+                       and unsplit_k3 == cfg.n_layers
+                       and max(run["step_k3"]) == 0),
+          f"moe serving: {run['prefill_k3']} K3 launches in the mesh "
+          f"prefill (not {cfg.n_layers * n}), {unsplit_k3} unsplit, "
+          f"{run['step_k3']} a decode step")
+    report["serve"] = serve
+    del P, run, want
+    free_card(dev)
+    timing["serve"] = time.perf_counter() - t0
+
+    # -- training: the tp step at reduced depth against the unsplit step,
+    # in bf16 and in float32 compute, each from the same state ------------
+    ct = dataclasses.replace(cfg, n_layers=train_layers)
+    c32 = dataclasses.replace(ct, dtype="float32")
+    cf = dataclasses.replace(c32, n_layers=f32_layers)
+    mesh, _ = mesh_on(devs, train_shape)
+    n = mesh.size
+    lay = spmd.Layout(ct, mesh)
+    rows = position_rows(mesh, batch, seq, accum)
+    shape_t = ShapeConfig("train", seq, batch, "train", grad_accum=accum)
+    pipe = TokenPipeline(ct.vocab_size, seq, batch)
+    tokens_per_step = batch * seq
+
+    def per_step(c):
+        """K3 launches a step: forward (and remat's recompute), every
+        layer, position and micro-batch."""
+        return (2 if c.remat else 1) * accum * c.n_layers * n
+    train = {"mesh": dict(mesh.shape), "n_layers": ct.n_layers,
+             "n_layers_float32_check": cf.n_layers,
+             "reduced": f"n_layers {cfg.n_layers} -> {ct.n_layers} (bf16 "
+             f"and its float32 yardstick), {cf.n_layers} (the float32 "
+             f"check)",
+             "batch": batch, "seq": seq, "grad_accum": accum,
+             "remat": ct.remat,
+             "capacity_per_micro_batch": moe.capacity(
+                 ct, batch // accum * seq)}
+    runs = {}
+    for label, c, on_mesh in (("unsplit", ct, False),
+                              ("unsplit_float32", c32, False),
+                              ("tp", ct, True),
+                              ("unsplit_float32_check", cf, False),
+                              ("tp_float32_check", cf, True)):
+        if on_mesh:
+            fn = steps.plan(c, shape_t, mesh, steps.resolve_rules("tp"))[0]
+            state = train_lib.build_state(c, dev, mesh=mesh)
+            bytes_per_position = M.nbytes_per_position(state)
+            state, r = train_run(dev, fn, state, pipe.batch_at, 1 + timed,
+                                 MOE_MESH_LEAVES, routes=True)
+            r["routes0"] = global_routes(lay, r["routes0"], rows)
+            r["state_bytes_per_position"] = bytes_per_position
+            mesh_k3 += sum(r["k3_per_step"])
+        else:
+            fn = steps.make_train_step(c, shape_t)
+            state = train_lib.build_state(c, dev)
+            r = {"params": sum(t.numel() for t in tree_leaves(state[0]))}
+            state, run = train_run(dev, fn, state,
+                                   lambda i: batch_on(pipe.batch_at(i), {},
+                                                      dev),
+                                   1 + timed, MOE_MESH_LEAVES, routes=True)
+            r.update(run)
+        r["peak_gib"] = peak_gib(dev)
+        if cuda and profile and label == "tp":
+            b = pipe.batch_at(1 + timed)
+            before = k3_launches()
+            r["step_device_profile"] = device_profile(
+                lambda: fn(*state, b),
+                spans=(*moe.SPANS, *ops.SPANS, adamw.SPAN))
+            mesh_k3 += k3_launches() - before
+        runs[label] = r
+        del state, fn
+        free_card(dev)
+        timing["train_" + label] = time.perf_counter() - t0
+    for label, r in runs.items():
+        train[label] = {
+            k: r[k] for k in ("params", "losses", "grad_norms", "metrics0",
+                              "ms_per_step", "step_ms", "first_step_ms",
+                              "k3_per_step", "peak_gib",
+                              "state_bytes_per_position",
+                              "step_device_profile") if k in r}
+        train[label]["tokens_per_s"] = (tokens_per_step / r["ms_per_step"]
+                                        * 1e3)
+        train[label]["dropped_share_step0"] = dropped_share(r["routes0"])
+    u, u32, tp, uf, tpf = (runs[k] for k in (
+        "unsplit", "unsplit_float32", "tp", "unsplit_float32_check",
+        "tp_float32_check"))
+    train["sharded_over_unsplit"] = tp["ms_per_step"] / u["ms_per_step"]
+    # float32: 1e-5, and the same experts and kept flags everywhere
+    f32 = held_train("moe mesh tp step in float32", tpf, uf,
+                     dict.fromkeys(MOE_MESH_LEAVES, MESH_F32_REL),
+                     MESH_F32_REL * abs(uf["losses"][0]), per_step(cf),
+                     cuda)
+    got, want = as_sets(tpf["routes0"]), as_sets(uf["routes0"])
+    same = len(got) == len(want) and all(
+        torch.equal(a, c) and torch.equal(b, d)
+        for (a, b), (c, d) in zip(got, want))
+    f32["experts_and_kept_bit_equal"] = same
+    f32["layer_calls"] = len(tpf["routes0"])
+    f32["choice_order_differs_tokens"] = sum(
+        int((a != c).any(-1).sum())
+        for (a, _), (c, _) in zip(tpf["routes0"], uf["routes0"]))
+    f32["dropped_share_step0"] = [dropped_share(tpf["routes0"]),
+                                  dropped_share(uf["routes0"])]
+    f32["routing_differs_share_per_layer"] = per_layer(
+        routing_differs(uf["routes0"], tpf["routes0"]), cf.n_layers,
+        cf.remat)
+    check(same, "moe mesh tp step in float32: a token's experts or kept "
+          "flags differ from the unsplit step's")
+    check(f32["dropped_share_step0"][1] > 0, "moe mesh training: capacity "
+          "dropped nothing at this batch (the check needs drops)")
+    # bf16: each leaf within twice its own bf16-vs-float32 gap
+    own = rel_l2_each(u["m0"], u32["m0"])
+    bf16 = held_train("moe mesh tp step", tp, u,
+                      {p: 2 * own[p] for p in MOE_MESH_LEAVES},
+                      MESH_LOSS_ATOL, per_step(ct), cuda)
+    bf16["first_moment_bar_rule"] = ("2 x the unsplit step's own bf16-vs-"
+                                     "float32 first-moment gap, per leaf")
+    bf16["unsplit_bf16_vs_float32_first_moment_rel_l2"] = own
+    bf16["within_dense_bar"] = {
+        p: v <= MESH_GRAD_REL
+        for p, v in bf16["first_moment_rel_l2_layer0"].items()}
+    bf16["dense_bar"] = MESH_GRAD_REL
+    bf16["routing_differs_share_per_layer"] = per_layer(
+        routing_differs(u["routes0"], tp["routes0"]), ct.n_layers,
+        ct.remat)
+    bf16["unsplit_bf16_vs_float32_routing_differs_share_per_layer"] = (
+        per_layer(routing_differs(u32["routes0"], u["routes0"]),
+                  ct.n_layers, ct.remat))
+    train["checks"] = {"float32": f32, "bf16": bf16}
+    report["train"] = train
+    del runs, u, u32, tp, uf, tpf
+    free_card(dev)
     report["timing_s"] = timing
     report["wall_s"] = time.perf_counter() - t0
     report["launches"] = {"flash_attention": mesh_k3}
@@ -3920,6 +4537,11 @@ def main() -> int:
     print("lm_mesh_slice " + json.dumps(mesh_report), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    moe_mesh_report, moe_mesh_k3 = lm_mesh_moe_slice_phase(
+        card, torch.device("cuda"), split_devices())
+    print("lm_mesh_moe_slice " + json.dumps(moe_mesh_report), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     fams = fam_report["models"]
     # (label, arch, kind, seq, batch, grad_accum, max_len, measured ms)
     paths = [
@@ -3971,7 +4593,7 @@ def main() -> int:
          "launches": lm_launches["flash_attention"]
          + moe_launches["flash_attention"] + fam_launches
          + train_lm_launches["flash_attention"]
-         + split_launches["flash_attention"] + mesh_k3,
+         + split_launches["flash_attention"] + mesh_k3 + moe_mesh_k3,
          "max_abs_err": fr["max_abs_err"], "ms": fr["ms"],
          "plain_ms": fr["plain_ms"], "bound_ms": fr["bound_ms"],
          "bound_by": fr["bound_by"], "library_ms": fr["library_ms"]},

@@ -53,16 +53,18 @@ _EXP2 = ("""      s[4 * j + e] = ex2(fmaf(s[4 * j + e], sc, -m[0]));
          """      s[4 * j + e] = fmaf(s[4 * j + e], sc, -m[0]);
       s[4 * j + 2 + e] = fmaf(s[4 * j + 2 + e], sc, -m[1]);""")
 _SOFTMAX = [
-    ("softmax_tile<kBK>(s, edge(0), 0, t, r0, p.S, p.causal, sc, m, al, l);",
+    ("softmax_tile<kBK>(s, edge(0), 0, t, r0 + off, p.Sk, p.causal, sc, m,\n"
+     "                          al, l);",
      "al[0] = al[1] = 1.f; l[0] = l[1] = 1.f;"),
-    ("softmax_tile<kBK>(s, edge(k0), k0, t, r0, p.S, p.causal, sc, m,\n"
-     "                            al, ls);",
+    ("softmax_tile<kBK>(s, edge(k0), k0, t, r0 + off, p.Sk, p.causal, sc,\n"
+     "                            m, al, ls);",
      "al[0] = al[1] = 1.f; ls[0] = ls[1] = 1.f;")]
 _PRODUCTS = [("qk_issue<D>(s, sQw, sKV + 2 * stage * P::kTileBytes);", ";"),
              ("pv_issue<D>(o, pa, sKV + (2 * prev + 1) * P::kTileBytes);",
               ";")]
-_STORES = ("        for (int j = 0; j < D / 8; ++j) {\n          if (r0 < p.S)",
-           "        for (int j = 0; j < 0; ++j) {\n          if (r0 < p.S)")
+_STORES = ("        for (int j = 0; j < D / 8; ++j) {\n"
+           "          if (r0 < p.Sq)",
+           "        for (int j = 0; j < 0; ++j) {\n          if (r0 < p.Sq)")
 FA_VARIANTS = {
     "kernel": [],
     "no_kv_loads": [_KV_LOADS],
@@ -160,7 +162,6 @@ def build_variants(build, name: str, variants: dict, out: Path) -> dict:
 
 def flash_attention(cs, build) -> None:
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     libs = build_variants(build, "flash_attention", FA_VARIANTS,
@@ -170,13 +171,14 @@ def flash_attention(cs, build) -> None:
     for label, B, H, KV, S, D, dt, causal in cs.FA_SHAPES:
         if dt != "bfloat16":
             continue
-        q, k, v = (torch.randn(B, S, n, D, device="cuda", generator=gen)
-                   .bfloat16().transpose(1, 2) for n in (H, KV, KV))
+        Sq, Sk = cs.fa_lengths(S)
+        q, k, v = (torch.randn(B, n_s, n, D, device="cuda", generator=gen)
+                   .bfloat16().transpose(1, 2)
+                   for n, n_s in ((H, Sq), (KV, Sk), (KV, Sk)))
         want = ref.flash_attention_ref(q, k, v, causal=causal).float()
         cases.append((label, q, k, v, causal, want))
     print(json.dumps({"variant": "scaled_dot_product_attention", "ms": {
-        label: cs.cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True), 20)
+        label: cs.cuda_ms(lambda: cs.sdpa(q, k, v, causal), 20)
         for label, q, k, v, causal, _ in cases}}), flush=True)
     for var, (path, _) in libs.items():
         lib = ctypes.CDLL(str(path))

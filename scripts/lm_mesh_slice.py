@@ -1,14 +1,18 @@
-"""`chip_smoke.py`'s LM-over-a-mesh phase alone, on the card.
+"""`chip_smoke.py`'s LM-over-a-mesh phases alone, on the card.
 
-    python3 scripts/lm_mesh_slice.py
+    python3 scripts/lm_mesh_slice.py [dense|moe|all]
 
-Builds the kernels, holds K3 at the mesh's per-shard shapes (Granite-3-2B
+Builds the kernels, holds K3 at the meshes' per-shard shapes (Granite-3-2B
 on a (2, 2) mesh: 16 query heads and 4 KV heads a shard, 2 rows a
-training micro-batch, 4 a prefill) against its plain version and SDPA,
-then runs `chip_smoke.lm_mesh_slice_phase` over every card, or card 0
-named four times (`chip_smoke.split_devices`). Prints the card line, a
-``fa [...]`` line and the ``lm_mesh_slice {...}`` line; exits 1 when a
-check fails. A few minutes of command on an H100.
+training micro-batch, 4 a prefill; its context-parallel shards, 512
+queries over 512 and 1024 keys; Moonlight-16B-A3B's shard on (1, 4))
+against its plain version and SDPA, then runs
+`chip_smoke.lm_mesh_slice_phase` (dense: Granite-3-2B, the tp and cp
+presets) and `chip_smoke.lm_mesh_moe_slice_phase` (moe: Moonlight) over
+every card, or card 0 named four times (`chip_smoke.split_devices`).
+Prints the card line, a ``fa [...]`` line and the ``lm_mesh_slice
+{...}`` and ``lm_mesh_moe_slice {...}`` lines; exits 1 when a check
+fails. About 3 minutes of command for each phase on an H100.
 """
 import json
 import sys
@@ -37,13 +41,20 @@ def main() -> int:
     t = time.perf_counter()
     build.build()
     print(f"build: {time.perf_counter() - t:.1f} s", flush=True)
+    which = sys.argv[1] if len(sys.argv) > 1 else "all"
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = cs.flash_attention_phase(
-        gen, [r for r in cs.FA_SHAPES if "_mesh_" in r[0]])
+        gen, [r for r in cs.FA_SHAPES if "_mesh_" in r[0]
+              or "_cp_" in r[0]])
     print("fa " + json.dumps(rows), flush=True)
-    report, _ = cs.lm_mesh_slice_phase(card, torch.device("cuda"),
-                                       cs.split_devices())
-    print("lm_mesh_slice " + json.dumps(report), flush=True)
+    if which in ("dense", "all"):
+        report, _ = cs.lm_mesh_slice_phase(card, torch.device("cuda"),
+                                           cs.split_devices())
+        print("lm_mesh_slice " + json.dumps(report), flush=True)
+    if which in ("moe", "all"):
+        report, _ = cs.lm_mesh_moe_slice_phase(card, torch.device("cuda"),
+                                               cs.split_devices())
+        print("lm_mesh_moe_slice " + json.dumps(report), flush=True)
     if cs.FAILURES:
         print("lm_mesh_slice: " + "; ".join(cs.FAILURES), file=sys.stderr)
         return 1

@@ -1,4 +1,5 @@
-"""The dense LM family over a (data, model) mesh, single-controller.
+"""The dense and mixture-of-experts LM families over a (data, model)
+mesh, single-controller.
 
 No file of the JAX package corresponds to this one: there, GSPMD
 partitions `repro.models.transformer.loss_fn` and
@@ -45,51 +46,88 @@ each shard attends over its own slots with every head (unnormalised
 output, row max and row sum in float32), merged across "model" by
 log-sum-exp; and ``wo`` is row-parallel, as in training.
 
-Only the dense family runs here (`check_supported`): the other families
-and the context-parallel preset raise `NotImplementedError` on a mesh of
-more than one position.
+The context-parallel preset ("cp", `launch.steps.plan`): the reference
+constrains attention's queries to be sequence-sharded over "model" and
+its keys and values whole, where S divides by the model axis and the
+call has more than one query; elsewhere (a decode step, S % m) attention
+runs as under tp. The result is the unsplit step's. Here model shard r
+of m normalises and projects only its block of positions [r·S/m,
+(r+1)·S/m), with every head (the attention weights gathered whole, so
+no projection is computed twice); the blocks' K and V are all-gathered
+over "model", and K3 (`models.attention.attention`) takes the shard's
+S/m queries over the keys [0, (r+1)·S/m), the causal mask aligned
+bottom-right; ``wo`` takes the shard's block, and the blocks' outputs
+are all-gathered over "model", so that the MLP (or the experts) runs as
+under tp. The last block reads m times the keys of the first: the
+shards' attention is not balanced.
+
+The mixture-of-experts family (expert parallelism): the experts split
+over "model" (``"experts": "model"`` in every rule table), shard r
+owning experts [r·E/m, (r+1)·E/m) where m divides E (else every shard
+runs every expert). The router is whole on every shard, and a shard's
+tokens are its data rows, the same on every model shard, so every model
+shard routes alike (`models.moe.choose`). What is global is the capacity
+bookkeeping: C is the whole batch's (`moe.capacity` of the global
+micro-batch's B·S tokens in training, of B in decode), and an
+assignment's place is its rank in the whole batch's order (its rows in
+mesh order, then positions, then the k choices): each data position adds
+the per-expert counts of the row blocks before its own (an exclusive
+scan over the batch axes, `_over_rows`) before the places are compared
+with C (`moe.place`). The load-balancing loss takes the router's mean
+probabilities and the counts over the whole batch too. Dispatch, the
+experts' products and the combine are local (`moe.expert_partial`): a
+shard's buffer holds its experts' C places, and its gated outputs are a
+float32 partial, summed over "model" before the one rounding, as the
+row-parallel products are. No all-to-all is needed: the tokens are
+replicated over "model" (the reference's note on an all-to-all describes
+XLA's lowering of its scatter, not a semantic). The MoE layer's stages
+keep `models.moe.SPANS` (``record_function``), so a profile splits the
+layer as on one card.
+
+The other families (hybrid, RWKV-6, Whisper, the VLM) raise
+`NotImplementedError` on a mesh of more than one position
+(`check_supported`), under every preset.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.distributed import meshes as M
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import decoding, transformer
+from repro_torch.models import decoding, moe, transformer
 from repro_torch.models.layers import (activation, apply_rope, fdot,
                                        rms_norm, rope_angles)
 
-NOT_PORTED = ("ROADMAP.md queue 1: only the dense family runs over a mesh "
-              "of more than one position")
+NOT_PORTED = ("ROADMAP.md queue 1: only the dense and mixture-of-experts "
+              "families run over a mesh of more than one position")
 
 
 def supports(cfg: ArchConfig, rules: Optional[Dict[str, Any]] = None
              ) -> bool:
-    """Whether this module runs ``cfg`` under ``rules`` on a mesh of more
-    than one position: the dense family, not the context-parallel
-    preset."""
-    dense = (cfg.family == "dense" and not cfg.is_moe and not cfg.attn_free
-             and not cfg.enc_dec and not cfg.n_vision_tokens)
-    return dense and not (rules and rules.get("context_parallel"))
+    """Whether this module runs ``cfg`` on a mesh of more than one
+    position: the dense family and the mixture-of-experts family, under
+    every preset ``rules`` (the context-parallel one included)."""
+    family = ((cfg.family == "dense" and not cfg.is_moe)
+              or (cfg.family == "moe" and cfg.is_moe))
+    return family and not (cfg.attn_free or cfg.enc_dec
+                           or cfg.n_vision_tokens)
 
 
 def check_supported(cfg: ArchConfig, mesh: M.Mesh,
                     rules: Optional[Dict[str, Any]] = None) -> None:
-    """Raise `NotImplementedError` for what this module does not run on
-    ``mesh`` (`supports`): a non-dense family or the context-parallel
-    preset, on a mesh of more than one position. Nothing falls back to
-    one device."""
+    """Raise `NotImplementedError` for a family this module does not run
+    (`supports`) on a mesh of more than one position, whatever the preset
+    ``rules``. Nothing falls back to one device."""
     if mesh.size <= 1 or supports(cfg, rules):
         return
-    if supports(cfg):
-        raise NotImplementedError(
-            f"the context-parallel preset on a mesh of {mesh.size} "
-            f"positions: {NOT_PORTED} (the cp preset is its next slice)")
+    preset = ("the context-parallel preset of "
+              if rules and rules.get("context_parallel") else "")
     raise NotImplementedError(
-        f"{cfg.name} ({cfg.family}) on a mesh of {mesh.size} "
+        f"{preset}{cfg.name} ({cfg.family}) on a mesh of {mesh.size} "
         f"positions: {NOT_PORTED}")
 
 
@@ -144,17 +182,32 @@ def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 # which dim of a per-layer leaf the model axis cuts, and by what range
-# ("q": query heads, "kv": key/value heads, "ff": ff columns)
+# ("q": query heads, "kv": key/value heads, "ff": ff columns, "experts")
 _SPLIT = {"attn/wq": (1, "q"), "attn/wk": (1, "kv"), "attn/wv": (1, "kv"),
           "attn/wo": (0, "q"), "attn/bq": (0, "q"), "attn/bk": (0, "kv"),
           "attn/bv": (0, "kv"), "mlp/w_gate": (1, "ff"),
-          "mlp/w_up": (1, "ff"), "mlp/w_down": (0, "ff")}
+          "mlp/w_up": (1, "ff"), "mlp/w_down": (0, "ff"),
+          "moe/w_gate": (0, "experts"), "moe/w_up": (0, "experts"),
+          "moe/w_down": (0, "experts")}
+# under context parallelism every shard projects every head
+_SPLIT_CP = {k: v for k, v in _SPLIT.items() if not k.startswith("attn/")}
+
+
+class _Ctx(NamedTuple):
+    """What a layer at every position needs of its call: the batch rows'
+    spec, each position's rows (lo, hi) of the batch, the batch's rows,
+    whether attention runs context-parallel, and the leaves' splits."""
+    spec0: Any
+    rows: List[Tuple[int, int]]
+    n_rows: int
+    cp: bool
+    splits: Dict[str, Tuple[int, str]]
 
 
 class Layout:
     """The split of ``cfg`` over ``mesh`` (module docstring)."""
 
-    def __init__(self, cfg: ArchConfig, mesh: M.Mesh):
+    def __init__(self, cfg: ArchConfig, mesh: M.Mesh, cp: bool = False):
         self.cfg, self.mesh = cfg, mesh
         self.coords = M.positions(mesh)
         self.devs = mesh.device_list()
@@ -166,6 +219,9 @@ class Layout:
         self.split_heads = (self.m > 1 and H % self.m == 0
                             and (hq % self.G == 0 or self.G % hq == 0))
         self.split_ff = self.m > 1 and cfg.d_ff % self.m == 0
+        self.split_experts = (cfg.is_moe and self.m > 1
+                              and cfg.n_experts % self.m == 0)
+        self.cp = cp and self.m > 1
         self._want: Dict[tuple, M.PartitionSpec] = {}
         # each position's group over "model" (the positions that hold the
         # same batch rows), in mesh order
@@ -173,9 +229,32 @@ class Layout:
         for grp in M._groups(mesh, ("model",)):
             for i in grp:
                 self.group[i] = grp
+        # the groups over the batch axes (the positions of one model shard)
+        self.data_groups = M._groups(mesh, M.batch_axes(mesh))
 
     def r(self, i: int) -> int:
         return self.coords[i].get("model", 0)
+
+    def cp_on(self, S: int) -> bool:
+        """Whether attention over S positions runs context-parallel: the
+        preset's, more than one query, S divisible by the model axis."""
+        return self.cp and S > 1 and S % self.m == 0
+
+    def experts(self, i: int) -> Tuple[int, int]:
+        """The experts of position i."""
+        E = self.cfg.n_experts
+        if not self.split_experts:
+            return 0, E
+        e = E // self.m
+        return self.r(i) * e, (self.r(i) + 1) * e
+
+    def ctx(self, tokens: M.ShardedTensor) -> _Ctx:
+        """The `_Ctx` of a call on the placed ``tokens`` (B, S)."""
+        S = tokens.shape[1]
+        cp = self.cp_on(S)
+        return _Ctx(tokens.spec[0] if len(tokens.spec) else None,
+                    [_rows_of(self, tokens, i) for i in range(self.n)],
+                    tokens.shape[0], cp, _SPLIT_CP if cp else _SPLIT)
 
     def heads(self, i: int) -> Tuple[int, int]:
         """Query heads of position i."""
@@ -192,6 +271,8 @@ class Layout:
 
     def _range(self, kind: str, i: int) -> Optional[Tuple[int, int]]:
         hd = self.cfg.resolved_head_dim
+        if kind == "experts":
+            return self.experts(i) if self.split_experts else None
         if kind == "ff":
             if not self.split_ff:
                 return None
@@ -309,12 +390,27 @@ def _attn_out(cfg, p, nx, positions, is_global):
     return o.reshape(*nx.shape[:2], -1), (k, v)
 
 
-def _block(cfg, lay: Layout, lsrc, xs, positions, spec0, is_global,
+def _block(cfg, lay: Layout, lsrc, xs, positions, ctx: _Ctx, is_global,
            collect: bool):
     """One decoder layer at every position. Returns (the layers' outputs,
+    each position's (k, v) if ``collect``: its KV heads, or every KV head
+    under context parallelism; each position's load-balancing loss of
+    the layer, or None without experts)."""
+    dt = xs[0].dtype
+    w = lay.layer_views(lsrc, dt, ctx.splits)
+    attend = _cp_attention if ctx.cp else _tp_attention
+    outs, kvs = attend(cfg, lay, w, xs, positions, ctx.spec0, is_global,
+                       collect)
+    outs, aux = _ffn_all(cfg, lay, w, outs, ctx, dt)
+    return outs, kvs, aux
+
+
+def _tp_attention(cfg, lay: Layout, w, xs, positions, spec0, is_global,
+                  collect: bool):
+    """Attention at every position, each shard at its own heads; ``wo``
+    row-parallel where the heads split. Returns (the residual outputs,
     each position's (k, v) of its KV heads if ``collect``)."""
     dt = xs[0].dtype
-    w = lay.layer_views(lsrc, dt)
     kvs = []
     parts, outs = [], []
     for i, x in enumerate(xs):
@@ -329,7 +425,115 @@ def _block(cfg, lay: Layout, lsrc, xs, positions, spec0, is_global,
     if lay.split_heads:
         outs = [x + a for x, a in zip(xs, _row_parallel(lay, parts, spec0,
                                                           dt))]
-    return _mlp_all(cfg, lay, w, outs, spec0, dt), kvs
+    return outs, kvs
+
+
+def _cp_attention(cfg, lay: Layout, w, xs, positions, spec0, is_global,
+                  collect: bool):
+    """Context-parallel attention at every position (module docstring):
+    shard r projects its block of S/m positions with every head, the
+    blocks' K and V are all-gathered over "model", K3 takes the block's
+    queries over the keys up to the block's end, and ``wo``'s block
+    outputs are all-gathered over "model". Returns (the residual outputs,
+    each position's whole (k, v), every KV head, if ``collect``)."""
+    hd = cfg.resolved_head_dim
+    blk = xs[0].shape[1] // lay.m
+    qs, ks, vs = [], [], []
+    for i, x in enumerate(xs):
+        lo = lay.r(i) * blk
+        nx = rms_norm(x[:, lo:lo + blk], w[i]["norm1"], cfg.norm_eps)
+        q, k, v = _project(cfg, w[i]["attn"], nx)
+        if cfg.rope_theta:
+            ang = rope_angles(positions[i][:, lo:lo + blk], hd,
+                              cfg.rope_theta, cfg.mrope_sections)
+            q, k = apply_rope(q, ang), apply_rope(k, ang)
+        qs.append(q)
+        ks.append(k)
+        vs.append(v)
+    by_seq = M.Placement(lay.mesh, M.P(spec0, "model"))
+
+    def gathered(pieces):
+        x = M.ShardedTensor.from_pieces(by_seq, pieces)
+        return M.all_gather(x, "model", 1).pieces
+    k_all, v_all = gathered(ks), gathered(vs)
+    blocks = []
+    for i, q in enumerate(qs):
+        hi = (lay.r(i) + 1) * blk
+        o = attn_lib.attention(q, k_all[i][:, :hi], v_all[i][:, :hi],
+                               causal=True, window=cfg.swa_window,
+                               q_offset=hi - blk, chunk=cfg.attn_chunk,
+                               is_global=is_global)
+        blocks.append(fdot(o.reshape(q.shape[0], blk, -1),
+                           w[i]["attn"]["wo"]))
+    outs = [x + a for x, a in zip(xs, gathered(blocks))]
+    return outs, (list(zip(k_all, v_all)) if collect else [])
+
+
+def _over_rows(lay: Layout, vals: List[torch.Tensor],
+               rows: List[Tuple[int, int]]):
+    """For every position i: the sum of ``vals`` over the batch's row
+    blocks before position i's own (the batch's order), and over every
+    row block. Each block's value is read from the first position (mesh
+    order) of i's group over the batch axes that holds it, and the
+    blocks are summed in their order on i's device: an exclusive scan
+    and an all-reduce over the batch axes, where a block held twice
+    (rows replicated over an axis) counts once."""
+    before: List[Optional[torch.Tensor]] = [None] * lay.n
+    total: List[Optional[torch.Tensor]] = [None] * lay.n
+    for grp in lay.data_groups:
+        first: Dict[Tuple[int, int], int] = {}
+        for j in grp:
+            first.setdefault(rows[j], j)
+        blocks = sorted(first)
+        for i in grp:
+            acc_b = acc_t = None
+            for b in blocks:
+                v = vals[first[b]].to(lay.devs[i])
+                if b[0] < rows[i][0]:
+                    acc_b = v if acc_b is None else acc_b + v
+                acc_t = v if acc_t is None else acc_t + v
+            before[i] = torch.zeros_like(acc_t) if acc_b is None else acc_b
+            total[i] = acc_t
+    return before, total
+
+
+def _ffn_all(cfg, lay: Layout, w, xs, ctx: _Ctx, dt):
+    """The residual MLP, or the experts, of a layer at every position.
+    Returns (the outputs, each position's load-balancing loss or None)."""
+    if cfg.is_moe:
+        return _moe_all(cfg, lay, w, xs, ctx, dt)
+    return _mlp_all(cfg, lay, w, xs, ctx.spec0, dt), None
+
+
+def _moe_all(cfg, lay: Layout, w, xs, ctx: _Ctx, dt):
+    """The mixture-of-experts layer at every position (module docstring):
+    each routes its rows, places them in the whole batch's order among
+    the whole batch's C places, and runs its experts; the shards' float32
+    partials are summed over "model". The load-balancing loss is each
+    position's, of the whole batch's mean probabilities and counts."""
+    E, k = cfg.n_experts, cfg.top_k
+    T = ctx.n_rows * xs[0].shape[1]
+    nxs, chs = [], []
+    with record_function("moe_router"):
+        for i, x in enumerate(xs):
+            nx = rms_norm(x, w[i]["norm2"], cfg.norm_eps)
+            nxs.append(nx.reshape(-1, nx.shape[-1]))
+            chs.append(moe.choose(cfg, w[i]["moe"]["router"], nxs[i]))
+        before, counts = _over_rows(lay, [c.counts for c in chs], ctx.rows)
+        C = moe.capacity(cfg, T)
+        routes = [moe.place(c, C, b) for c, b in zip(chs, before)]
+    parts = [moe.expert_partial(cfg, w[i]["moe"], nxs[i], routes[i],
+                                *lay.experts(i)).view(x.shape)
+             for i, x in enumerate(xs)]
+    with record_function("moe_combine"):
+        if lay.split_experts:
+            ys = _row_parallel(lay, parts, ctx.spec0, dt)
+        else:
+            ys = [p.to(dt) for p in parts]
+    _, probs = _over_rows(lay, [c.probs.sum(0) for c in chs], ctx.rows)
+    aux = [E * torch.sum((p / T) * (c.float() / (T * k)))
+           for p, c in zip(probs, counts)]
+    return [x + y for x, y in zip(xs, ys)], aux
 
 
 def _mlp_all(cfg, lay: Layout, w, xs, spec0, dt):
@@ -356,9 +560,11 @@ def run_blocks(cfg: ArchConfig, lay: Layout, src, tokens: M.ShardedTensor,
     """Embed, every layer and the final norm at every position. ``src``
     is the placed parameter tree (any placement, any type: `Layout.view`
     casts to the compute type). Returns (each position's hidden (B_i, S,
-    d), each layer's per-position (k, v) if ``collect``)."""
+    d), each layer's per-position (k, v) if ``collect``, each position's
+    load-balancing loss summed over the layers or None without
+    experts)."""
     dt = getattr(torch, cfg.dtype)
-    spec0 = tokens.spec[0] if len(tokens.spec) else None
+    ctx = lay.ctx(tokens)
     tables = lay.view(src["embed"]["tokens"], dt)
     xs, positions = [], []
     for i, tok in enumerate(tokens.pieces):
@@ -366,16 +572,19 @@ def run_blocks(cfg: ArchConfig, lay: Layout, src, tokens: M.ShardedTensor,
         B, S = tok.shape
         positions.append(torch.arange(S, dtype=torch.int32,
                                       device=tok.device).expand(B, S))
-    kv_layers = []
+    kv_layers, aux = [], None
     for li, lsrc in enumerate(layer_sources(src["blocks"])):
-        xs, kvs = transformer._remat(
-            _block, remat, cfg, lay, lsrc, xs, positions, spec0,
+        xs, kvs, layer_aux = transformer._remat(
+            _block, remat, cfg, lay, lsrc, xs, positions, ctx,
             transformer.is_global_layer(cfg, li), collect)
+        if layer_aux is not None:
+            aux = layer_aux if aux is None else [
+                a + b for a, b in zip(aux, layer_aux)]
         if collect:
             kv_layers.append(kvs)
     norms = lay.view(src["final_norm"], dt)
     xs = [rms_norm(x, g, cfg.norm_eps) for x, g in zip(xs, norms)]
-    return xs, kv_layers
+    return xs, kv_layers, aux
 
 
 def _head(cfg, lay: Layout, src, dt) -> List[torch.Tensor]:
@@ -394,15 +603,18 @@ def _seq_block(lay: Layout, i: int, S: int) -> Tuple[int, int]:
     return (0, S) if r == 0 else (0, 0)
 
 
-def loss_fn(cfg: ArchConfig, mesh: M.Mesh, src, batch: Dict[str, Any]
+def loss_fn(cfg: ArchConfig, mesh: M.Mesh, src, batch: Dict[str, Any],
+            cp: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """`models.transformer.loss_fn` over ``mesh``: ``src`` the placed
-    parameters, ``batch`` {"tokens", "labels"} placed with their rows
-    over the batch axes. Returns (loss, {"loss", "moe_aux"}) on the mesh's
-    first device: the NLL summed over every position and divided by the
-    global count of labels >= 0."""
+    """`models.transformer.loss_fn` over ``mesh`` (``cp``: the context-
+    parallel preset): ``src`` the placed parameters, ``batch`` {"tokens",
+    "labels"} placed with their rows over the batch axes. Returns (total,
+    {"loss", "moe_aux"}) on the mesh's first device: the NLL summed over
+    every position and divided by the global count of labels >= 0, plus
+    `transformer.MOE_AUX_WEIGHT` x the load-balancing loss of the whole
+    batch (zero without experts)."""
     check_supported(cfg, mesh)
-    lay = Layout(cfg, mesh)
+    lay = Layout(cfg, mesh, cp)
     tokens, labels = batch["tokens"], batch["labels"]
     for c in M.batch_axes(mesh):
         if c not in M._axes_of(tokens.spec[0] if len(tokens.spec) else None):
@@ -410,8 +622,8 @@ def loss_fn(cfg: ArchConfig, mesh: M.Mesh, src, batch: Dict[str, Any]
                 raise ValueError(
                     f"a training batch of {tokens.shape[0]} rows does not "
                     f"split over the mesh's {c!r} axis ({mesh.shape[c]})")
-    hidden, _ = run_blocks(cfg, lay, src, tokens,
-                           remat=cfg.remat and torch.is_grad_enabled())
+    hidden, _, aux = run_blocks(cfg, lay, src, tokens,
+                                remat=cfg.remat and torch.is_grad_enabled())
     dt = hidden[0].dtype
     heads = _head(cfg, lay, src, dt)
     tots, cnts = [], []
@@ -437,8 +649,10 @@ def loss_fn(cfg: ArchConfig, mesh: M.Mesh, src, batch: Dict[str, Any]
     tot = M.all_reduce(M.ShardedTensor(rep, (), tots, every), every)
     cnt = M.all_reduce(M.ShardedTensor(rep, (), cnts, every), every)
     loss = tot.pieces[0] / torch.clamp(cnt.pieces[0], min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss, {"loss": loss, "moe_aux": aux}
+    aux = (torch.zeros((), dtype=torch.float32, device=loss.device)
+           if aux is None else aux[0])
+    return (loss + transformer.MOE_AUX_WEIGHT * aux,
+            {"loss": loss, "moe_aux": aux})
 
 
 # --------------------------------------------------------------------------
@@ -453,23 +667,27 @@ def _cache_slots(lay: Layout, spec, W: int, i: int) -> Tuple[int, int]:
 
 
 def prefill(cfg: ArchConfig, mesh: M.Mesh, src, tokens: M.ShardedTensor,
-            max_len: int = 0):
-    """`models.decoding.prefill` over ``mesh``: returns (last logits (B,
-    V) placed with their rows over the batch axes, the bf16 cache of
-    ``max(max_len, S)`` slots placed by `meshes.cache_shardings`). Every
-    shard computes its heads (K3 at its head slice) and the cache takes
-    each model shard's block of the sequence, all KV heads
-    (`quantize_cache` makes the int8 one)."""
+            max_len: int = 0, cp: bool = False):
+    """`models.decoding.prefill` over ``mesh`` (``cp``: the context-
+    parallel preset): returns (last logits (B, V) placed with their rows
+    over the batch axes, the bf16 cache of ``max(max_len, S)`` slots
+    placed by `meshes.cache_shardings`). Every shard computes its heads
+    (K3 at its head slice), or under cp its block of positions (K3 at its
+    block's queries), and the cache takes each model shard's block of the
+    sequence, all KV heads (`quantize_cache` makes the int8 one)."""
     check_supported(cfg, mesh)
-    lay = Layout(cfg, mesh)
+    lay = Layout(cfg, mesh, cp)
     with torch.no_grad():
-        hidden, kv_layers = run_blocks(cfg, lay, src, tokens, collect=True)
+        hidden, kv_layers, _ = run_blocks(cfg, lay, src, tokens,
+                                          collect=True)
         dt = hidden[0].dtype
         heads = _head(cfg, lay, src, dt)
         logits = [fdot(h[:, -1], w.to(dt)) for h, w in zip(hidden, heads)]
     B, S = tokens.shape
     W = decoding._cache_width(cfg, max(max_len, S))
     L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    # the KV heads each shard collected: its own, or under cp all of them
+    kv_ranges = (lambda j: (0, KV)) if lay.cp_on(S) else lay.kv_heads
     spec = decoding.cache_spec(cfg, ShapeConfig("prefill", W, B, "prefill"))
     pls = M.cache_shardings(mesh, {k: torch.empty(s, device="meta")
                                    for k, (s, _d) in spec.items()})
@@ -481,17 +699,18 @@ def prefill(cfg: ArchConfig, mesh: M.Mesh, src, tokens: M.ShardedTensor,
         s0, s1 = _cache_slots(lay, kspec, W, i)
         # the rows of position i: the same rows on every model shard
         src_rows = _row_owner(lay, tokens, i, b0, b1)
-        ks, vs = [], []
-        for li in range(L):
-            k, v = _whole_kv(lay, kv_layers[li], src_rows, lay.devs[i])
-            ks.append(k)
-            vs.append(v)
-        k = torch.stack(ks).to(torch.bfloat16)       # (L, b, S, KV, D)
-        v = torch.stack(vs).to(torch.bfloat16)
         pos = torch.arange(S, dtype=torch.int32,
                            device=lay.devs[i]).expand(b1 - b0, S)
-        k, v, pos = _slots(k, v, pos, W, s0, s1)
-        parts = {"k": k, "v": v, "pos": pos}
+        # one layer at a time: only the position's slots outlive the loop
+        ks, vs = [], []
+        for li in range(L):
+            k, v = _whole_kv(lay, kv_layers[li], src_rows, lay.devs[i],
+                             kv_ranges)
+            k, v, p = _slots(k[None].to(torch.bfloat16),
+                             v[None].to(torch.bfloat16), pos, W, s0, s1)
+            ks.append(k[0])
+            vs.append(v[0])
+        parts = {"k": torch.stack(ks), "v": torch.stack(vs), "pos": p}
         for name in spec:
             pieces[name].append(parts[name].contiguous())
     cache = {name: M.ShardedTensor(pls[name], spec[name][0], pieces[name])
@@ -553,16 +772,17 @@ def _heads_whole(lay: Layout, parts, ranges, grp, dev) -> torch.Tensor:
     return out[0] if len(out) == 1 else torch.cat(out, dim=2)
 
 
-def _whole_kv(lay: Layout, kvs, rows, dev):
+def _whole_kv(lay: Layout, kvs, rows, dev, ranges):
     """All KV heads of the rows ``rows`` (from `_row_owner`): each KV head
-    from the first model shard (mesh order) that computed it."""
+    from the first model shard (mesh order) that computed it, shard j
+    holding the KV heads ``ranges(j)``."""
     ks, vs = [], []
     for j, lo, hi in rows:
         grp = lay.group[j]
         ks.append(_heads_whole(lay, [kv[0][lo:hi] for kv in kvs],
-                               lay.kv_heads, grp, dev))
+                               ranges, grp, dev))
         vs.append(_heads_whole(lay, [kv[1][lo:hi] for kv in kvs],
-                               lay.kv_heads, grp, dev))
+                               ranges, grp, dev))
     return torch.cat(ks), torch.cat(vs)
 
 
@@ -612,9 +832,12 @@ def decode_step(cfg: ArchConfig, mesh: M.Mesh, src, cache: Dict[str, Any],
     shard attends over its slots with every head); the new token's KV
     heads only onto the shard that owns slot ``step % W``. The merged
     attention's own heads go through the shard's rows of ``wo``
-    (row-parallel, float32 partials summed across "model")."""
+    (row-parallel, float32 partials summed across "model"). A decode step
+    never runs context-parallel; the experts run as in `_moe_all`, over
+    the batch's B tokens."""
     check_supported(cfg, mesh)
     lay = Layout(cfg, mesh)
+    ctx = lay.ctx(tokens)
     step = int(step)
     dt = getattr(torch, cfg.dtype)
     hd = cfg.resolved_head_dim
@@ -623,7 +846,6 @@ def decode_step(cfg: ArchConfig, mesh: M.Mesh, src, cache: Dict[str, Any],
     int8 = cache["k"].dtype == torch.int8
     slot = step % W
     window = cfg.swa_window if cfg.swa_window else 0
-    spec0 = tokens.spec[0] if len(tokens.spec) else None
     B = tokens.shape[0]
     with torch.no_grad():
         tables = lay.view(src["embed"]["tokens"], dt)
@@ -693,8 +915,8 @@ def decode_step(cfg: ArchConfig, mesh: M.Mesh, src, cache: Dict[str, Any],
                     new.append(x + o @ w[i]["attn"]["wo"])
             if lay.split_heads:
                 new = [x + a for x, a in zip(
-                    xs, _row_parallel(lay, parts, spec0, dt))]
-            xs = _mlp_all(cfg, lay, w, new, spec0, dt)
+                    xs, _row_parallel(lay, parts, ctx.spec0, dt))]
+            xs, _ = _ffn_all(cfg, lay, w, new, ctx, dt)
         norms = lay.view(src["final_norm"], dt)
         heads = _head(cfg, lay, src, dt)
         logits = [rms_norm(x, g, cfg.norm_eps) @ h.to(dt)

@@ -2,10 +2,15 @@
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (body `_kernel`):
-// q (B,H,S,D), k and v (B,KV,S,D), query head h reading KV head h / G
+// q (B,H,Sq,D), k and v (B,KV,Sk,D), query head h reading KV head h / G
 // (G = H / KV), an online softmax with float32 running max, sum and
 // accumulator, scores scaled by D^-0.5 and masked with -1e30, and the
-// probabilities rounded to v's type before the PV product.
+// probabilities rounded to v's type before the PV product. The TPU kernel
+// takes Sq == Sk; this one also takes Sq < Sk, the causal mask aligned
+// bottom-right: query row i sits at key position Sk - Sq + i (a block of
+// a sequence's queries over the keys up to the block's end, as a context-
+// parallel shard holds them; cross-attention under a full mask). With
+// Sq == Sk every index below is the TPU kernel's.
 //
 // Bound on an H100: at the LM slice's shape (B=8, H=25, KV=5, S=1024,
 // D=64, bf16, causal) the work is 26.87 GFLOP against ~63 MB of q, k, v
@@ -73,7 +78,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  int B, H, KV, S, causal;
+  int B, H, KV, Sq, Sk, causal;   // Sq <= Sk
   float scale;                     // D^-0.5
   Strides qs, ks, vs, os;
 };
@@ -360,7 +365,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 }
 
 struct Shape {
-  int B, H, KV, S, causal;
+  int B, H, KV, Sq, Sk, causal;    // query row i sits at key Sk - Sq + i
   float scale;                     // D^-0.5
   __nv_bfloat16* o;
   Strides os;
@@ -406,13 +411,13 @@ __device__ __forceinline__ void pv_issue(float (&o)[D / 2],
 }
 
 // Online softmax of one score tile in place: s[4j + e] is row r0 (e < 2)
-// or r0 + 8, key k0 + 8j + 2t + (e & 1). Masks keys past S and, under
-// `causal`, above the diagonal; moves the running max m (log2 units) and
+// or r0 + 8, key k0 + 8j + 2t + (e & 1); row r0 sits at key position d0.
+// Masks keys past S and, under `causal`, past the row's position; moves the running max m (log2 units) and
 // returns the factors al that rescale the earlier sum and accumulator,
 // and this tile's share ls of the row sums.
 template <int kBK>
 __device__ __forceinline__ void softmax_tile(float (&s)[kBK / 2], bool edge,
-                                             int k0, int t, int r0, int S,
+                                             int k0, int t, int d0, int S,
                                              int causal, float sc,
                                              float (&m)[2], float (&al)[2],
                                              float (&ls)[2]) {
@@ -423,8 +428,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBK / 2], bool edge,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int key = k0 + j * 8 + t * 2 + e;
-        if (key >= S || (causal && key > r0)) s[4 * j + e] = ninf;
-        if (key >= S || (causal && key > r0 + 8)) s[4 * j + 2 + e] = ninf;
+        if (key >= S || (causal && key > d0)) s[4 * j + e] = ninf;
+        if (key >= S || (causal && key > d0 + 8)) s[4 * j + 2 + e] = ninf;
       }
     }
   }
@@ -541,8 +546,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // alternate in direction, so a block that drew a heavy item in one round
   // draws a light one in the next.
   const int BH = p.B * p.H;
-  const int nq = (p.S + kBQ - 1) / kBQ;
-  const int nk = (p.S + kBK - 1) / kBK;
+  const int nq = (p.Sq + kBQ - 1) / kBQ;
+  const int nk = (p.Sk + kBK - 1) / kBK;
+  const int off = p.Sk - p.Sq;         // the key position of query row 0
   const int n_items = nq * BH;
   auto item_of = [&](int n) {          // this block's n-th item, or -1
     const int j = (n & 1) ? (int)(gridDim.x - 1 - blockIdx.x)
@@ -551,11 +557,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     return w < n_items ? (int)w : -1;
   };
   // key tiles that rows [r, r_end) read: under `causal` up to the last
-  // row's diagonal; none for rows at or past S
+  // row's position; none for rows at or past Sq
   auto key_tiles = [&](int r, int r_end) {
-    r_end = min(r_end, p.S);
+    r_end = min(r_end, p.Sq);
     if (r >= r_end) return 0;
-    return p.causal ? min(nk, (r_end - 1) / kBK + 1) : nk;
+    return p.causal ? min(nk, (r_end - 1 + off) / kBK + 1) : nk;
   };
   struct Item {
     int q0, b, h, n_kt;
@@ -653,7 +659,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const int r0 = it.q0 + row;
       const int n_kt = key_tiles(wrow, wrow + 64);  // this warpgroup's
       auto edge = [&](int k0) {                // a tile that needs the mask
-        return (k0 + kBK > p.S) || (p.causal && k0 + kBK - 1 > wrow);
+        return (k0 + kBK > p.Sk) || (p.causal && k0 + kBK - 1 > wrow + off);
       };
 
       mbar_wait(bar_q_full + 8 * qb, (n / P::kQBufs) & 1);
@@ -677,7 +683,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_wait_all();
         fence_regs(s);
         if (n_kt == 1) release(bar_q_empty + 8 * qb);
-        softmax_tile<kBK>(s, edge(0), 0, t, r0, p.S, p.causal, sc, m, al, l);
+        softmax_tile<kBK>(s, edge(0), 0, t, r0 + off, p.Sk, p.causal, sc, m,
+                          al, l);
         pack_p<kBK>(pa, s);
         int prev = stage;                  // the stage the next PV reads
         uint32_t prev_phase = phase;
@@ -702,8 +709,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           fence_regs(s);
           if (kt == n_kt - 1) release(bar_q_empty + 8 * qb);
           float ls[2];
-          softmax_tile<kBK>(s, edge(k0), k0, t, r0, p.S, p.causal, sc, m,
-                            al, ls);
+          softmax_tile<kBK>(s, edge(k0), k0, t, r0 + off, p.Sk, p.causal, sc,
+                            m, al, ls);
 #pragma unroll
           for (int r = 0; r < 2; ++r) l[r] = l[r] * al[r] + ls[r];
           wgmma_wait_all();
@@ -730,10 +737,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         __nv_bfloat16* ob = p.o + it.b * p.os.b + it.h * p.os.h;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
-          if (r0 < p.S)
+          if (r0 < p.Sq)
             *reinterpret_cast<uint32_t*>(ob + r0 * p.os.s + j * 8 + t * 2) =
                 pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-          if (r0 + 8 < p.S)
+          if (r0 + 8 < p.Sq)
             *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * p.os.s + j * 8 +
                                          t * 2) =
                 pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
@@ -780,13 +787,14 @@ __device__ __forceinline__ void load_tile(T* tile, const T* base,
 }
 
 __device__ __forceinline__ int query_tile(const Params& p) {
-  const int nq = (p.S + kBQ - 1) / kBQ;
+  const int nq = (p.Sq + kBQ - 1) / kBQ;
   return p.causal ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x;
 }
 
+// key tiles up to the position of the tile's last row (Sk - Sq + row)
 __device__ __forceinline__ int key_tiles(const Params& p, int q0) {
-  const int n = (p.S + kBK - 1) / kBK;
-  return p.causal ? min(n, (q0 + kBQ - 1) / kBK + 1) : n;
+  const int n = (p.Sk + kBK - 1) / kBK;
+  return p.causal ? min(n, (q0 + kBQ - 1 + p.Sk - p.Sq) / kBK + 1) : n;
 }
 
 template <int D>
@@ -800,6 +808,7 @@ __global__ void __launch_bounds__(kBQ) flash_f32_kernel(const Params p) {
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
   const int kvh = h / (p.H / p.KV);
   const int row = q0 + threadIdx.x;
+  const int pos = row + p.Sk - p.Sq;   // the row's key position
   const float* kb = static_cast<const float*>(p.k) + b * p.ks.b +
                     kvh * p.ks.h;
   const float* vb = static_cast<const float*>(p.v) + b * p.vs.b +
@@ -807,7 +816,7 @@ __global__ void __launch_bounds__(kBQ) flash_f32_kernel(const Params p) {
 
   float q[D], acc[D];
   const float* qr = static_cast<const float*>(p.q) + b * p.qs.b +
-                    h * p.qs.h + (long long)min(row, p.S - 1) * p.qs.s;
+                    h * p.qs.h + (long long)min(row, p.Sq - 1) * p.qs.s;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     q[d] = __ldg(qr + d);
@@ -818,8 +827,8 @@ __global__ void __launch_bounds__(kBQ) flash_f32_kernel(const Params p) {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();
-    load_tile<float, D, D, kBK, kBQ>(sK, kb, p.ks.s, k0, p.S);
-    load_tile<float, D, D, kBK, kBQ>(sV, vb, p.vs.s, k0, p.S);
+    load_tile<float, D, D, kBK, kBQ>(sK, kb, p.ks.s, k0, p.Sk);
+    load_tile<float, D, D, kBK, kBQ>(sV, vb, p.vs.s, k0, p.Sk);
     __syncthreads();
     for (int j0 = 0; j0 < kBK; j0 += kChunk) {
       float s[kChunk];
@@ -832,7 +841,7 @@ __global__ void __launch_bounds__(kBQ) flash_f32_kernel(const Params p) {
         for (int d = 0; d < D; ++d) dot = fmaf(q[d], kr[d], dot);
         const int key = k0 + j0 + jj;
         float v = dot * p.scale;
-        if (key >= p.S || (p.causal && key > row)) v = kNegInf;
+        if (key >= p.Sk || (p.causal && key > pos)) v = kNegInf;
         s[jj] = v;
         mx = fmaxf(mx, v);
       }
@@ -852,7 +861,7 @@ __global__ void __launch_bounds__(kBQ) flash_f32_kernel(const Params p) {
       }
     }
   }
-  if (row < p.S) {
+  if (row < p.Sq) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
     float* orow = static_cast<float*>(p.o) + b * p.os.b + h * p.os.h +
                   (long long)row * p.os.s;
@@ -891,9 +900,9 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (D, S, heads, B) map over a strided bf16 view; boxes of kBoxD columns
-// by `box_rows` rows, swizzled as the wgmma descriptors read them. Rows
-// past S read as zeros.
+// A (D, S, heads, B) map over a strided bf16 view (S = Sq for q, Sk for k
+// and v); boxes of kBoxD columns by `box_rows` rows, swizzled as the wgmma
+// descriptors read them. Rows past S read as zeros.
 template <int D>
 bool make_map(CUtensorMap* map, const void* ptr, int S, int heads, int B,
               const Strides& st, int box_rows) {
@@ -936,11 +945,11 @@ int launch_bf16(const Params& p, const int* plan, cudaStream_t stream) {
       plan[3] != P::kThreads || plan[4] != P::kSmem)
     return kErrPlan;
   CUtensorMap tq, tk, tv;
-  if (!make_map<D>(&tq, p.q, p.S, p.H, p.B, p.qs, P::kBQ) ||
-      !make_map<D>(&tk, p.k, p.S, p.KV, p.B, p.ks, P::kBK) ||
-      !make_map<D>(&tv, p.v, p.S, p.KV, p.B, p.vs, P::kBK))
+  if (!make_map<D>(&tq, p.q, p.Sq, p.H, p.B, p.qs, P::kBQ) ||
+      !make_map<D>(&tk, p.k, p.Sk, p.KV, p.B, p.ks, P::kBK) ||
+      !make_map<D>(&tv, p.v, p.Sk, p.KV, p.B, p.vs, P::kBK))
     return kErrTensorMap;
-  Shape s{p.B, p.H, p.KV, p.S, p.causal, p.scale,
+  Shape s{p.B, p.H, p.KV, p.Sq, p.Sk, p.causal, p.scale,
           static_cast<__nv_bfloat16*>(p.o), p.os};
   // the SM count, and the shared-memory attribute (which holds for the
   // current device only), kept per device: set on a device's first launch
@@ -958,7 +967,8 @@ int launch_bf16(const Params& p, const int* plan, cudaStream_t stream) {
     sms_of[device].store(sms);
   }
   // persistent: one block an SM walks the work items (counted in int)
-  const long long items = (long long)((p.S + P::kBQ - 1) / P::kBQ) * p.B * p.H;
+  const long long items =
+      (long long)((p.Sq + P::kBQ - 1) / P::kBQ) * p.B * p.H;
   if (items >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const int grid = (int)(items < sms ? items : sms);
   flash_wgmma_kernel<D><<<grid, P::kThreads, P::kSmem, stream>>>(tq, tk, tv,
@@ -968,7 +978,7 @@ int launch_bf16(const Params& p, const int* plan, cudaStream_t stream) {
 
 template <int D>
 int launch_f32(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.S + kBQ - 1) / kBQ, p.B * p.H);
+  const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.B * p.H);
   const int smem = 2 * kBK * D * (int)sizeof(float);
   cudaFuncSetAttribute(flash_f32_kernel<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -990,10 +1000,10 @@ int launch(const Params& p, int is_bf16, const int* plan,
 // the kernel's. Strides are in elements, in (batch, head, sequence) order.
 // The caller validates: one dtype (bf16 if is_bf16, else float32), unit
 // last strides, 16-byte aligned data and strides, H % KV == 0,
-// B*H <= 65535, S >= 1 and D in {16, 32, 64, 128}.
+// B*H <= 65535, 1 <= Sq <= Sk and D in {16, 32, 64, 128}.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
-    int KV, int S, int D, long long q_sb, long long q_sh, long long q_ss,
+    int KV, int Sq, int Sk, int D, long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, long long o_sb, long long o_sh,
     long long o_ss, int causal, int is_bf16, const int* plan, void* stream) {
@@ -1005,7 +1015,8 @@ extern "C" int flash_attention_launch(
   p.B = B;
   p.H = H;
   p.KV = KV;
-  p.S = S;
+  p.Sq = Sq;
+  p.Sk = Sk;
   p.causal = causal;
   p.scale = 1.0f / sqrtf((float)D);
   p.qs = {q_sb, q_sh, q_ss};

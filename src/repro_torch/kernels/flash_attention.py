@@ -1,6 +1,8 @@
 """Wrapper of the CUDA kernel ``csrc/flash_attention.cu``: causal or full
 attention with grouped KV heads, in the reference kernel's (B,H,S,D)
-layout, read and written through strides."""
+layout, read and written through strides. Queries may be fewer than keys
+(Sq <= Sk); the causal mask is then aligned bottom-right, query row i at
+key position Sk - Sq + i."""
 from __future__ import annotations
 
 import ctypes
@@ -75,7 +77,7 @@ def plan(head_dim: int) -> Plan:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_launch.argtypes = (
-        [p, p, p, p, i, i, i, i, i] + [ll] * 12 + [i, i, p, p])
+        [p, p, p, p, i, i, i, i, i, i] + [ll] * 12 + [i, i, p, p])
     lib.flash_attention_launch.restype = i
 
 
@@ -94,10 +96,12 @@ def _bhs_strides(name: str, t: torch.Tensor):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """Launch the kernel. q: (B,H,S,D); k, v: (B,KV,S,D) with H = KV*G;
-    all bfloat16 or all float32 on one CUDA device, any strides with a
-    unit last stride (a transposed view of a (B,S,H,D) tensor is read in
-    place). Returns (B,H,S,D) in q's type and memory layout."""
+    """Launch the kernel. q: (B,H,Sq,D); k, v: (B,KV,Sk,D) with H = KV*G
+    and Sq <= Sk (under ``causal`` query row i sits at key position
+    Sk - Sq + i); all bfloat16 or all float32 on one CUDA device, any
+    strides with a unit last stride (a transposed view of a (B,S,H,D)
+    tensor is read in place). Returns (B,H,Sq,D) in q's type and memory
+    layout."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, "
@@ -110,15 +114,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"flash_attention: {name} must be {q.dtype} "
                              f"on {dev}, got {t.dtype} on {t.device}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention: q (B,H,S,D) and k, v "
-                         f"(B,KV,S,D); got {tuple(q.shape)}, "
+        raise ValueError(f"flash_attention: q (B,H,Sq,D) and k, v "
+                         f"(B,KV,Sk,D); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    B, H, S, D = q.shape
-    KV = k.shape[1]
-    if (k.shape[0], k.shape[2], k.shape[3]) != (B, S, D) or KV == 0 \
-            or H % KV:
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if (k.shape[0], k.shape[3]) != (B, D) or KV == 0 or H % KV:
         raise ValueError(f"flash_attention: k, v {tuple(k.shape)} do not "
                          f"match q {tuple(q.shape)} with H % KV == 0")
+    if Sq > Sk:
+        raise ValueError(f"flash_attention: {Sq} queries over {Sk} keys; "
+                         f"the kernel takes Sq <= Sk")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D}; the kernel "
                          f"takes {HEAD_DIMS}")
@@ -126,7 +132,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: B*H = {B * H} exceeds one "
                          f"launch's grid ({MAX_BATCH_HEADS})")
     out = torch.empty_like(q)
-    if B * H * S == 0:
+    if B * H * Sq == 0:
         return out
     strides = [*_bhs_strides("q", q), *_bhs_strides("k", k),
                *_bhs_strides("v", v), *_bhs_strides("out", out)]
@@ -137,7 +143,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(dev):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, KV, S, D, *strides, int(bool(causal)), int(is_bf16),
+            B, H, KV, Sq, Sk, D, *strides, int(bool(causal)), int(is_bf16),
             launch_plan, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         why = {-1: "the TMA tensor maps could not be built",

@@ -83,7 +83,9 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
-    """Attention with grouped KV heads; q (B,H,S,D), k/v (B,KV,S,D)."""
+    """Attention with grouped KV heads; q (B,H,Sq,D), k/v (B,KV,Sk,D),
+    Sq <= Sk, the causal mask aligned bottom-right (query row i at key
+    position Sk - Sq + i)."""
     if COUNTER is not None:
         return COUNTER.kernel("flash_attention", q, k, v, causal)
     if q.device.type == "cpu":

@@ -33,22 +33,26 @@ def lut_eval_ref(lut, a, b=None, wb: int = 0):
 def flash_attention_ref(q, k, v, *, causal: bool = True):
     """Causal or full attention with grouped KV heads.
 
-    q: (B,H,S,D); k, v: (B,KV,S,D) with H = KV*G, query head h reading KV
-    head h // G. Scores in float32 scaled by D^-0.5, masked with -1e30,
-    softmax in float32, probabilities rounded to v's type before the PV
-    product (the reference kernel's order). Returns (B,H,S,D) in v's type.
+    q: (B,H,Sq,D); k, v: (B,KV,Sk,D) with H = KV*G, query head h reading
+    KV head h // G, and Sq <= Sk: under ``causal`` query row i sits at key
+    position Sk - Sq + i (the mask aligned bottom-right; with Sq == Sk the
+    lower triangle). Scores in float32 scaled by D^-0.5, masked with
+    -1e30, softmax in float32, probabilities rounded to v's type before
+    the PV product (the reference kernel's order). Returns (B,H,Sq,D) in
+    v's type.
     """
-    B, H, S, D = q.shape
-    KV = k.shape[1]
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
-    q5 = q.reshape(B, KV, G, S, D).float()
+    q5 = q.reshape(B, KV, G, Sq, D).float()
     s = torch.einsum("bkgqd,bksd->bkgqs", q5, k.float()) * D ** -0.5
     if causal:
-        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        mask = torch.ones((Sq, Sk), dtype=torch.bool,
+                          device=q.device).tril(Sk - Sq)
         s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v)
-    return o.reshape(B, H, S, D)
+    return o.reshape(B, H, Sq, D)
 
 
 def ssm_scan_ref(a, b, y0):

@@ -8,9 +8,10 @@ live (one card, or the CPU). `plan` returns the reference's
 mesh: its placements are the reference's `PartitionSpec`s
 (`distributed.meshes.param_shardings`, `cache_shardings`,
 `data_sharding`) and its steps take and return `ShardedTensor`s placed
-by them, run over the mesh by `distributed.spmd` (the dense family; the
-other families, and the context-parallel preset, raise on a mesh of more
-than one position and run unchanged on a mesh of one).
+by them, run over the mesh by `distributed.spmd` (the dense and
+mixture-of-experts families, under every preset, the context-parallel
+one included; the other families raise on a mesh of more than one
+position and run unchanged on a mesh of one).
 """
 from __future__ import annotations
 
@@ -73,7 +74,8 @@ def make_train_step(cfg: ArchConfig, shape: ShapeConfig,
     metrics): the reference's ``train_step`` on one card; with
     ``grad_shardings`` (the storage placements, a tree of `Placement`s)
     the step over their mesh (`_mesh_train_step`), and with
-    ``compute_shardings`` too the reference's ``tp_train_step``.
+    ``compute_shardings`` too the reference's ``tp_train_step`` (with
+    ``context_parallel``, the cp preset's: `spmd.loss_fn`'s ``cp``).
 
     ``params`` are float32 master parameters (leaf tensors; the step sets
     ``requires_grad`` on them while it differentiates, and clears it
@@ -239,7 +241,7 @@ def _mesh_train_step(cfg, shape, lr_fn, accum, psh, csh, cp):
         try:
             if csh is None:
                 for mb in micro:
-                    total, m = spmd.loss_fn(cfg, mesh, params, mb)
+                    total, m = spmd.loss_fn(cfg, mesh, params, mb, cp)
                     total.backward()
                     losses.append(m["loss"].detach())
             else:
@@ -248,7 +250,7 @@ def _mesh_train_step(cfg, shape, lr_fn, accum, psh, csh, cp):
                     x.placement, x.shape,
                     [p.detach().requires_grad_(True) for p in x.pieces]), pc)
                 for mb in micro:
-                    total, m = spmd.loss_fn(cfg, mesh, det, mb)
+                    total, m = spmd.loss_fn(cfg, mesh, det, mb, cp)
                     total.backward()
                     losses.append(m["loss"].detach())
                 # the gather's transpose, one leaf at a time (each compute
@@ -280,7 +282,9 @@ def _mesh_train_step(cfg, shape, lr_fn, accum, psh, csh, cp):
                 for p in g.pieces:
                     p.div_(accum)
         loss = sum(losses) / accum
-        metrics = {"loss": loss, "moe_aux": torch.zeros_like(loss)}
+        # the one-card step's: the micro-batch's aux, 0 with accumulation
+        metrics = {"loss": loss, "moe_aux": (
+            m["moe_aux"].detach() if accum == 1 else torch.zeros_like(loss))}
         # AdamW is elementwise: it updates the pieces, in leaf order
         st = opt_state.step
         _, o1, om = adamw.update(
@@ -317,11 +321,10 @@ def _meta_tree(spec):
 
 
 def _placed_step(cfg, mesh: M.Mesh, fn_mesh, fn_one, out_pl, cp: bool):
-    """A serving step over ``mesh``: `spmd`'s for the dense family; on a
-    mesh of one position, any family's one-card step on the pieces, its
-    outputs placed by ``out_pl``."""
-    dense = cfg.family == "dense" and not cfg.is_moe
-    if mesh.size == 1 and not dense:
+    """A serving step over ``mesh``: `spmd`'s for the families it runs
+    (`spmd.supports`); on a mesh of one position, any other family's
+    one-card step on the pieces, its outputs placed by ``out_pl``."""
+    if mesh.size == 1 and not spmd.supports(cfg):
         def one(*args):
             out = fn_one(*_unwrap(args))
             return M.place_tree(out, out_pl)
@@ -392,7 +395,7 @@ def plan(cfg: ArchConfig, shape: ShapeConfig, mesh: M.Mesh,
 
         def prefill_mesh(params, batch):
             batch = place_batch(mesh, cfg, shape, batch)
-            return spmd.prefill(cfg, mesh, params, batch["tokens"])
+            return spmd.prefill(cfg, mesh, params, batch["tokens"], cp=cp)
 
         def prefill_one(params, batch):
             return decoding.prefill(cfg, params, batch)

@@ -5,15 +5,21 @@ The port of `repro.models.attention`. Shapes at the public functions are
 the reference's: q (B,Sq,H,D); k, v (B,Sk,KV,D) with H = KV*G. KV heads
 are never expanded to H.
 
-Dispatch in `attention`: a call whose mask is plain causal (or full) with
-no window in effect goes to `kernels.ops.flash_attention` — the CUDA
-kernel on a card, its plain version on the CPU. No window is in effect
-when ``window == 0``, when the layer is global (``is_global`` True), or
-when ``window >= Sk`` with ``q_offset == 0`` and ``Sq == Sk``, where
-``(qp - kp) < window`` holds for every pair. A window that does cut keys
-stays plain PyTorch (`full_attention` / `blocked_attention`), as the
-reference computes it outside any kernel; the kernel, like the TPU
-kernel it replaces, takes no window.
+Dispatch in `attention`: a call of Sq <= Sk queries whose mask the
+kernel computes goes to `kernels.ops.flash_attention` — the CUDA kernel
+on a card, its plain version on the CPU. The kernel aligns the causal
+mask bottom-right (query i at key position Sk - Sq + i), so a causal call
+goes there when ``q_offset == Sk - Sq`` (the whole sequence, or a block
+of its queries over the keys up to the block's end, as a context-
+parallel shard holds them); a full mask (Whisper's cross-attention, 224
+queries over 1500 frames) at any offset. And no window may be in effect:
+``window == 0``, a global layer (``is_global`` True), or ``window >
+q_offset + Sq - 1``, the largest ``qp - kp``, so that ``(qp - kp) <
+window`` holds for every pair. A window that does cut keys stays plain
+PyTorch (`full_attention` / `blocked_attention`, and `chunked_attention`
+for a call at an offset, which `blocked_attention` does not take), as the
+reference computes it outside any kernel; the kernel, like the TPU kernel
+it replaces, takes no window.
 
 ``is_global`` is a static Python bool here (None: the layer has no
 global/window split). The reference traces it under ``lax.scan``; the
@@ -140,21 +146,26 @@ def blocked_attention(q, k, v, *, causal=True, window=0, chunk=2048,
 
 
 def uses_kernel(Sq: int, Sk: int, *, window: int, q_offset: int,
-                is_global: Optional[bool]) -> bool:
-    """Whether `attention` sends this call to the flash kernel: a plain
-    causal or full mask, with no window in effect (module docstring)."""
-    if Sq != Sk or q_offset:
+                is_global: Optional[bool], causal: bool = True) -> bool:
+    """Whether `attention` sends this call to the flash kernel: Sq <= Sk,
+    a causal mask aligned bottom-right or a full one, with no window in
+    effect (module docstring)."""
+    if Sq > Sk or (causal and q_offset != Sk - Sq):
         return False
-    return not window or bool(is_global) or window >= Sk
+    return not window or bool(is_global) or window >= q_offset + Sq
 
 
 def attention(q, k, v, *, causal=True, window=0, q_offset=0, chunk=2048,
               is_global=None):
     if uses_kernel(q.shape[1], k.shape[1], window=window, q_offset=q_offset,
-                   is_global=is_global):
+                   is_global=is_global, causal=causal):
         o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=causal)
         return o.transpose(1, 2)
+    if q_offset and k.shape[1] > chunk:
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, chunk=chunk,
+                                 is_global=is_global)
     if k.shape[1] > chunk:
         return blocked_attention(q, k, v, causal=causal, window=window,
                                  chunk=chunk, is_global=is_global)

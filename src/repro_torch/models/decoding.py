@@ -208,7 +208,7 @@ def _attn_decode(cfg, p, nx, ck, cv, cpos, step: int, is_global=None,
                               step, row=row)
         o = attn_lib.decode_attention(q, ck, cv, cpos, window=window,
                                       is_global=is_global)
-    return o.reshape(B, 1, -1) @ p["wo"]
+    return fdot(o.reshape(B, 1, -1), p["wo"])
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,

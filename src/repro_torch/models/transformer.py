@@ -189,9 +189,9 @@ def block_fwd(cfg: ArchConfig, p: Dict[str, Any], x: torch.Tensor,
     """One decoder block. Returns (x, cache entry, moe_aux): the entry is
     (k, v), and for the hybrid family ((k, v), final SSM state); moe_aux
     is the layer's load-balancing loss (zero without experts). With
-    ``enc_out`` (Whisper) the block attends to it after self-attention;
-    there the decoder's queries and the encoder's keys differ in length,
-    so cross-attention takes the plain route."""
+    ``enc_out`` (Whisper) the block attends to it after self-attention,
+    under a full mask: fewer queries than the encoder's keys, which the
+    kernel takes (`attention.uses_kernel`)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     nx = rms_norm(x, p["norm1"], cfg.norm_eps)
     a_out, kv = _attn_block(cfg, p["attn"], nx, positions,

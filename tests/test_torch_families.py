@@ -328,8 +328,13 @@ def test_whisper_self_attention_takes_the_kernel_route_and_cross_does_not(
         monkeypatch):
     """Reduced Whisper, 6 decoder tokens over 16 encoder frames: every
     encoder layer (full mask) and every decoder layer's self-attention
-    (causal) go through ops.flash_attention; cross-attention (6 queries
-    over 16 keys) takes the plain route."""
+    (causal) go through ops.flash_attention. Since the kernel takes fewer
+    queries than keys, so does cross-attention (6 queries over 16 keys,
+    a full mask); a causal call of 6 queries over 16 keys at offset 0
+    still takes the plain route (the kernel aligns the mask
+    bottom-right). The name is older than the kernel's Sq < Sk and is
+    kept so that the test's record reads on; cross-attention now takes
+    the kernel route."""
     _jcfg, tcfg, _jp, tp = _pair("whisper-large-v3", seed=16)
     seen = []
     real = ops.flash_attention
@@ -341,9 +346,11 @@ def test_whisper_self_attention_takes_the_kernel_route_and_cross_does_not(
     tdec.prefill(tcfg, tp, _torch(family_batch(tcfg, 2, 6, seed=17)))
     Se = tcfg.enc_len
     assert seen == ([(Se, Se, False)] * tcfg.enc_layers
-                    + [(6, 6, True)] * tcfg.n_layers)
+                    + [(6, 6, True), (6, Se, False)] * tcfg.n_layers)
     assert not tattn.uses_kernel(6, Se, window=0, q_offset=0,
                                  is_global=None)
+    assert tattn.uses_kernel(6, Se, window=0, q_offset=0, is_global=None,
+                             causal=False)
     assert tattn.uses_kernel(Se, Se, window=0, q_offset=0, is_global=None)
 
 
