@@ -108,31 +108,51 @@ graph of the calls, then drives the port's two main paths:
   float32), and a restart drill of `launch.train.train` (a crash, a
   restore, the end state against uninterrupted runs);
 - the dense LM over a (data, model) mesh (`lm_mesh_slice` line):
-  Granite-3-2B at full width and depth on a (2, 2) mesh over every card,
-  or card 0 named four times (`split_devices`): the tp training step of
+  Granite-3-2B at full width and, here, 20 of its 40 layers (its full
+  depth, 2 timed steps, 32 decode steps and a profiled step in
+  `scripts/lm_mesh_slice.py dense`; the line's "reduced") on a (2, 2)
+  mesh over every card, or card 0 named four times (`split_devices`):
+  the tp training step of
   `launch.steps.plan` (float32 masters stored by BASE_RULES, bf16 compute
   copies gathered once a step, K3 at each shard's 16 query heads) over 8
   x 1024 tokens in two micro-batches, remat on, against the unsplit step
-  from the same initial state (loss and first moments), with a device
-  profile of a warm sharded step; the cp preset's step from the same
+  from the same initial state (loss and first moments); the cp preset's
+  step from the same
   state (context parallelism: each model shard projects its 512
   positions with every head, K3 takes them over the keys up to its
   block's end) against the unsplit and tp steps; serve8 (prefill of 8 x
-  1024 tokens, 32 decode steps on the int8 cache whose slots split over
+  1024 tokens, 16 decode steps on the int8 cache whose slots split over
   "model") against the unsplit int8 run fed the same tokens, and a cp
   prefill against the unsplit and tp ones; `ef_allreduce` over
   "data" on one layer's gradients against the reference's formula; and
   the elastic restart of `launch.train.train` at two layers in float32,
   crashed on (2, 2) and restarted onto (4, 1) and one device;
 - the mixture-of-experts family over a mesh (`lm_mesh_moe_slice` line),
-  expert parallelism: Moonlight-16B-A3B at full width and depth on (1,
-  4) (each shard 4 heads and 16 experts), serve8 prefill of 8 x 1024
-  tokens and 32 decode steps against the unsplit one-card int8 run of
-  the same weights, at twice that run's own gap to float32 compute; and
-  its tp training step at full width and 3 of its 48 layers on (2, 2),
-  8 x 1024 tokens in two micro-batches, remat on, against the unsplit
-  step (loss, first moments); capacity drops at the config's factor,
-  the dropped share split and unsplit, device profiles by MoE stage;
+  expert parallelism: Moonlight-16B-A3B at full width and, here, 24 of
+  its 48 layers (its full depth and 32 decode steps in
+  `scripts/lm_mesh_slice.py moe`) on (1, 4) (each shard 4 heads and 16
+  experts), serve8 prefill of 8 x 1024 tokens and 16 decode steps
+  against the unsplit one-card int8 run of the same weights, at twice
+  that run's own gap to float32 compute; and its tp training step at
+  full width and 3 of its 48 layers on (2, 2), 8 x 1024 tokens in two
+  micro-batches, remat on, against the unsplit step (loss, first
+  moments); capacity drops at the config's factor, the dropped share
+  split and unsplit, a decode step's device profile by MoE stage;
+- the hybrid and VLM families over meshes (`lm_mesh_families_slice`
+  line), card 0 named as many times as a mesh has positions:
+  Hymba-1.5B at full width and depth on (2, 2) (its 25 heads split on
+  no m = 2: every shard computes every attention and SSM head, the ff
+  columns split), the tp training step (8 x 1024 tokens in two
+  micro-batches, remat on, K3 and K4 at every position) against the
+  unsplit step from the same state (bf16: the loss and first moments
+  within twice the unsplit step's own bf16-vs-float32 gap; float32
+  compute at 4 layers within 1e-4), serve8 (the hybrid cache in bf16,
+  32 decode steps) and a cp prefill against the unsplit run; Hymba on
+  (1, 5), the one mesh that splits its heads (5 query heads, one KV
+  head, 5 SSM heads a shard), prefill and 8 decode steps; Qwen2-VL-7B
+  serve8 on (1, 4) (7 query heads and one KV head a shard, 256 stub
+  vision embeds and M-RoPE positions placed with the rows, 32 steps on
+  the int8 cache);
 - ApproxPilot-LM (`bridge_slice` line): `lm_bridge.train_surrogate` on
   Qwen2.5-32B's train_4k op graph at the reference's bench settings (400
   samples, 40 epochs), alone and as a 4-member ensemble, its engine
@@ -533,6 +553,17 @@ FA_SHAPES = [
     # ragged lengths below the tiles, and the float32 path, at Sq < Sk
     ("ragged_d32_200x333", 2, 8, 2, (200, 333), 32, "bfloat16", True),
     ("float32_256x768", 2, 8, 2, (256, 768), 64, "float32", True),
+    # the hybrid and VLM families' model shards: Hymba-1.5B on (2, 2),
+    # every head (25 split on no m = 2), 2 rows a training micro-batch, 4
+    # a prefill, and its cp shards' 512 queries over 512 and 1024 keys;
+    # on (1, 5) 5 query heads and one KV head; Qwen2-VL-7B on (1, 4), 7
+    # query heads and one KV head (G = 7)
+    ("hymba_mesh_train_shard", 2, 25, 5, 1024, 64, "bfloat16", True),
+    ("hymba_mesh_prefill_shard", 4, 25, 5, 1024, 64, "bfloat16", True),
+    ("hymba_cp_shard0", 4, 25, 5, (512, 512), 64, "bfloat16", True),
+    ("hymba_cp_shard1", 4, 25, 5, (512, 1024), 64, "bfloat16", True),
+    ("hymba_1x5_shard", 8, 5, 1, 1024, 64, "bfloat16", True),
+    ("qwen2_vl_1x4_shard_gqa7_d128", 8, 7, 1, 1024, 128, "bfloat16", True),
 ]
 
 
@@ -616,17 +647,28 @@ def flash_attention_phase(gen, shapes=FA_SHAPES):
     return rows
 
 
-def ssm_scan_phase(gen):
-    """K4 at the LM slice's prefill shape (T = 1024 steps, D = B*H*Dh*N =
-    204,800 channels, the decay compact per head), the full (T, D) decay,
-    and a ragged T."""
+# K4's (T, D = B*H*Dh*N, the channels a decay is shared by): the LM
+# slice's prefill (8 rows, 25 heads, Dh 64, N 16), the full (T, D) decay
+# and a ragged T; then the mesh shards of Hymba-1.5B: on (2, 2) every
+# head of a prefill's 4 rows and a training micro-batch's 2, on (1, 5)
+# 5 heads of 8 rows
+SCAN_SHAPES = [(1024, 8 * 25 * 64 * 16, 64 * 16),
+               (1024, 8 * 25 * 64 * 16, 1),
+               (1000, 8 * 25 * 64 * 16, 64 * 16),
+               (1024, 4 * 25 * 64 * 16, 64 * 16),
+               (1024, 2 * 25 * 64 * 16, 64 * 16),
+               (1024, 8 * 5 * 64 * 16, 64 * 16)]
+
+
+def ssm_scan_phase(gen, shapes=SCAN_SHAPES):
+    """K4 against its plain version, bit for bit, at ``shapes`` (T, D,
+    the channels a compact decay is shared by)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssm_scan as sc
     dev = torch.device("cuda")
     rows = []
-    D = 8 * 25 * 64 * 16
-    for T, rep in [(1024, 64 * 16), (1024, 1), (1000, 64 * 16)]:
+    for T, D, rep in shapes:
         a = torch.rand(T, D // rep, device=dev, generator=gen) * 0.95
         b = torch.randn(T, D, device=dev, generator=gen)
         y0 = torch.randn(D, device=dev, generator=gen)
@@ -3513,6 +3555,11 @@ def split_slice_phase(card: str, dev, devs, gaussian, trained, kept, *,
 # -- the LM over a (data, model) mesh: what the dense and MoE phases share --
 MESH_BATCH, MESH_SEQ, MESH_ACCUM, MESH_TIMED = 8, 1024, 2, 2
 MESH_PROMPT, MESH_NEW = 1024, 32
+# the dense and MoE mesh phases in `main`: fewer timed training steps
+# and decode steps, no training-step profile, half of Granite-3-2B's 40
+# layers and of Moonlight's 48 in serving (each line's "reduced")
+SMOKE_MESH_TIMED, SMOKE_MESH_NEW = 1, 16
+SMOKE_MESH_LAYERS, SMOKE_MOE_SERVE_LAYERS = 20, 24
 # bf16 bars of the sharded run against the unsplit one: the loss (the
 # reference's own bar between its presets, tests/test_sharding.py), the
 # first moment (a tenth of the gradient) of the checked leaves, as the
@@ -3562,6 +3609,11 @@ def k3_launches() -> int:
     return fa.LAUNCHES.value
 
 
+def k4_launches() -> int:
+    from repro_torch.kernels import ssm_scan as sc
+    return sc.LAUNCHES.value
+
+
 def mesh_on(devs, shape):
     """A ("data", "model") mesh of ``shape`` over ``devs`` cycled to its
     size, and its devices."""
@@ -3592,21 +3644,23 @@ def train_run(dev, step, state, batch_at, n_steps: int, leaves,
               routes: bool = False):
     """``step`` run ``n_steps`` times from ``state`` (params, opt) on
     ``batch_at(i)``, each timed on the device. Returns (state, run): each
-    step's loss, grad norm and K3 launches, the wall ms of the steps after
-    the first and their mean, the first step's metrics, the first layer's
-    first moments of ``leaves`` after it and, with ``routes``, its
-    recorded `moe.place` calls."""
+    step's loss, grad norm and K3 and K4 launches, the wall ms of the
+    steps after the first and their mean, the first step's metrics, the
+    first layer's first moments of ``leaves`` after it and, with
+    ``routes``, its recorded `moe.place` calls."""
     from contextlib import nullcontext
     params, opt = state
-    run = {"losses": [], "grad_norms": [], "k3_per_step": [], "step_ms": []}
+    run = {"losses": [], "grad_norms": [], "k3_per_step": [],
+           "k4_per_step": [], "step_ms": []}
     for i in range(n_steps):
         b = batch_at(i)
-        before = k3_launches()
+        before, before4 = k3_launches(), k4_launches()
         with (recorded_routes() if routes and i == 0
               else nullcontext([])) as seen:
             (params, opt, m), ms = timed_ms(dev, lambda: step(params, opt,
                                                               b))
         run["k3_per_step"].append(k3_launches() - before)
+        run["k4_per_step"].append(k4_launches() - before4)
         run["losses"].append(float(m["loss"]))
         run["grad_norms"].append(float(m["grad_norm"]))
         if i == 0:
@@ -3648,16 +3702,20 @@ def held_train(label: str, run: dict, want: dict, bars: dict,
             "first_moment_rel_l2_layer0": rel, "first_moment_bars": bars}
 
 
-def serve8_unsplit(dev, cfg, params, toks, new: int, feed=None):
-    """The one-card int8 run: a prefill of ``toks`` (B, prompt), its cache
-    quantized, then ``new`` decode steps fed ``feed`` or greedy. Returns
-    (the prefill's last logits and each step's, float32; the tokens fed;
-    each step's wall ms; the cache)."""
+def serve8_unsplit(dev, cfg, params, toks, new: int, feed=None,
+                   extra=None):
+    """The one-card serve8 run: a prefill of ``toks`` (B, prompt) and the
+    family's ``extra`` inputs, its cache quantized where it has an int8
+    form, then ``new`` decode steps fed ``feed`` or greedy. Returns (the
+    prefill's last logits and each step's, float32; the tokens fed; each
+    step's wall ms; the cache)."""
     from repro_torch.models import decoding
     prompt = toks.shape[1]
-    last, cache = decoding.prefill(cfg, params, {"tokens": toks},
+    last, cache = decoding.prefill(cfg, params,
+                                   {"tokens": toks, **(extra or {})},
                                    max_len=prompt + new)
-    cache = decoding.quantize_cache(cfg, cache)
+    if decoding.has_int8_cache(cfg):
+        cache = decoding.quantize_cache(cfg, cache)
     out, fed, ms = [last.float()], [], []
     for t in range(new):
         nxt = (out[-1].argmax(-1, keepdim=True).int() if feed is None
@@ -3670,29 +3728,37 @@ def serve8_unsplit(dev, cfg, params, toks, new: int, feed=None):
     return out, fed, ms, cache
 
 
-def serve8_mesh(dev, cfg, mesh, dfn, P, toks, feed, routes: bool = False):
-    """serve8 over ``mesh``: a warm prefill of ``toks`` placed by rows, a
-    timed one, its cache quantized, then the decode steps ``dfn`` of
+def serve8_mesh(dev, cfg, mesh, dfn, P, toks, feed, routes: bool = False,
+                extra=None):
+    """serve8 over ``mesh``: a warm prefill of ``toks`` and the family's
+    ``extra`` inputs placed by rows, a timed one, its cache quantized
+    where it has an int8 form, then the decode steps ``dfn`` of
     `launch.steps.plan` fed ``feed``. Returns a dict: the logits
     (float32, gathered on ``dev``) as `serve8_unsplit`'s, the prefill's
-    wall ms and K3 launches, each step's, the placed prompts, the cache
-    and, with ``routes``, the warm prefill's and the second step's
-    recorded `moe.place` calls."""
+    wall ms and K3 and K4 launches, each step's, the placed prompts
+    ("tokens") and inputs ("batch"), the cache and, with ``routes``, the
+    warm prefill's and the second step's recorded `moe.place` calls."""
     from contextlib import nullcontext
     from repro_torch.distributed import meshes as M
     from repro_torch.distributed import spmd
+    from repro_torch.models import decoding
     B, prompt = toks.shape
     max_len = prompt + len(feed)
     tplaced = M.place(toks, M.data_sharding(mesh, B, 2))
+    placed = {"tokens": tplaced, **{
+        k: M.place(v, M.data_sharding(mesh, B, v.dim()))
+        for k, v in (extra or {}).items()}}
     with (recorded_routes() if routes else nullcontext([])) as seen:
-        spmd.prefill(cfg, mesh, P, tplaced, max_len=max_len)     # warm
-    out = {"tokens": tplaced,
+        spmd.prefill(cfg, mesh, P, placed, max_len=max_len)      # warm
+    out = {"tokens": tplaced, "batch": placed,
            "prefill_routes": [(i.cpu(), k.cpu()) for i, k in seen]}
-    before = k3_launches()
+    before, before4 = k3_launches(), k4_launches()
     (lg, cache), out["prefill_ms"] = timed_ms(dev, lambda: spmd.prefill(
-        cfg, mesh, P, tplaced, max_len=max_len))
+        cfg, mesh, P, placed, max_len=max_len))
     out["prefill_k3"] = k3_launches() - before
-    cache = spmd.quantize_cache(cfg, cache)
+    out["prefill_k4"] = k4_launches() - before4
+    if decoding.has_int8_cache(cfg):
+        cache = spmd.quantize_cache(cfg, cache)
     out["cache_bytes_per_position"] = M.nbytes_per_position(cache)
     got, step_ms, step_k3 = [lg.gather(dev).float()], [], []
     for t in range(len(feed)):
@@ -3730,6 +3796,23 @@ def serve8_checks(label: str, got, want, own: float,
             "unsplit_bf16_vs_float32_greedy_agree_share": own_agree}
 
 
+def phase_cuts(timed: int, timed0: int, new: int, new0: int,
+               profile_train: bool, layers: int = 0, layers0: int = 0):
+    """What a mesh phase's run leaves out against its defaults (the run
+    of `scripts/lm_mesh_slice.py`), for its line's "reduced"."""
+    out = []
+    if layers and layers < layers0:
+        out.append(f"n_layers {layers0} -> {layers}")
+    if timed < timed0:
+        out.append(f"timed training steps {timed0} -> {timed}")
+    if new < new0:
+        out.append(f"decode steps {new0} -> {new}")
+    if not profile_train:
+        out.append("no device profile of the training step "
+                   "(scripts/lm_mesh_slice.py's)")
+    return "; ".join(out) or None
+
+
 # -- the LM over a (data, model) mesh: Granite-3-2B, tp training, serve8 ------
 MESH_ARCH, MESH_SHAPE = "granite-3-2b", (2, 2)
 MESH_DRILL = dict(n_layers=2, batch=8, seq=64, steps=3, crash_at=2,
@@ -3744,7 +3827,8 @@ def lm_mesh_slice_phase(card: str, dev, devs, cfg=None,
                         seq: int = MESH_SEQ, accum: int = MESH_ACCUM,
                         timed: int = MESH_TIMED, prompt: int = MESH_PROMPT,
                         new: int = MESH_NEW, drill=MESH_DRILL,
-                        profile: bool = True):
+                        profile: bool = True, profile_train: bool = True,
+                        layers: int = 0):
     """The dense LM over a (data, model) mesh of ``devs`` (cycled to the
     mesh's size): the tp training step (`launch.steps.plan`, float32
     masters stored by BASE_RULES, bf16 compute copies gathered once a
@@ -3777,6 +3861,9 @@ def lm_mesh_slice_phase(card: str, dev, devs, cfg=None,
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.optim import adamw
     cfg = cfg or get_arch(MESH_ARCH)
+    depth = cfg.n_layers
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     cuda = dev.type == "cuda"
     mesh, mesh_devs = mesh_on(devs, shape)
     n = mesh.size
@@ -3786,7 +3873,9 @@ def lm_mesh_slice_phase(card: str, dev, devs, cfg=None,
               "n_kv_heads": cfg.n_kv_heads, "mesh": dict(mesh.shape),
               "devices": [str(d) for d in mesh_devs],
               "distinct_cards": len(set(mesh_devs)),
-              "split_heads": lay.split_heads, "split_ff": lay.split_ff}
+              "split_heads": lay.split_heads, "split_ff": lay.split_ff,
+              "reduced": phase_cuts(timed, MESH_TIMED, new, MESH_NEW,
+                                    profile_train, layers, depth)}
     t0 = time.perf_counter()
     timing = {}
     shape_t = ShapeConfig("train", seq, batch, "train", grad_accum=accum)
@@ -3832,7 +3921,7 @@ def lm_mesh_slice_phase(card: str, dev, devs, cfg=None,
     bars = dict.fromkeys(MESH_LEAVES, MESH_GRAD_REL)
     train["checks"] = held_train("mesh tp step", tp, u, bars,
                                  MESH_LOSS_ATOL, per_step, cuda)
-    if cuda and profile:
+    if cuda and profile and profile_train:
         b = pipe.batch_at(1 + timed)
         before = k3_launches()
         train["step_device_profile"] = device_profile(
@@ -4156,7 +4245,9 @@ def lm_mesh_moe_slice_phase(card: str, dev, devs, cfg=None,
                             accum: int = MESH_ACCUM,
                             timed: int = MOE_MESH_TIMED,
                             prompt: int = MESH_PROMPT, new: int = MESH_NEW,
-                            profile: bool = True):
+                            profile: bool = True,
+                            profile_train: bool = True,
+                            serve_layers: int = 0):
     """The mixture-of-experts family over meshes of ``devs`` (cycled to
     the mesh's size): serve8 serving (`launch.steps.plan`: TP-placed bf16
     weights, the experts split over "model", the int8 cache's slots over
@@ -4186,7 +4277,10 @@ def lm_mesh_moe_slice_phase(card: str, dev, devs, cfg=None,
     from repro_torch.models import decoding, moe, transformer
     from repro_torch.models.layers import tree_leaves
     from repro_torch.optim import adamw
-    cfg = cfg or get_arch(MOE_ARCH)
+    full = cfg or get_arch(MOE_ARCH)
+    # serving's depth; training takes its own (`train_layers`)
+    cfg = (dataclasses.replace(full, n_layers=serve_layers)
+           if serve_layers else full)
     cuda = dev.type == "cuda"
     t0 = time.perf_counter()
     timing = {}
@@ -4214,7 +4308,8 @@ def lm_mesh_moe_slice_phase(card: str, dev, devs, cfg=None,
     params = transformer.build_param_table(cfg).init(
         gen, device=dev, dtype=torch.bfloat16)
     serve["params"] = sum(t.numel() for t in tree_leaves(params))
-    serve["reduced"] = None
+    serve["reduced"] = phase_cuts(timed, timed, new, MESH_NEW, True,
+                                  serve_layers, full.n_layers)
     toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
                          device=dev, dtype=torch.int32)
     max_len = prompt + new
@@ -4328,9 +4423,11 @@ def lm_mesh_moe_slice_phase(card: str, dev, devs, cfg=None,
         return (2 if c.remat else 1) * accum * c.n_layers * n
     train = {"mesh": dict(mesh.shape), "n_layers": ct.n_layers,
              "n_layers_float32_check": cf.n_layers,
-             "reduced": f"n_layers {cfg.n_layers} -> {ct.n_layers} (bf16 "
-             f"and its float32 yardstick), {cf.n_layers} (the float32 "
-             f"check)",
+             "reduced": "; ".join(filter(None, (
+                 f"n_layers {full.n_layers} -> {ct.n_layers} (bf16 and its "
+                 f"float32 yardstick), {cf.n_layers} (the float32 check)",
+                 phase_cuts(timed, MOE_MESH_TIMED, new, new,
+                            profile_train)))),
              "batch": batch, "seq": seq, "grad_accum": accum,
              "remat": ct.remat,
              "capacity_per_micro_batch": moe.capacity(
@@ -4360,7 +4457,7 @@ def lm_mesh_moe_slice_phase(card: str, dev, devs, cfg=None,
                                    1 + timed, MOE_MESH_LEAVES, routes=True)
             r.update(run)
         r["peak_gib"] = peak_gib(dev)
-        if cuda and profile and label == "tp":
+        if cuda and profile and profile_train and label == "tp":
             b = pipe.batch_at(1 + timed)
             before = k3_launches()
             r["step_device_profile"] = device_profile(
@@ -4435,6 +4532,594 @@ def lm_mesh_moe_slice_phase(card: str, dev, devs, cfg=None,
     report["launches"] = {"flash_attention": mesh_k3}
     return report, mesh_k3
 
+
+# -- the hybrid and VLM families over a (data, model) mesh ------------------
+# Hymba-1.5B at full width and depth: on (2, 2) its 25 heads split on no
+# m = 2 (every shard computes every attention and SSM head, the ff
+# columns split); on (1, 5), the one mesh on which they split, 5 query
+# heads, one KV head and 5 SSM heads a shard. Qwen2-VL-7B serve8 on
+# (1, 4): 7 query heads and one KV head a shard (G = 7), 256 stub vision
+# embeds and M-RoPE positions, the int8 cache
+FAM_MESH_HYMBA, FAM_MESH_VLM = LM_ARCH, "qwen2-vl-7b"
+FAM_MESH_SHAPE, FAM_MESH_SPLIT, FAM_MESH_VLM_SHAPE = (2, 2), (1, 5), (1, 4)
+FAM_MESH_TIMED = 1         # timed training steps after the first
+# the float32 checks' depth, training and serving: a global layer and
+# three SWA layers. Hymba's bf16 runs at all 32 are timed, the step held
+# at twice its own bf16-vs-float32 gap (~1.3 relative L2) and the
+# serving gaps reported only: at 32 random layers bf16 is chaotic (the
+# unsplit run's own logits gap, 5.8, exceeds the logits)
+FAM_MESH_F32_LAYERS = 4
+# their bar, relative (first moments and the SSM state by L2, logits of
+# their largest value): at full width every gradient product sums 4,096
+# tokens a micro-batch in another order on the mesh (per-position
+# partials, the replicas' gradients summed), as two float32
+# implementations do; the repository's bar for those (the port against
+# the reference, tests/test_torch_lm_train.py) and not the CPU tests'
+# 1e-5 at 64 tokens (1.0e-5-2.6e-5 read at 4 layers on an H100)
+FAM_MESH_F32_REL = 1e-4
+FAM_MESH_SPLIT_NEW = 8     # decode steps on (1, 5)
+FAM_MESH_LEAVES = ("embed/tokens", "blocks/attn/wq", "blocks/attn/wk",
+                   "blocks/ssm/in_proj", "blocks/ssm/gate_proj",
+                   "blocks/ssm/dt_proj", "blocks/ssm/out_proj",
+                   "blocks/mlp/w_down", "blocks/norm1", "head/w")
+
+
+def served_on_mesh(label: str, dev, cfg, params, mesh, toks, extra,
+                   new: int, held: bool) -> dict:
+    """serve8 of ``params`` (bf16, one card) over ``mesh`` against the
+    unsplit run fed the same tokens. With ``held``, the logits are held
+    at twice the unsplit run's own gap to its float32 run (the bf16
+    weights cast per product); else the gap is reported only (a family
+    whose bf16 gap is no yardstick holds its mesh in
+    `float32_served_on_mesh`). ``params`` are placed leaf by leaf and
+    consumed. Returns the reading, with "_run" (`serve8_mesh`'s) and
+    "_params" (the placed weights) for a caller that goes on with them."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import meshes as M
+    from repro_torch.distributed import spmd
+    from repro_torch.launch import steps
+    from repro_torch.models import decoding
+    from repro_torch.models.layers import tree_leaves
+    cuda = dev.type == "cuda"
+    B, prompt = toks.shape
+    max_len = prompt + new
+    n, L = mesh.size, cfg.n_layers
+    lay = spmd.Layout(cfg, mesh)
+    hybrid = cfg.family == "hybrid"
+    out = {"mesh": dict(mesh.shape), "n_layers": L, "batch": B,
+           "prompt": prompt, "new_tokens": new, "preset": "serve8",
+           "cache": ("int8" if decoding.has_int8_cache(cfg)
+                     else "bf16 (no int8 form)"),
+           "split_heads": lay.split_heads,
+           "heads_per_shard": lay.heads(0)[1] - lay.heads(0)[0],
+           "kv_heads_per_shard": lay.kv_heads(0)[1] - lay.kv_heads(0)[0],
+           "split_ff": lay.split_ff,
+           "params": sum(t.numel() for t in tree_leaves(params))}
+    batch = {"tokens": toks, **extra}
+    with torch.no_grad():
+        decoding.prefill(cfg, params, batch, max_len=max_len)     # warm
+        before, before4 = k3_launches(), k4_launches()
+        _, pre_ms_u = timed_ms(dev, lambda: decoding.prefill(
+            cfg, params, batch, max_len=max_len))
+        unsplit_k = [k3_launches() - before, k4_launches() - before4]
+        want, feed, dec_u, ucache = serve8_unsplit(dev, cfg, params, toks,
+                                                   new, extra=extra)
+        if cuda:
+            out["unsplit_decode_device_profile"] = device_profile(
+                lambda: decoding.decode_step(cfg, params, ucache, feed[-1],
+                                             max_len - 1))
+        del ucache
+        out["unsplit"] = {
+            "prefill_warm_ms": pre_ms_u,
+            "prefill_tokens_per_s": B * prompt / pre_ms_u * 1e3,
+            "decode_ms_per_step": sum(dec_u[1:]) / max(len(dec_u) - 1, 1),
+            "k3_launches_prefill": unsplit_k[0],
+            "k4_launches_prefill": unsplit_k[1], "peak_gib": peak_gib(dev)}
+        if held:
+            # the bar's yardstick: the unsplit path in float32 at the
+            # same prompts and fed tokens
+            c32 = dataclasses.replace(cfg, dtype="float32")
+            ref32 = serve8_unsplit(dev, c32, params, toks, new, feed,
+                                   extra=extra)[0]
+            out["unsplit"]["peak_gib_float32_run"] = peak_gib(dev)
+            own, own_agree = max_gap(want, ref32), greedy_agree(want, ref32)
+            del ref32
+    free_card(dev)
+    dshape = ShapeConfig("decode", max_len, B, "decode")
+    dfn, _s, dins, _o, _d = steps.plan(cfg, dshape, mesh,
+                                       steps.resolve_rules("serve8"))
+    P = place_consuming(params, dins[0])
+    del params
+    gc.collect()
+    out["param_bytes_per_position"] = M.nbytes_per_position(P)
+    out["peak_gib_after_placing"] = peak_gib(dev)
+    run = serve8_mesh(dev, cfg, mesh, dfn, P, toks, feed, extra=extra)
+    dec = run["step_ms"]
+    out["cache_bytes_per_position"] = run["cache_bytes_per_position"]
+    out["sharded"] = {
+        "prefill_warm_ms": run["prefill_ms"],
+        "prefill_tokens_per_s": B * prompt / run["prefill_ms"] * 1e3,
+        "decode_ms_per_step": sum(dec[1:]) / max(len(dec) - 1, 1),
+        "k3_launches_prefill": run["prefill_k3"],
+        "k4_launches_prefill": run["prefill_k4"],
+        "k3_launches_expected": L * n,
+        "k4_launches_expected": L * n if hybrid else 0,
+        "k3_launches_decode_step": max(run["step_k3"]),
+        "peak_gib": peak_gib(dev)}
+    out["sharded"]["decode_tokens_per_s"] = (
+        B / out["sharded"]["decode_ms_per_step"] * 1e3)
+    out["sharded_over_unsplit"] = {
+        "prefill": run["prefill_ms"] / pre_ms_u,
+        "decode": (out["sharded"]["decode_ms_per_step"]
+                   / out["unsplit"]["decode_ms_per_step"])}
+    if cuda:
+        # the last step again (its slot rewritten with the same token)
+        out["sharded"]["decode_device_profile"] = device_profile(
+            lambda: dfn(P, run["cache"], feed[-1], max_len - 1))
+    if held:
+        out["checks"] = serve8_checks(f"{label} over the mesh", run["got"],
+                                      want, own, own_agree)
+    else:
+        check(all(map(finite, run["got"])),
+              f"{label} over the mesh: non-finite logits")
+        out["checks"] = {
+            "held": False, "logits_max_abs_gap": max_gap(run["got"], want),
+            "prefill_gap": float((run["got"][0] - want[0]).abs().max()),
+            "logits_max_abs": max(float(w.abs().max()) for w in want),
+            "greedy_agree_share": greedy_agree(run["got"], want)}
+    check(not cuda or (run["prefill_k3"] == L * n
+                       and run["prefill_k4"] == (L * n if hybrid else 0)
+                       and unsplit_k == [L, L if hybrid else 0]
+                       and max(run["step_k3"]) == 0),
+          f"{label}: {run['prefill_k3']} K3 and {run['prefill_k4']} K4 "
+          f"launches in the mesh prefill (not {L * n} each), {unsplit_k} "
+          f"unsplit, {run['step_k3']} K3 a decode step")
+    out["_params"], out["_want"], out["_run"] = P, want, run
+    return out
+
+
+def cache_gaps(got, want) -> dict:
+    """A placed hybrid cache ``got`` against the unsplit ``want``: each
+    layer's k and v by relative L2, and for bf16 ones the share of
+    elements more than one bf16 rounding (2^-7 relative) apart;
+    positions equal; the SSM state by the relative L2 of each position's
+    piece against the same block of ``want``'s."""
+    import torch
+    out = {"kv_rel_l2": 0.0, "kv_bf16_share_over_one_rounding": 0.0,
+           "pos_equal": True, "ssm_rel_l2": 0.0}
+    for g, w in zip(got["layers"], want["layers"]):
+        for name, b in w.items():
+            a = g[name].gather(b.device)
+            if name == "pos":
+                out["pos_equal"] &= bool(torch.equal(a, b))
+                continue
+            a, b = a.float(), b.float()
+            out["kv_rel_l2"] = max(out["kv_rel_l2"],
+                                   rel_l2_each({0: a}, {0: b})[0])
+            if w[name].dtype == torch.bfloat16:
+                out["kv_bf16_share_over_one_rounding"] = max(
+                    out["kv_bf16_share_over_one_rounding"],
+                    float(((a - b).abs() > b.abs() * 2 ** -7).float()
+                          .mean()))
+    x = got["ssm"]
+    for piece, blk in zip(x.pieces, x.blocks()):
+        ref = want["ssm"][tuple(slice(lo, hi) for lo, hi in blk)]
+        out["ssm_rel_l2"] = max(out["ssm_rel_l2"], rel_l2_each(
+            {0: piece.to(ref.device)}, {0: ref})[0])
+    return out
+
+
+def float32_served_on_mesh(label: str, dev, cfg, mesh, toks, new: int,
+                           cp_too: bool, gen) -> tuple:
+    """Hymba in float32 compute at FAM_MESH_F32_LAYERS layers, fresh
+    weights from ``gen``, over ``mesh`` against the unsplit float32 run:
+    `plan`'s serve8 prefill (the logits) and the cache `spmd.prefill`
+    writes; ``new`` decode steps of `plan`'s serve8 step from the unsplit
+    prefill's cache in float32 slots, fed the unsplit run's greedy
+    tokens, and the cache after them; with ``cp_too``, `plan`'s cp
+    prefill. Each logits within FAM_MESH_F32_REL of its largest value in
+    the unsplit run; the prefill's bf16 k and v within one bf16 rounding
+    (2^-8) by relative L2 (each layer's; per element, an entry that
+    cancels to near zero moves by more than its own rounding when the
+    layers' float32 sums run in another order), the float32 ones after
+    the decode steps and the SSM state per head block within
+    FAM_MESH_F32_REL (relative L2), positions equal. A bf16 control, the unsplit run of the same
+    weights in bf16 compute fed the same tokens, reads against the same
+    bar and must exceed it. Returns (the readings, [K3, K4] launches of
+    the mesh runs)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import meshes as M
+    from repro_torch.distributed import spmd
+    from repro_torch.launch import steps
+    from repro_torch.models import decoding, transformer
+    from repro_torch.models.layers import tree_map
+    cuda = dev.type == "cuda"
+    cf = dataclasses.replace(cfg, dtype="float32",
+                             n_layers=FAM_MESH_F32_LAYERS)
+    B, prompt = toks.shape
+    max_len = prompt + new
+    n, L = mesh.size, cf.n_layers
+    lay = spmd.Layout(cf, mesh)
+    params = transformer.build_param_table(cf).init(gen, device=dev,
+                                                    dtype=torch.float32)
+    batch = {"tokens": toks}
+
+    def slots32(c):
+        """A copy of the cache ``c``, its floating leaves in float32."""
+        return tree_map(lambda t: t.to(torch.float32, copy=True)
+                        if t.is_floating_point() else t.clone(), c)
+    k = [0, 0]
+
+    def counted(fn):
+        before, before4 = k3_launches(), k4_launches()
+        r = fn()
+        k[0] += k3_launches() - before
+        k[1] += k4_launches() - before4
+        return r
+    with torch.no_grad():
+        last, c0 = decoding.prefill(cf, params, batch, max_len=max_len)
+        cache = slots32(c0)
+        want, feed = [last.float()], []
+        for t in range(new):
+            feed.append(want[-1].argmax(-1, keepdim=True).int())
+            lg, cache = decoding.decode_step(cf, params, cache, feed[-1],
+                                             prompt + t)
+            want.append(lg[:, 0].float())
+        end = cache
+        bars = [FAM_MESH_F32_REL * float(w.abs().max()) for w in want]
+        cb = dataclasses.replace(cf, dtype="bfloat16")
+        ctrl = serve8_unsplit(dev, cb, tree_map(torch.Tensor.bfloat16,
+                                                params), toks, new, feed)[0]
+
+        def over(got):
+            return [float((a - b).abs().max()) / bar
+                    for a, b, bar in zip(got, want, bars)]
+        rules = steps.resolve_rules("serve8")
+        pfn, _s, pins, _o, _d = steps.plan(
+            cf, ShapeConfig("prefill", prompt, B, "prefill"), mesh, rules)
+        P = M.place_tree(params, pins[0])
+        lg, _c = counted(lambda: pfn(P, batch))
+        pre = [lg.gather(dev).float()]
+        placed = {"tokens": M.place(toks, M.data_sharding(mesh, B, 2))}
+        _, mc = counted(lambda: spmd.prefill(cf, mesh, P, placed,
+                                             max_len=max_len))
+        after_prefill = cache_gaps(mc, c0)
+        del _c, mc
+        dfn, _s, dins, _o, _d = steps.plan(
+            cf, ShapeConfig("decode", max_len, B, "decode"), mesh, rules)
+        P = M.place_tree(params, dins[0])
+        cache = M.place_tree(slots32(c0), dins[1])
+        got = []
+        for t in range(new):
+            lg, cache = counted(lambda: dfn(P, cache, feed[t], prompt + t))
+            got.append(lg.gather(dev)[:, 0].float())
+        after_decode = cache_gaps(cache, end)
+        gaps = over(pre + got)
+        out = {"mesh": dict(mesh.shape), "n_layers": L, "dtype": "float32",
+               "batch": B, "prompt": prompt, "new_tokens": new,
+               "split_heads": lay.split_heads,
+               "bar_rule": "FAM_MESH_F32_REL x each logits' largest |value| "
+               "in the unsplit float32 run", "rel": FAM_MESH_F32_REL,
+               "logits_max_abs": max(float(w.abs().max()) for w in want),
+               "prefill_over_bar": gaps[0],
+               "decode_over_bar_max": max(gaps[1:]),
+               "cache_after_prefill": after_prefill,
+               "cache_after_decode": after_decode,
+               "bf16_control_over_bar": max(over(ctrl)),
+               "bf16_control_rule": "the unsplit run of the same weights "
+               "in bf16 compute, fed the same tokens, against the float32 "
+               "run: it must exceed the bar"}
+        ok = [out["prefill_over_bar"], out["decode_over_bar_max"]]
+        if cp_too:
+            cfn, _s, cins, _o, _d = steps.plan(
+                cf, ShapeConfig("prefill", prompt, B, "prefill"), mesh,
+                steps.resolve_rules("cp"))
+            P = M.place_tree(params, cins[0])
+            lg, _c = counted(lambda: cfn(P, batch))
+            out["cp_prefill_over_bar"] = over([lg.gather(dev).float()])[0]
+            ok.append(out["cp_prefill_over_bar"])
+            del _c
+    pre_k = 2 * L * n + (L * n if cp_too else 0)
+    out["launches"] = {"flash_attention": k[0], "ssm_scan": k[1],
+                       "expected_each": pre_k}
+    check(max(ok) <= 1 and all(map(finite, pre + got)),
+          f"{label} in float32 over the mesh against the unsplit run: "
+          f"{ok} of the bar")
+    cg = [after_prefill, after_decode]
+    check(after_prefill["kv_rel_l2"] <= 2 ** -8
+          and after_decode["kv_rel_l2"] <= FAM_MESH_F32_REL
+          and all(c["pos_equal"] and c["ssm_rel_l2"] <= FAM_MESH_F32_REL
+                  for c in cg),
+          f"{label} in float32: the mesh cache against the unsplit one {cg}")
+    check(out["bf16_control_over_bar"] > 1,
+          f"{label}: the bf16 control reads {out['bf16_control_over_bar']} "
+          f"of the float32 bar, which would not see it")
+    check(not cuda or k == [pre_k, pre_k],
+          f"{label} in float32: {k} K3 and K4 launches over the mesh, not "
+          f"{pre_k} each (every layer and position a prefill)")
+    return out, k
+
+
+def lm_mesh_families_slice_phase(card: str, dev, devs,
+                                 profile_train: bool = True):
+    """The hybrid and VLM families over meshes of ``devs`` (cycled to the
+    mesh's size). Hymba-1.5B on FAM_MESH_SHAPE: the tp training step
+    (`launch.steps.plan`, float32 masters, bf16 compute copies) against
+    the unsplit step from the same state, in float32 compute at
+    FAM_MESH_F32_LAYERS layers within FAM_MESH_F32_REL, the loss and
+    first moments (the MoE phase's check), and in bf16 at full depth
+    within twice the unsplit step's own bf16-vs-float32 gap; the same
+    float32 step on FAM_MESH_SPLIT, where the heads split; K3 and K4
+    launches a step counted. Serve8 (the hybrid cache in bf16) and a cp
+    prefill on FAM_MESH_SHAPE, and prefill and FAM_MESH_SPLIT_NEW decode
+    steps on FAM_MESH_SPLIT, timed at full depth with their gap to the
+    unsplit run reported, and each held in float32 compute by
+    `float32_served_on_mesh`. Qwen2-VL-7B serve8 on FAM_MESH_VLM_SHAPE
+    with its vision embeds and M-RoPE positions, held at twice the
+    unsplit run's own bf16-vs-float32 gap. A warm decode step of each
+    serving run is profiled, and with ``profile_train`` the tp step too
+    (its profiler's post-processing takes about a minute). Returns
+    (report, {"flash_attention": K3 launches, "ssm_scan": K4 launches}
+    of the mesh runs)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.distributed import meshes as M
+    from repro_torch.distributed import spmd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import adamw
+    batch, seq, accum = MESH_BATCH, MESH_SEQ, MESH_ACCUM
+    prompt, new = MESH_PROMPT, MESH_NEW
+    cuda = dev.type == "cuda"
+    t0 = time.perf_counter()
+    timing = {}
+    k3 = k4 = 0
+    report = {"card": card, "devices": [str(d) for d in devs],
+              "distinct_cards": len(set(devs))}
+
+    # -- Hymba: the tp step on FAM_MESH_SHAPE against the unsplit step,
+    # from the same state: in bf16 at full depth, each first moment
+    # within twice the unsplit step's own bf16-vs-float32 gap of that
+    # leaf; in float32 compute at FAM_MESH_F32_LAYERS layers within
+    # FAM_MESH_F32_REL, on FAM_MESH_SHAPE and on FAM_MESH_SPLIT --------
+    cfg = get_arch(FAM_MESH_HYMBA)
+    mesh, _ = mesh_on(devs, FAM_MESH_SHAPE)
+    mesh5, _ = mesh_on(devs, FAM_MESH_SPLIT)
+    lay = spmd.Layout(cfg, mesh)
+    shape_t = ShapeConfig("train", seq, batch, "train", grad_accum=accum)
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch)
+    tokens_per_step = batch * seq
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    cf = dataclasses.replace(c32, n_layers=FAM_MESH_F32_LAYERS)
+    train = {"mesh": dict(mesh.shape), "n_layers": cfg.n_layers,
+             "n_layers_float32_check": cf.n_layers,
+             "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+             "n_kv_heads": cfg.n_kv_heads, "batch": batch, "seq": seq,
+             "grad_accum": accum, "remat": cfg.remat,
+             "reduced": f"n_layers {cfg.n_layers} -> {cf.n_layers} in the "
+             f"float32 checks only", "split_heads": lay.split_heads,
+             "split_ff": lay.split_ff,
+             "float32_split_mesh": dict(mesh5.shape),
+             "float32_split_mesh_split_heads":
+                 spmd.Layout(cf, mesh5).split_heads}
+
+    def per_step(c, n):
+        """K3 launches a step (forward and remat's recompute) and K4's
+        (those and its reverse-time backward), every layer, position and
+        micro-batch."""
+        r = 1 if c.remat else 0
+        return ((1 + r) * accum * c.n_layers * n,
+                (2 + r) * accum * c.n_layers * n)
+    runs = {}
+    for label, c, on, n_steps in (
+            ("unsplit", cfg, None, 1 + FAM_MESH_TIMED),
+            ("unsplit_float32", c32, None, 1),
+            ("tp", cfg, mesh, 1 + FAM_MESH_TIMED),
+            ("unsplit_float32_check", cf, None, 1),
+            ("tp_float32_check", cf, mesh, 1),
+            ("tp_split_float32_check", cf, mesh5, 1)):
+        free_card(dev)
+        if on is not None:
+            fn = steps.plan(c, shape_t, on, steps.resolve_rules("tp"))[0]
+            state = train_lib.build_state(c, dev, mesh=on)
+            r = {"state_bytes_per_position": M.nbytes_per_position(state)}
+            state, run = train_run(dev, fn, state, pipe.batch_at, n_steps,
+                                   FAM_MESH_LEAVES)
+            k3 += sum(run["k3_per_step"])
+            k4 += sum(run["k4_per_step"])
+        else:
+            fn = steps.make_train_step(c, shape_t)
+            state = train_lib.build_state(c, dev)
+            r = {"params": sum(a.numel() for a in tree_leaves(state[0]))}
+            state, run = train_run(dev, fn, state,
+                                   lambda i: batch_on(pipe.batch_at(i), {},
+                                                      dev),
+                                   n_steps, FAM_MESH_LEAVES)
+        r.update(run)
+        r["peak_gib"] = peak_gib(dev)
+        if cuda and profile_train and label == "tp":
+            b = pipe.batch_at(n_steps)
+            before, before4 = k3_launches(), k4_launches()
+            t = time.perf_counter()
+            r["step_device_profile"] = device_profile(
+                lambda: fn(*state, b), spans=(*ops.SPANS, adamw.SPAN))
+            r["step_device_profile"]["s"] = time.perf_counter() - t
+            k3 += k3_launches() - before
+            k4 += k4_launches() - before4
+        runs[label] = r
+        del state, fn
+        timing["hymba_train_" + label] = time.perf_counter() - t0
+    free_card(dev)
+    for label, r in runs.items():
+        train[label] = {
+            k: r[k] for k in ("params", "losses", "grad_norms", "metrics0",
+                              "ms_per_step", "step_ms", "first_step_ms",
+                              "k3_per_step", "k4_per_step", "peak_gib",
+                              "state_bytes_per_position",
+                              "step_device_profile") if k in r}
+        if r["ms_per_step"]:
+            train[label]["tokens_per_s"] = (tokens_per_step
+                                            / r["ms_per_step"] * 1e3)
+    u, u32, tp, uf, tpf, tps = (runs[k] for k in (
+        "unsplit", "unsplit_float32", "tp", "unsplit_float32_check",
+        "tp_float32_check", "tp_split_float32_check"))
+    train["sharded_over_unsplit"] = tp["ms_per_step"] / u["ms_per_step"]
+    # float32: the loss and first moments within FAM_MESH_F32_REL
+    f32 = {name: held_train(f"hymba mesh {name} step in float32", r, uf,
+                            dict.fromkeys(FAM_MESH_LEAVES, FAM_MESH_F32_REL),
+                            FAM_MESH_F32_REL * abs(uf["losses"][0]),
+                            per_step(cf, on.size)[0], cuda)
+           for name, r, on in (("tp", tpf, mesh), ("tp_split", tps, mesh5))}
+    # bf16: the loss and each leaf within twice the unsplit step's own
+    # bf16-vs-float32 gap (32 layers of random weights amplify a rounding
+    # of another summation order: the unsplit run's own gap reads ~1.3)
+    own = rel_l2_each(u["m0"], u32["m0"])
+    own_loss = abs(u["losses"][0] - u32["losses"][0])
+    bf16 = held_train("hymba mesh tp step", tp, u,
+                      {p: 2 * own[p] for p in FAM_MESH_LEAVES},
+                      2 * own_loss, per_step(cfg, mesh.size)[0], cuda)
+    bf16["bar_rule"] = ("2 x the unsplit step's own bf16-vs-float32 gap: "
+                        "the loss's and each leaf's first moment's")
+    bf16["unsplit_bf16_vs_float32_first_moment_rel_l2"] = own
+    bf16["unsplit_bf16_vs_float32_loss_gap"] = own_loss
+    expected = {}
+    for label, c, on, r in (("tp", cfg, mesh, tp),
+                            ("tp_float32_check", cf, mesh, tpf),
+                            ("tp_split_float32_check", cf, mesh5, tps)):
+        expected[label] = dict(zip(("flash_attention", "ssm_scan"),
+                                   per_step(c, on.size)))
+        check(not cuda or all(e == per_step(c, on.size)[1]
+                              for e in r["k4_per_step"]),
+              f"hymba mesh {label} step: {r['k4_per_step']} K4 launches a "
+              f"step, not {per_step(c, on.size)[1]}")
+    train["launches_expected_per_step"] = expected
+    train["checks"] = {"float32": f32, "bf16": bf16}
+    report["hymba_train"] = train
+    del runs, u, u32, tp, uf, tpf, tps
+    free_card(dev)
+
+    # -- Hymba serve8 on FAM_MESH_SHAPE, then a cp prefill, timed in bf16
+    # at full depth; then both held in float32 compute -------------------
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = transformer.build_param_table(cfg).init(
+        gen, device=dev, dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=dev, dtype=torch.int32)
+    serve = served_on_mesh("hymba serve8", dev, cfg, params, mesh, toks, {},
+                           new, held=False)
+    del params
+    run = serve.pop("_run")
+    k3 += run["prefill_k3"] + sum(run["step_k3"])
+    k4 += run["prefill_k4"]
+    serve["reduced"] = None
+    P, want = serve.pop("_params"), serve.pop("_want")
+    del run
+    free_card(dev)
+    timing["hymba_serve"] = time.perf_counter() - t0
+    # a cp prefill: each model shard its block of the prompt for
+    # attention, every SSM head over the whole prompt
+    pshape = ShapeConfig("prefill", prompt, batch, "prefill")
+    cfn, _s, cins, _o, _d = steps.plan(cfg, pshape, mesh,
+                                       steps.resolve_rules("cp"))
+    P = M.place_tree(P, cins[0])
+    placed = {"tokens": M.place(toks, M.data_sharding(mesh, batch, 2))}
+    cfn(P, placed)                                               # warm
+    before, before4 = k3_launches(), k4_launches()
+    (lg, _c), cp_ms = timed_ms(dev, lambda: cfn(P, placed))
+    cp_k = [k3_launches() - before, k4_launches() - before4]
+    k3 += cp_k[0]
+    k4 += cp_k[1]
+    cp_last = lg.gather(dev).float()
+    serve["cp_prefill"] = {
+        "prefill_warm_ms": cp_ms, "peak_gib": peak_gib(dev),
+        "k3_launches_prefill": cp_k[0], "k4_launches_prefill": cp_k[1],
+        "k3_launches_expected": cfg.n_layers * mesh.size,
+        "k3_shapes": [[prompt // lay.m, (r + 1) * prompt // lay.m]
+                      for r in range(lay.m)],
+        "logits_max_abs_gap_vs_unsplit": float(
+            (cp_last - want[0]).abs().max())}
+    check(finite(cp_last), "hymba cp prefill over the mesh: non-finite "
+          "logits")
+    check(not cuda or cp_k == [cfg.n_layers * mesh.size] * 2,
+          f"hymba cp prefill: {cp_k} K3 and K4 launches, not "
+          f"{cfg.n_layers * mesh.size} each")
+    del P, want, lg, _c, cp_last
+    free_card(dev)
+    timing["hymba_cp_prefill"] = time.perf_counter() - t0
+    serve["float32"], kf = float32_served_on_mesh(
+        "hymba serve8 and cp prefill", dev, cfg, mesh, toks, new, True, gen)
+    k3, k4 = k3 + kf[0], k4 + kf[1]
+    report["hymba_serve"] = serve
+    del toks
+    free_card(dev)
+    timing["hymba_serve_float32"] = time.perf_counter() - t0
+
+    # -- Hymba on FAM_MESH_SPLIT: every attention and SSM head split ------
+    params = transformer.build_param_table(cfg).init(
+        gen, device=dev, dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=dev, dtype=torch.int32)
+    split = served_on_mesh("hymba serve8 (heads split)", dev, cfg, params,
+                           mesh5, toks, {}, FAM_MESH_SPLIT_NEW, held=False)
+    del params
+    run = split.pop("_run")
+    k3 += run["prefill_k3"] + sum(run["step_k3"])
+    k4 += run["prefill_k4"]
+    split.pop("_params")
+    split.pop("_want")
+    split["reduced"] = f"new tokens {new} -> {FAM_MESH_SPLIT_NEW}"
+    check(not cuda or split["split_heads"],
+          f"hymba on {FAM_MESH_SPLIT}: the heads do not split")
+    del run
+    free_card(dev)
+    timing["hymba_split_serve"] = time.perf_counter() - t0
+    split["float32"], kf = float32_served_on_mesh(
+        "hymba serve8 (heads split)", dev, cfg, mesh5, toks,
+        FAM_MESH_SPLIT_NEW, False, gen)
+    k3, k4 = k3 + kf[0], k4 + kf[1]
+    report["hymba_split_heads_serve"] = split
+    del toks
+    free_card(dev)
+    timing["hymba_split_serve_float32"] = time.perf_counter() - t0
+
+    # -- Qwen2-VL-7B serve8 on FAM_MESH_VLM_SHAPE ---------------------------
+    cfg = get_arch(FAM_MESH_VLM)
+    meshv, _ = mesh_on(devs, FAM_MESH_VLM_SHAPE)
+    params = transformer.build_param_table(cfg).init(
+        gen, device=dev, dtype=torch.bfloat16)
+    toks, extra = family_inputs(cfg, gen, dev, batch, prompt)
+    # the yardstick computes in float32 over the bf16 weights (each
+    # product casts its weight): a float32 copy would hold 30 GB more
+    vl = served_on_mesh("qwen2-vl serve8", dev, cfg, params, meshv, toks,
+                        extra, new, held=True)
+    del params
+    run = vl.pop("_run")
+    k3 += run["prefill_k3"] + sum(run["step_k3"])
+    vl.pop("_params")
+    vl.pop("_want")
+    vl["reduced"] = None
+    vl["n_vision_tokens"] = cfg.n_vision_tokens
+    vl["mrope_sections"] = list(cfg.mrope_sections)
+    report["vlm_serve"] = vl
+    del run, toks, extra
+    free_card(dev)
+    timing["vlm_serve"] = time.perf_counter() - t0
+    report["timing_s"] = timing
+    report["wall_s"] = time.perf_counter() - t0
+    report["launches"] = {"flash_attention": k3, "ssm_scan": k4}
+    return report, {"flash_attention": k3, "ssm_scan": k4}
 
 
 def main() -> int:
@@ -4532,14 +5217,26 @@ def main() -> int:
     print("lm_train_slice " + json.dumps(train_lm_report), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_report, mesh_k3 = lm_mesh_slice_phase(card, torch.device("cuda"),
-                                               split_devices())
+    # the earlier mesh phases run shorter here than in
+    # `scripts/lm_mesh_slice.py` (each line's "reduced"), so that the
+    # script ends inside its time limit with the families' phase
+    mesh_report, mesh_k3 = lm_mesh_slice_phase(
+        card, torch.device("cuda"), split_devices(), timed=SMOKE_MESH_TIMED,
+        new=SMOKE_MESH_NEW, profile_train=False, layers=SMOKE_MESH_LAYERS)
     print("lm_mesh_slice " + json.dumps(mesh_report), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     moe_mesh_report, moe_mesh_k3 = lm_mesh_moe_slice_phase(
-        card, torch.device("cuda"), split_devices())
+        card, torch.device("cuda"), split_devices(), new=SMOKE_MESH_NEW,
+        profile_train=False, serve_layers=SMOKE_MOE_SERVE_LAYERS)
     print("lm_mesh_moe_slice " + json.dumps(moe_mesh_report), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the tp step's profile is `scripts/lm_mesh_slice.py families`'s
+    fam_mesh_report, fam_mesh_launches = lm_mesh_families_slice_phase(
+        card, torch.device("cuda"), split_devices(), profile_train=False)
+    print("lm_mesh_families_slice " + json.dumps(fam_mesh_report),
+          flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     fams = fam_report["models"]
@@ -4589,11 +5286,12 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:67",
          # the Hymba, Moonlight, Qwen2-VL and Whisper prefills', the
          # Hymba training steps' (forward and recompute) and the Granite
-         # GPipe passes of the split slice
+         # GPipe passes of the split slice, the mesh slices'
          "launches": lm_launches["flash_attention"]
          + moe_launches["flash_attention"] + fam_launches
          + train_lm_launches["flash_attention"]
-         + split_launches["flash_attention"] + mesh_k3 + moe_mesh_k3,
+         + split_launches["flash_attention"] + mesh_k3 + moe_mesh_k3
+         + fam_mesh_launches["flash_attention"],
          "max_abs_err": fr["max_abs_err"], "ms": fr["ms"],
          "plain_ms": fr["plain_ms"], "bound_ms": fr["bound_ms"],
          "bound_by": fr["bound_by"], "library_ms": fr["library_ms"]},
@@ -4601,10 +5299,10 @@ def main() -> int:
         {"name": "ssm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
          "replaces": "src/repro/kernels/ssm_scan.py:49",
-         # the Hymba prefill's, and the training steps' (forward,
-         # recompute and the reverse-time backward)
+         # the Hymba prefill's, the training steps' (forward, recompute
+         # and the reverse-time backward), and the Hymba mesh runs'
          "launches": lm_launches["ssm_scan"]
-         + train_lm_launches["ssm_scan"],
+         + train_lm_launches["ssm_scan"] + fam_mesh_launches["ssm_scan"],
          "max_abs_err": sr["max_abs_err"], "ms": sr["ms"],
          "plain_ms": sr["plain_ms"], "bound_ms": sr["bound_ms"],
          "bound_by": sr["bound_by"], "library_ms": None},

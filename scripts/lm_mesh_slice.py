@@ -1,18 +1,22 @@
 """`chip_smoke.py`'s LM-over-a-mesh phases alone, on the card.
 
-    python3 scripts/lm_mesh_slice.py [dense|moe|all]
+    python3 scripts/lm_mesh_slice.py [dense|moe|families|all]
 
 Builds the kernels, holds K3 at the meshes' per-shard shapes (Granite-3-2B
 on a (2, 2) mesh: 16 query heads and 4 KV heads a shard, 2 rows a
 training micro-batch, 4 a prefill; its context-parallel shards, 512
-queries over 512 and 1024 keys; Moonlight-16B-A3B's shard on (1, 4))
-against its plain version and SDPA, then runs
-`chip_smoke.lm_mesh_slice_phase` (dense: Granite-3-2B, the tp and cp
-presets) and `chip_smoke.lm_mesh_moe_slice_phase` (moe: Moonlight) over
-every card, or card 0 named four times (`chip_smoke.split_devices`).
-Prints the card line, a ``fa [...]`` line and the ``lm_mesh_slice
-{...}`` and ``lm_mesh_moe_slice {...}`` lines; exits 1 when a check
-fails. About 3 minutes of command for each phase on an H100.
+queries over 512 and 1024 keys; Moonlight-16B-A3B's shard on (1, 4);
+Hymba-1.5B's on (2, 2) and (1, 5), Qwen2-VL-7B's on (1, 4)) against its
+plain version and SDPA, and K4 at Hymba's shards against its plain
+version, then runs `chip_smoke.lm_mesh_slice_phase` (dense:
+Granite-3-2B, the tp and cp presets), `chip_smoke.lm_mesh_moe_slice_phase`
+(moe: Moonlight) and `chip_smoke.lm_mesh_families_slice_phase`
+(families: Hymba-1.5B and Qwen2-VL-7B) over every card, or card 0 named
+as many times as a mesh has positions (`chip_smoke.split_devices`).
+Prints the card line, ``fa [...]`` and ``scan [...]`` lines and the
+phases' ``lm_mesh_slice {...}``, ``lm_mesh_moe_slice {...}`` and
+``lm_mesh_families_slice {...}`` lines; exits 1 when a check fails. About
+2-4 minutes of command for each phase on an H100.
 """
 import json
 import sys
@@ -45,8 +49,10 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = cs.flash_attention_phase(
         gen, [r for r in cs.FA_SHAPES if "_mesh_" in r[0]
-              or "_cp_" in r[0]])
+              or "_cp_" in r[0] or "_shard" in r[0]])
     print("fa " + json.dumps(rows), flush=True)
+    print("scan " + json.dumps(cs.ssm_scan_phase(gen, cs.SCAN_SHAPES[3:])),
+          flush=True)
     if which in ("dense", "all"):
         report, _ = cs.lm_mesh_slice_phase(card, torch.device("cuda"),
                                            cs.split_devices())
@@ -55,6 +61,10 @@ def main() -> int:
         report, _ = cs.lm_mesh_moe_slice_phase(card, torch.device("cuda"),
                                                cs.split_devices())
         print("lm_mesh_moe_slice " + json.dumps(report), flush=True)
+    if which in ("families", "all"):
+        report, _ = cs.lm_mesh_families_slice_phase(
+            card, torch.device("cuda"), cs.split_devices())
+        print("lm_mesh_families_slice " + json.dumps(report), flush=True)
     if cs.FAILURES:
         print("lm_mesh_slice: " + "; ".join(cs.FAILURES), file=sys.stderr)
         return 1

@@ -1,5 +1,5 @@
-"""The dense and mixture-of-experts LM families over a (data, model)
-mesh, single-controller.
+"""The dense, mixture-of-experts, hybrid and VLM LM families over a
+(data, model) mesh, single-controller.
 
 No file of the JAX package corresponds to this one: there, GSPMD
 partitions `repro.models.transformer.loss_fn` and
@@ -84,9 +84,41 @@ XLA's lowering of its scatter, not a semantic). The MoE layer's stages
 keep `models.moe.SPANS` (``record_function``), so a profile splits the
 layer as on one card.
 
-The other families (hybrid, RWKV-6, Whisper, the VLM) raise
-`NotImplementedError` on a mesh of more than one position
-(`check_supported`), under every preset.
+The hybrid family (Hymba): every layer runs attention and an SSM head
+bank in parallel on the same normed input. The SSM's heads split as the
+attention's query heads do (`Layout.heads`): model shard r scans the
+heads of its query-head range with K4 (`ops.ssm_scan`, through
+`models.ssm.ssm_heads`), over the whole sequence under every preset (a
+scan takes no block of positions; the reference constrains only
+attention under cp); where the group mapping makes attention compute
+every head, the SSM computes every head too. ``in_proj`` and
+``gate_proj`` are cut on their columns by the shard's heads (Dh columns
+each), ``out_proj`` on its rows, and ``dt_proj``'s columns, ``a_log``
+and ``d_skip`` (stored replicated) locally to the shard's heads;
+``bc_proj`` stays whole, so every shard computes the same B_t and C_t.
+``wo`` and ``out_proj`` are both row-parallel: the two float32 partials
+are stacked and summed over "model" in one all-reduce, each rounded once
+to the compute type, before the fuse ``x + 0.5 (f0 a + f1 s)`` (one
+float32 partial of the fused sum would round otherwise than the unsplit
+step). Under cp the attention's blocks are all-gathered first and then
+fused with the SSM's output computed as under tp. The hybrid cache holds
+per layer its own ring of W_i slots (the window in SWA layers, the whole
+length in global ones), placed by `meshes.cache_shardings` (over "model"
+where W_i divides), and the SSM state (L, B, H, Dh, N) float32, cut by H
+where H divides. Prefill writes position p of each layer in slot
+p % W_i and reshards each layer's state from the shards' heads; a decode
+step finds, per layer, the shard that owns slot ``step % W_i``, and
+reads each shard's state at its heads (resharded where the cache's
+placement differs, as at H=12, KV=3 on m=2) and writes it back.
+
+The VLM family (Qwen2-VL): dense blocks over M-RoPE positions (B, S, 3)
+with the vision embeds in place of the first positions
+(`models.transformer.embed_inputs`); both inputs follow the batch's
+placement, under cp each block takes its slice of the positions, and a
+decode step puts ``step`` on all three position sections.
+
+RWKV-6 and Whisper raise `NotImplementedError` on a mesh of more than
+one position (`check_supported`), under every preset.
 """
 from __future__ import annotations
 
@@ -99,22 +131,22 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.distributed import meshes as M
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import decoding, moe, transformer
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (activation, apply_rope, fdot,
                                        rms_norm, rope_angles)
 
-NOT_PORTED = ("ROADMAP.md queue 1: only the dense and mixture-of-experts "
-              "families run over a mesh of more than one position")
+NOT_PORTED = ("ROADMAP.md queue 1: RWKV-6 and Whisper do not run over a "
+              "mesh of more than one position yet")
 
 
 def supports(cfg: ArchConfig, rules: Optional[Dict[str, Any]] = None
              ) -> bool:
     """Whether this module runs ``cfg`` on a mesh of more than one
-    position: the dense family and the mixture-of-experts family, under
-    every preset ``rules`` (the context-parallel one included)."""
-    family = ((cfg.family == "dense" and not cfg.is_moe)
+    position: the dense, mixture-of-experts, hybrid and VLM families,
+    under every preset ``rules`` (the context-parallel one included)."""
+    family = ((cfg.family in ("dense", "hybrid", "vlm") and not cfg.is_moe)
               or (cfg.family == "moe" and cfg.is_moe))
-    return family and not (cfg.attn_free or cfg.enc_dec
-                           or cfg.n_vision_tokens)
+    return family and not (cfg.attn_free or cfg.enc_dec)
 
 
 def check_supported(cfg: ArchConfig, mesh: M.Mesh,
@@ -182,14 +214,20 @@ def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 # which dim of a per-layer leaf the model axis cuts, and by what range
-# ("q": query heads, "kv": key/value heads, "ff": ff columns, "experts")
+# ("q": query heads' columns, "kv": key/value heads' columns, "h": query
+# heads, one entry each, "ff": ff columns, "experts"); the SSM's heads
+# are the query heads' range
 _SPLIT = {"attn/wq": (1, "q"), "attn/wk": (1, "kv"), "attn/wv": (1, "kv"),
           "attn/wo": (0, "q"), "attn/bq": (0, "q"), "attn/bk": (0, "kv"),
           "attn/bv": (0, "kv"), "mlp/w_gate": (1, "ff"),
           "mlp/w_up": (1, "ff"), "mlp/w_down": (0, "ff"),
           "moe/w_gate": (0, "experts"), "moe/w_up": (0, "experts"),
-          "moe/w_down": (0, "experts")}
-# under context parallelism every shard projects every head
+          "moe/w_down": (0, "experts"),
+          "ssm/in_proj": (1, "q"), "ssm/gate_proj": (1, "q"),
+          "ssm/out_proj": (0, "q"), "ssm/dt_proj": (1, "h"),
+          "ssm/a_log": (0, "h"), "ssm/d_skip": (0, "h")}
+# under context parallelism every shard projects every attention head
+# (the SSM's heads split as under tp)
 _SPLIT_CP = {k: v for k, v in _SPLIT.items() if not k.startswith("attn/")}
 
 
@@ -280,6 +318,8 @@ class Layout:
             return self.r(i) * f, (self.r(i) + 1) * f
         if not self.split_heads:
             return None
+        if kind == "h":
+            return self.heads(i)
         lo, hi = self.heads(i) if kind == "q" else self.kv_heads(i)
         return lo * hd, hi * hd
 
@@ -390,42 +430,75 @@ def _attn_out(cfg, p, nx, positions, is_global):
     return o.reshape(*nx.shape[:2], -1), (k, v)
 
 
+def _row_products(lay: Layout, pairs, spec0, dt: torch.dtype
+                  ) -> List[List[torch.Tensor]]:
+    """Each position's products ``y @ w`` of its list ``pairs[i]`` of (y,
+    w) in ``dt``. Where the heads split they are row-parallel: float32
+    partials (`mm_f32`), stacked and summed over "model" in one
+    `meshes.all_reduce`, each rounded once to ``dt``; else every shard's
+    whole product (`fdot`)."""
+    if not lay.split_heads or not pairs[0]:
+        return [[fdot(y, w) for y, w in ps] for ps in pairs]
+    parts = [torch.stack([mm_f32(y, w) for y, w in ps]) for ps in pairs]
+    x = M.ShardedTensor.from_pieces(M.Placement(lay.mesh, M.P(None, spec0)),
+                                    parts, ("model",))
+    return [list(p.unbind(0)) for p in M.all_reduce(x, "model", dt).pieces]
+
+
 def _block(cfg, lay: Layout, lsrc, xs, positions, ctx: _Ctx, is_global,
            collect: bool):
     """One decoder layer at every position. Returns (the layers' outputs,
-    each position's (k, v) if ``collect``: its KV heads, or every KV head
-    under context parallelism; each position's load-balancing loss of
-    the layer, or None without experts)."""
+    each position's cache entry if ``collect``: its (k, v) of its KV
+    heads, or of every KV head under context parallelism, and for the
+    hybrid family its SSM heads' final state after them; each position's
+    load-balancing loss of the layer, or None without experts)."""
     dt = xs[0].dtype
     w = lay.layer_views(lsrc, dt, ctx.splits)
-    attend = _cp_attention if ctx.cp else _tp_attention
-    outs, kvs = attend(cfg, lay, w, xs, positions, ctx.spec0, is_global,
-                       collect)
-    outs, aux = _ffn_all(cfg, lay, w, outs, ctx, dt)
+    hybrid = cfg.family == "hybrid"
+    nxs = None
+    if ctx.cp:
+        attn, kvs = _cp_attention(cfg, lay, w, xs, positions, ctx.spec0,
+                                  is_global, collect)
+        pairs = [[] for _ in xs]
+    else:
+        nxs = [rms_norm(x, w[i]["norm1"], cfg.norm_eps)
+               for i, x in enumerate(xs)]
+        os, kvs = _tp_attention(cfg, w, nxs, positions, is_global, collect)
+        pairs = [[(o, w[i]["attn"]["wo"])] for i, o in enumerate(os)]
+    if hybrid:
+        if nxs is None:
+            nxs = [rms_norm(x, w[i]["norm1"], cfg.norm_eps)
+                   for i, x in enumerate(xs)]
+        for i, nx in enumerate(nxs):
+            y, state = ssm_lib.ssm_heads(cfg, w[i]["ssm"], nx)
+            pairs[i].append((y, w[i]["ssm"]["out_proj"]))
+            if collect:
+                kvs[i] = tuple(kvs[i]) + (state,)
+    outs = _row_products(lay, pairs, ctx.spec0, dt)
+    if ctx.cp:
+        outs = [[a] + o for a, o in zip(attn, outs)]
+    if hybrid:
+        xs = [x + 0.5 * (w[i]["fuse_scale"][0] * o[0]
+                         + w[i]["fuse_scale"][1] * o[1])
+              for i, (x, o) in enumerate(zip(xs, outs))]
+    else:
+        xs = [x + o[0] for x, o in zip(xs, outs)]
+    outs, aux = _ffn_all(cfg, lay, w, xs, ctx, dt)
     return outs, kvs, aux
 
 
-def _tp_attention(cfg, lay: Layout, w, xs, positions, spec0, is_global,
-                  collect: bool):
-    """Attention at every position, each shard at its own heads; ``wo``
-    row-parallel where the heads split. Returns (the residual outputs,
-    each position's (k, v) of its KV heads if ``collect``)."""
-    dt = xs[0].dtype
-    kvs = []
-    parts, outs = [], []
-    for i, x in enumerate(xs):
-        nx = rms_norm(x, w[i]["norm1"], cfg.norm_eps)
+def _tp_attention(cfg, w, nxs, positions, is_global, collect: bool):
+    """Attention at every position on its normed input ``nxs[i]``, each
+    shard at its own heads. Returns (each position's output (B, S, h·D)
+    of its heads, before ``wo``; each position's (k, v) of its KV heads if
+    ``collect``)."""
+    kvs, os = [], []
+    for i, nx in enumerate(nxs):
         o, kv = _attn_out(cfg, w[i]["attn"], nx, positions[i], is_global)
+        os.append(o)
         if collect:
             kvs.append(kv)
-        if lay.split_heads:
-            parts.append(mm_f32(o, w[i]["attn"]["wo"]))
-        else:
-            outs.append(x + fdot(o, w[i]["attn"]["wo"]))
-    if lay.split_heads:
-        outs = [x + a for x, a in zip(xs, _row_parallel(lay, parts, spec0,
-                                                          dt))]
-    return outs, kvs
+    return os, kvs
 
 
 def _cp_attention(cfg, lay: Layout, w, xs, positions, spec0, is_global,
@@ -434,8 +507,9 @@ def _cp_attention(cfg, lay: Layout, w, xs, positions, spec0, is_global,
     shard r projects its block of S/m positions with every head, the
     blocks' K and V are all-gathered over "model", K3 takes the block's
     queries over the keys up to the block's end, and ``wo``'s block
-    outputs are all-gathered over "model". Returns (the residual outputs,
-    each position's whole (k, v), every KV head, if ``collect``)."""
+    outputs are all-gathered over "model". Returns (each position's
+    attention output (B, S, d), after ``wo``; each position's whole (k,
+    v), every KV head, if ``collect``)."""
     hd = cfg.resolved_head_dim
     blk = xs[0].shape[1] // lay.m
     qs, ks, vs = [], [], []
@@ -465,8 +539,7 @@ def _cp_attention(cfg, lay: Layout, w, xs, positions, spec0, is_global,
                                is_global=is_global)
         blocks.append(fdot(o.reshape(q.shape[0], blk, -1),
                            w[i]["attn"]["wo"]))
-    outs = [x + a for x, a in zip(xs, gathered(blocks))]
-    return outs, (list(zip(k_all, v_all)) if collect else [])
+    return gathered(blocks), (list(zip(k_all, v_all)) if collect else [])
 
 
 def _over_rows(lay: Layout, vals: List[torch.Tensor],
@@ -555,22 +628,36 @@ def _mlp_all(cfg, lay: Layout, w, xs, spec0, dt):
     return res
 
 
-def run_blocks(cfg: ArchConfig, lay: Layout, src, tokens: M.ShardedTensor,
+def run_blocks(cfg: ArchConfig, lay: Layout, src, batch,
                remat: bool = False, collect: bool = False):
     """Embed, every layer and the final norm at every position. ``src``
     is the placed parameter tree (any placement, any type: `Layout.view`
-    casts to the compute type). Returns (each position's hidden (B_i, S,
-    d), each layer's per-position (k, v) if ``collect``, each position's
+    casts to the compute type); ``batch`` the placed tokens (B, S), or a
+    dict of the placed inputs ("tokens"; the VLM's "vision_embeds" (B,
+    n_vision, d), spliced in place of the first positions, and
+    "positions" (B, S, 3), else 0..S-1), rows over the batch axes.
+    Returns (each position's hidden (B_i, S, d), each layer's
+    per-position cache entries if ``collect``, each position's
     load-balancing loss summed over the layers or None without
     experts)."""
+    if M.is_placed(batch):
+        batch = {"tokens": batch}
+    tokens = batch["tokens"]
     dt = getattr(torch, cfg.dtype)
     ctx = lay.ctx(tokens)
     tables = lay.view(src["embed"]["tokens"], dt)
+    vision = batch.get("vision_embeds") if cfg.n_vision_tokens else None
+    given = batch.get("positions")
     xs, positions = [], []
     for i, tok in enumerate(tokens.pieces):
-        xs.append(tables[i][tok.long()])
+        x = tables[i][tok.long()]
+        if vision is not None:
+            ve = vision.pieces[i]
+            x[:, :ve.shape[1]] = ve.to(x.dtype)
+        xs.append(x)
         B, S = tok.shape
-        positions.append(torch.arange(S, dtype=torch.int32,
+        positions.append(given.pieces[i] if given is not None else
+                         torch.arange(S, dtype=torch.int32,
                                       device=tok.device).expand(B, S))
     kv_layers, aux = [], None
     for li, lsrc in enumerate(layer_sources(src["blocks"])):
@@ -608,7 +695,8 @@ def loss_fn(cfg: ArchConfig, mesh: M.Mesh, src, batch: Dict[str, Any],
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """`models.transformer.loss_fn` over ``mesh`` (``cp``: the context-
     parallel preset): ``src`` the placed parameters, ``batch`` {"tokens",
-    "labels"} placed with their rows over the batch axes. Returns (total,
+    "labels"} (and the VLM's inputs, `run_blocks`) placed with their rows
+    over the batch axes. Returns (total,
     {"loss", "moe_aux"}) on the mesh's first device: the NLL summed over
     every position and divided by the global count of labels >= 0, plus
     `transformer.MOE_AUX_WEIGHT` x the load-balancing loss of the whole
@@ -622,7 +710,7 @@ def loss_fn(cfg: ArchConfig, mesh: M.Mesh, src, batch: Dict[str, Any],
                 raise ValueError(
                     f"a training batch of {tokens.shape[0]} rows does not "
                     f"split over the mesh's {c!r} axis ({mesh.shape[c]})")
-    hidden, _, aux = run_blocks(cfg, lay, src, tokens,
+    hidden, _, aux = run_blocks(cfg, lay, src, batch,
                                 remat=cfg.remat and torch.is_grad_enabled())
     dt = hidden[0].dtype
     heads = _head(cfg, lay, src, dt)
@@ -659,65 +747,118 @@ def loss_fn(cfg: ArchConfig, mesh: M.Mesh, src, batch: Dict[str, Any],
 # serving
 # --------------------------------------------------------------------------
 
-def _cache_slots(lay: Layout, spec, W: int, i: int) -> Tuple[int, int]:
-    """The slots of a cache placed by ``spec`` ((L, B, W, KV, D)) that
-    position i holds."""
-    spec = M.P(None, None, *list(spec)[2:3])
-    return M.block_of(lay.mesh, spec, (1, 1, W), lay.coords[i])[2]
+def meta_tree(spec):
+    """A cache spec's tree of (shape, dtype) as meta tensors."""
+    if isinstance(spec, dict):
+        return {k: meta_tree(v) for k, v in spec.items()}
+    if isinstance(spec, list):
+        return [meta_tree(v) for v in spec]
+    shp, dt = spec
+    return torch.empty(shp, dtype=dt, device="meta")
 
 
-def prefill(cfg: ArchConfig, mesh: M.Mesh, src, tokens: M.ShardedTensor,
-            max_len: int = 0, cp: bool = False):
+def prefill(cfg: ArchConfig, mesh: M.Mesh, src, batch, max_len: int = 0,
+            cp: bool = False):
     """`models.decoding.prefill` over ``mesh`` (``cp``: the context-
-    parallel preset): returns (last logits (B, V) placed with their rows
-    over the batch axes, the bf16 cache of ``max(max_len, S)`` slots
-    placed by `meshes.cache_shardings`). Every shard computes its heads
-    (K3 at its head slice), or under cp its block of positions (K3 at its
-    block's queries), and the cache takes each model shard's block of the
-    sequence, all KV heads (`quantize_cache` makes the int8 one)."""
+    parallel preset): ``batch`` the placed tokens (B, S) or a dict of the
+    placed inputs (`run_blocks`); returns (last logits (B, V) placed with
+    their rows over the batch axes, the bf16 cache of ``max(max_len, S)``
+    slots placed by `meshes.cache_shardings`). Every shard computes its
+    heads (K3 at its head slice; the hybrid family's SSM heads on K4), or
+    under cp its block of positions (K3 at its block's queries), and the
+    cache takes each model shard's block of the slots, all KV heads
+    (`quantize_cache` makes the int8 one)."""
     check_supported(cfg, mesh)
+    if M.is_placed(batch):
+        batch = {"tokens": batch}
+    tokens = batch["tokens"]
     lay = Layout(cfg, mesh, cp)
     with torch.no_grad():
-        hidden, kv_layers, _ = run_blocks(cfg, lay, src, tokens,
+        hidden, kv_layers, _ = run_blocks(cfg, lay, src, batch,
                                           collect=True)
         dt = hidden[0].dtype
         heads = _head(cfg, lay, src, dt)
         logits = [fdot(h[:, -1], w.to(dt)) for h, w in zip(hidden, heads)]
     B, S = tokens.shape
-    W = decoding._cache_width(cfg, max(max_len, S))
-    L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    max_len = max(max_len, S)
     # the KV heads each shard collected: its own, or under cp all of them
+    KV = cfg.n_kv_heads
     kv_ranges = (lambda j: (0, KV)) if lay.cp_on(S) else lay.kv_heads
-    spec = decoding.cache_spec(cfg, ShapeConfig("prefill", W, B, "prefill"))
-    pls = M.cache_shardings(mesh, {k: torch.empty(s, device="meta")
-                                   for k, (s, _d) in spec.items()})
-    kspec = pls["k"].spec
-    pieces: Dict[str, List[torch.Tensor]] = {k: [] for k in spec}
+    spec = decoding.cache_spec(cfg, ShapeConfig("prefill", max_len, B,
+                                                "prefill"))
+    pls = M.cache_shardings(mesh, meta_tree(spec))
+    if cfg.family == "hybrid":
+        layers = [_ring(lay, tokens, [kvs], lspec, lpls, kv_ranges)
+                  for kvs, lspec, lpls in zip(kv_layers, spec["layers"],
+                                              pls["layers"])]
+        cache = {"layers": layers,
+                 "ssm": _ssm_states(lay, tokens, kv_layers, spec["ssm"][0],
+                                    pls["ssm"])}
+    else:
+        cache = _ring(lay, tokens, kv_layers, spec, pls, kv_ranges)
+    lpl = M.data_sharding(mesh, B, 2)
+    out = _by_rows(lay, logits, tokens, lpl, (B, logits[0].shape[-1]))
+    return out, cache
+
+
+def _ring(lay: Layout, tokens: M.ShardedTensor, kv_layers, spec, pls,
+          kv_ranges) -> Dict[str, M.ShardedTensor]:
+    """The ring of slots {"k", "v", "pos"} of the layers ``kv_layers``
+    (each layer's per-position cache entries) placed by ``pls``: stacked
+    (L, B, W, KV, D), or one hybrid layer's (B, W_i, KV, D). Each position
+    takes its rows and its block of the slots, every KV head, the
+    prompt's position p in slot p % W (`_slots`)."""
+    mesh = lay.mesh
+    kshape = spec["k"][0]
+    stacked = len(kshape) == 5
+    bdim, sdim = (1, 2) if stacked else (0, 1)
+    W, S = kshape[sdim], tokens.shape[1]
+    pieces: Dict[str, List[torch.Tensor]] = {k: [] for k in ("k", "v",
+                                                            "pos")}
     for i in range(lay.n):
-        b0, b1 = M.block_of(mesh, kspec, (L, B, W, KV, D),
-                            lay.coords[i])[1]
-        s0, s1 = _cache_slots(lay, kspec, W, i)
+        blk = M.block_of(mesh, pls["k"].spec, kshape, lay.coords[i])
+        (b0, b1), (s0, s1) = blk[bdim], blk[sdim]
         # the rows of position i: the same rows on every model shard
         src_rows = _row_owner(lay, tokens, i, b0, b1)
         pos = torch.arange(S, dtype=torch.int32,
                            device=lay.devs[i]).expand(b1 - b0, S)
         # one layer at a time: only the position's slots outlive the loop
         ks, vs = [], []
-        for li in range(L):
-            k, v = _whole_kv(lay, kv_layers[li], src_rows, lay.devs[i],
-                             kv_ranges)
+        for kvs in kv_layers:
+            k, v = _whole_kv(lay, kvs, src_rows, lay.devs[i], kv_ranges)
             k, v, p = _slots(k[None].to(torch.bfloat16),
                              v[None].to(torch.bfloat16), pos, W, s0, s1)
             ks.append(k[0])
             vs.append(v[0])
-        parts = {"k": torch.stack(ks), "v": torch.stack(vs), "pos": p}
-        for name in spec:
+        parts = {"k": torch.stack(ks) if stacked else ks[0],
+                 "v": torch.stack(vs) if stacked else vs[0], "pos": p}
+        for name in pieces:
             pieces[name].append(parts[name].contiguous())
-    cache = {name: M.ShardedTensor(pls[name], spec[name][0], pieces[name])
-             for name in spec}
-    lpl = M.data_sharding(mesh, B, 2)
-    out = _by_rows(lay, logits, tokens, lpl, (B, logits[0].shape[-1]))
-    return out, cache
+    return {name: M.ShardedTensor(pls[name], spec[name][0], pieces[name])
+            for name in pieces}
+
+
+def _state_placement(lay: Layout, rows) -> M.Placement:
+    """The placement of one layer's SSM states (B, H, Dh, N) as the shards
+    compute them: rows by ``rows`` (a batch dim's spec entry), heads
+    over "model" where they split (`Layout.heads`), else whole."""
+    return M.Placement(lay.mesh, M.P(rows,
+                                     "model" if lay.split_heads else None))
+
+
+def _ssm_states(lay: Layout, tokens: M.ShardedTensor, kv_layers, shape,
+                pl: M.Placement) -> M.ShardedTensor:
+    """The prefill's SSM state (L, B, H, Dh, N) placed by ``pl``: each
+    layer's final states of the shards' heads (the last of each cache
+    entry) resharded onto the cache's placement of that layer."""
+    rows = tokens.spec[0] if len(tokens.spec) else None
+    want = M.Placement(lay.mesh, M.P(*list(pl.spec)[1:]))
+    per_layer = [M.reshard(M.ShardedTensor(
+        _state_placement(lay, rows), shape[1:], [e[-1] for e in kvs]),
+        want).pieces for kvs in kv_layers]
+    return M.ShardedTensor(pl, shape, [
+        torch.stack([pieces[i] for pieces in per_layer]).contiguous()
+        for i in range(lay.n)])
 
 
 def quantize_cache(cfg: ArchConfig, cache: Dict[str, M.ShardedTensor]
@@ -725,7 +866,9 @@ def quantize_cache(cfg: ArchConfig, cache: Dict[str, M.ShardedTensor]
     """A placed bf16 cache (a prefill's) as the int8 cache of the kv8 and
     serve8 presets: every piece through `decoding.quantize_cache` (a piece
     holds whole (KV, D) rows, so the scales are the unsplit cache's); the
-    scales placed as k and v."""
+    scales placed as k and v. The hybrid cache has no int8 form
+    (`decoding.quantize_cache` raises alike)."""
+    decoding._check_int8(cfg, True)
     out = dict(cache)
     for name in ("k", "v"):
         x = cache[name]
@@ -823,107 +966,186 @@ def _by_rows(lay: Layout, per_pos: List[torch.Tensor], rows_of,
 def decode_step(cfg: ArchConfig, mesh: M.Mesh, src, cache: Dict[str, Any],
                 tokens: M.ShardedTensor, step: int):
     """`models.decoding.decode_step` over ``mesh``: ``cache`` placed by
-    `meshes.cache_shardings` (bf16, or int8 with its scales) is updated
-    in place; returns (logits (B, 1, V) placed with their rows over the
-    batch axes, the cache).
+    `meshes.cache_shardings` (bf16, or int8 with its scales; the hybrid
+    family's per-layer rings and SSM state) is updated in place; returns
+    (logits (B, 1, V) placed with their rows over the batch axes, the
+    cache).
 
     Each model shard projects its own query heads and their KV heads, as
     training does. The queries are gathered whole across "model" (every
     shard attends over its slots with every head); the new token's KV
-    heads only onto the shard that owns slot ``step % W``. The merged
-    attention's own heads go through the shard's rows of ``wo``
-    (row-parallel, float32 partials summed across "model"). A decode step
-    never runs context-parallel; the experts run as in `_moe_all`, over
-    the batch's B tokens."""
+    heads only onto the shard that owns slot ``step % W`` (per layer in
+    the hybrid cache, whose W_i differ). The merged attention's own heads
+    go through the shard's rows of ``wo`` (row-parallel, float32 partials
+    summed across "model"), and the hybrid family's SSM heads one step
+    through ``out_proj`` beside it (`_row_products`). A decode step never
+    runs context-parallel; the experts run as in `_moe_all`, over the
+    batch's B tokens."""
     check_supported(cfg, mesh)
     lay = Layout(cfg, mesh)
     ctx = lay.ctx(tokens)
     step = int(step)
     dt = getattr(torch, cfg.dtype)
     hd = cfg.resolved_head_dim
-    kspec = cache["k"].spec
-    W = cache["k"].shape[2]
-    int8 = cache["k"].dtype == torch.int8
-    slot = step % W
-    window = cfg.swa_window if cfg.swa_window else 0
-    B = tokens.shape[0]
+    hybrid = cfg.family == "hybrid"
     with torch.no_grad():
         tables = lay.view(src["embed"]["tokens"], dt)
         xs = [tables[i][tok.long()] for i, tok in enumerate(tokens.pieces)]
         for li, lsrc in enumerate(layer_sources(src["blocks"])):
             w = lay.layer_views(lsrc, dt)
-            qs, ks, vs = [], [], []
+            nxs, qs, ks, vs = [], [], [], []
             for i, x in enumerate(xs):
                 nx = rms_norm(x, w[i]["norm1"], cfg.norm_eps)
                 q, k, v = _project(cfg, w[i]["attn"], nx)
                 if cfg.rope_theta:
                     pos = torch.full((nx.shape[0], 1), step,
                                      dtype=torch.int32, device=nx.device)
+                    if cfg.mrope_sections:    # step on all three sections
+                        pos = pos[..., None].expand(nx.shape[0], 1, 3)
                     ang = rope_angles(pos, hd, cfg.rope_theta,
                                       cfg.mrope_sections)
                     q, k = apply_rope(q, ang), apply_rope(k, ang)
+                nxs.append(nx)
                 qs.append(q)
                 ks.append(k)
                 vs.append(v)
-            outs, ms, ls = [], [], []
-            for i in range(lay.n):
-                q = qs[i]
-                if lay.split_heads:
-                    q = _heads_whole(lay, qs, lay.heads, lay.group[i],
-                                     lay.devs[i])
-                s0, s1 = _cache_slots(lay, kspec, W, i)
-                ck, cv = cache["k"].pieces[i][li], cache["v"].pieces[i][li]
-                cpos = cache["pos"].pieces[i]
-                if s0 <= slot < s1:
-                    local = slot - s0
-                    k, v = ks[i], vs[i]
-                    if lay.split_heads:
-                        k = _heads_whole(lay, ks, lay.kv_heads, lay.group[i],
-                                         lay.devs[i])
-                        v = _heads_whole(lay, vs, lay.kv_heads, lay.group[i],
-                                         lay.devs[i])
-                    if int8:
-                        (kq, ksc), (vq, vsc) = (decoding._quantize_kv(k),
-                                                decoding._quantize_kv(v))
-                        ck[:, local] = kq[:, 0]
-                        cv[:, local] = vq[:, 0]
-                        cache["k_scale"].pieces[i][li][:, local] = ksc[:, 0]
-                        cache["v_scale"].pieces[i][li][:, local] = vsc[:, 0]
-                    else:
-                        ck[:, local] = k[:, 0].to(ck.dtype)
-                        cv[:, local] = v[:, 0].to(cv.dtype)
-                    if li == 0:
-                        cpos[:, local] = step
-                if int8:
-                    ck = decoding._dequantize_kv(
-                        ck, cache["k_scale"].pieces[i][li])
-                    cv = decoding._dequantize_kv(
-                        cv, cache["v_scale"].pieces[i][li])
-                o, mx, sm = _partial_attention(q, ck, cv, cpos, window,
-                                               step)
-                outs.append(o)
-                ms.append(mx)
-                ls.append(sm)
-            merged = _merge(lay, kspec, outs, ms, ls)
-            parts, new = [], []
+            if hybrid:
+                ring = _LayerRing.of(cache["layers"][li], None)
+                window = (0 if transformer.is_global_layer(cfg, li)
+                          else cfg.swa_window)
+            else:
+                ring = _LayerRing.of(cache, li)
+                window = cfg.swa_window or 0
+            merged = _cached_attention(lay, ring, qs, ks, vs, step, window,
+                                       write_pos=hybrid or li == 0)
+            pairs = []
             for i, x in enumerate(xs):
                 lo, hi = lay.heads(i)
                 o = merged[i][:, lo:hi].to(dt).reshape(x.shape[0], 1, -1)
-                if lay.split_heads:
-                    parts.append(mm_f32(o, w[i]["attn"]["wo"]))
-                else:
-                    new.append(x + o @ w[i]["attn"]["wo"])
-            if lay.split_heads:
-                new = [x + a for x, a in zip(
-                    xs, _row_parallel(lay, parts, ctx.spec0, dt))]
+                pairs.append([(o, w[i]["attn"]["wo"])])
+            if hybrid:
+                for i, y in enumerate(_ssm_decode(cfg, lay, w, nxs,
+                                                  cache["ssm"], li)):
+                    pairs[i].append((y, w[i]["ssm"]["out_proj"]))
+            outs = _row_products(lay, pairs, ctx.spec0, dt)
+            if hybrid:
+                new = [x + 0.5 * (w[i]["fuse_scale"][0] * o[0]
+                                  + w[i]["fuse_scale"][1] * o[1])
+                       for i, (x, o) in enumerate(zip(xs, outs))]
+            else:
+                new = [x + o[0] for x, o in zip(xs, outs)]
             xs, _ = _ffn_all(cfg, lay, w, new, ctx, dt)
         norms = lay.view(src["final_norm"], dt)
         heads = _head(cfg, lay, src, dt)
         logits = [rms_norm(x, g, cfg.norm_eps) @ h.to(dt)
                   for x, g, h in zip(xs, norms, heads)]
+    B = tokens.shape[0]
     lpl = M.data_sharding(mesh, B, 3)
     return _by_rows(lay, logits, tokens, lpl,
                     (B, 1, logits[0].shape[-1])), cache
+
+
+class _LayerRing(NamedTuple):
+    """One layer's ring of slots in a placed cache, as every position's
+    pieces: k and v (B_i, W_i', KV, D) (int8 with ``scales``, each
+    position's (k_scale, v_scale) pieces, else None), positions (B_i,
+    W_i'); ``slots[i]`` the range of the W slots position i holds;
+    ``split`` whether the slots are cut over "model"."""
+    k: List[torch.Tensor]
+    v: List[torch.Tensor]
+    pos: List[torch.Tensor]
+    scales: Optional[List[Tuple[torch.Tensor, torch.Tensor]]]
+    slots: List[Tuple[int, int]]
+    W: int
+    split: bool
+
+    @classmethod
+    def of(cls, cache: Dict[str, M.ShardedTensor], li: Optional[int]):
+        """Layer ``li`` of a stacked cache (L, B, W, KV, D), or the hybrid
+        layer ``cache`` (B, W_i, KV, D) with ``li`` None."""
+        k = cache["k"]
+        sdim = 1 if li is None else 2
+        spec = list(k.spec) + [None] * (k.ndim - len(k.spec))
+
+        def at(x):
+            return [p if li is None else p[li] for p in x.pieces]
+        coords = M.positions(k.mesh)
+        slots = [M.block_of(k.mesh, k.spec, tuple(k.shape), c)[sdim]
+                 for c in coords]
+        scales = (list(zip(at(cache["k_scale"]), at(cache["v_scale"])))
+                  if k.dtype == torch.int8 else None)
+        return cls(at(k), at(cache["v"]), list(cache["pos"].pieces), scales,
+                   slots, k.shape[sdim], spec[sdim] == "model")
+
+
+def _cached_attention(lay: Layout, ring: _LayerRing, qs, ks, vs, step: int,
+                      window: int, write_pos: bool) -> List[torch.Tensor]:
+    """A decode step's attention over one layer's ``ring`` at every
+    position: the new token's KV heads (each position's ``ks``/``vs`` of
+    its KV heads) written into slot ``step % W`` by the position that
+    holds it (with ``write_pos`` its position too), each position's
+    partial attention of every head over its slots, merged across
+    "model" (`_merge`). Returns each position's (B_i, H, D) float32."""
+    slot = step % ring.W
+    outs, ms, ls = [], [], []
+    for i in range(lay.n):
+        q = qs[i]
+        if lay.split_heads:
+            q = _heads_whole(lay, qs, lay.heads, lay.group[i], lay.devs[i])
+        s0, s1 = ring.slots[i]
+        ck, cv, cpos = ring.k[i], ring.v[i], ring.pos[i]
+        if s0 <= slot < s1:
+            local = slot - s0
+            k, v = ks[i], vs[i]
+            if lay.split_heads:
+                k = _heads_whole(lay, ks, lay.kv_heads, lay.group[i],
+                                 lay.devs[i])
+                v = _heads_whole(lay, vs, lay.kv_heads, lay.group[i],
+                                 lay.devs[i])
+            if ring.scales is not None:
+                (kq, ksc), (vq, vsc) = (decoding._quantize_kv(k),
+                                        decoding._quantize_kv(v))
+                ck[:, local] = kq[:, 0]
+                cv[:, local] = vq[:, 0]
+                ring.scales[i][0][:, local] = ksc[:, 0]
+                ring.scales[i][1][:, local] = vsc[:, 0]
+            else:
+                ck[:, local] = k[:, 0].to(ck.dtype)
+                cv[:, local] = v[:, 0].to(cv.dtype)
+            if write_pos:
+                cpos[:, local] = step
+        if ring.scales is not None:
+            ck = decoding._dequantize_kv(ck, ring.scales[i][0])
+            cv = decoding._dequantize_kv(cv, ring.scales[i][1])
+        o, mx, sm = _partial_attention(q, ck, cv, cpos, window, step)
+        outs.append(o)
+        ms.append(mx)
+        ls.append(sm)
+    return _merge(lay, ring.split, outs, ms, ls)
+
+
+def _ssm_decode(cfg, lay: Layout, w, nxs, ssm: M.ShardedTensor,
+                li: int) -> List[torch.Tensor]:
+    """One step of every position's SSM heads (`Layout.heads`) on its
+    normed input ``nxs[i]``: layer ``li``'s state read from the placed
+    cache ``ssm`` (L, B, H, Dh, N), resharded where the cache's heads are
+    not the shard's (every head computed, the cache cut by H), and the
+    new state written back into each position's block in place. Returns
+    each position's gated y (B_i, 1, h·Dh)."""
+    spec = list(ssm.spec) + [None] * (ssm.ndim - len(ssm.spec))
+    stored = M.Placement(lay.mesh, M.P(*spec[1:]))
+    layer = M.ShardedTensor(stored, ssm.shape[1:],
+                            [p[li] for p in ssm.pieces])
+    states = M.reshard(layer, _state_placement(lay, spec[1])).pieces
+    ys = []
+    for i, nx in enumerate(nxs):
+        y, st = ssm_lib.ssm_decode_heads(cfg, w[i]["ssm"], nx, states[i])
+        ys.append(y)
+        h0, h1 = M.block_of(lay.mesh, stored.spec, tuple(layer.shape),
+                            lay.coords[i])[1]
+        c0 = lay.heads(i)[0]
+        layer.pieces[i].copy_(st[:, h0 - c0:h1 - c0])
+    return ys
 
 
 def _partial_attention(q, ck, cv, cpos, window: int, step: int):
@@ -947,11 +1169,11 @@ def _partial_attention(q, ck, cv, cpos, window: int, step: int):
     return o, mx, p.sum(dim=-1)
 
 
-def _merge(lay: Layout, kspec, outs, ms, ls) -> List[torch.Tensor]:
+def _merge(lay: Layout, split: bool, outs, ms, ls) -> List[torch.Tensor]:
     """Merge the shards' partial attentions across "model" by log-sum-
     exp, float32 in mesh order; every position gets its group's result
-    (B, H, D). A cache whose slots are not split needs no merge."""
-    split = len(kspec) > 2 and kspec[2] == "model"
+    (B, H, D). A cache whose slots are not ``split`` needs no merge: each
+    shard attended over every slot."""
     if not split:
         return [(o / l[..., None]).reshape(o.shape[0], -1, o.shape[-1])
                 for o, l in zip(outs, ls)]

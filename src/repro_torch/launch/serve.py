@@ -33,8 +33,9 @@ rows take expert capacity).
     PYTHONPATH=src python -m repro_torch.launch.serve --demo lm \
         --arch moonshot-v1-16b-a3b [--device cpu]
 
-The engine serves one device; splitting the config axis over several
-cards is not ported yet.
+A tenant's engine splits each chunk's configs over the devices of its
+config's ``eval_devices`` (`core.pipeline.stage_engine`), as
+`run_staged`'s does; its responses equal a one-device tenant's.
 """
 from __future__ import annotations
 

@@ -8,10 +8,10 @@ live (one card, or the CPU). `plan` returns the reference's
 mesh: its placements are the reference's `PartitionSpec`s
 (`distributed.meshes.param_shardings`, `cache_shardings`,
 `data_sharding`) and its steps take and return `ShardedTensor`s placed
-by them, run over the mesh by `distributed.spmd` (the dense and
-mixture-of-experts families, under every preset, the context-parallel
-one included; the other families raise on a mesh of more than one
-position and run unchanged on a mesh of one).
+by them, run over the mesh by `distributed.spmd` (the dense, mixture-
+of-experts, hybrid and VLM families, under every preset, the
+context-parallel one included; RWKV-6 and Whisper raise on a mesh of
+more than one position and run unchanged on a mesh of one).
 """
 from __future__ import annotations
 
@@ -311,15 +311,6 @@ def serve_param_specs(cfg: ArchConfig):
     return table, table.shapes(torch.bfloat16)
 
 
-def _meta_tree(spec):
-    if isinstance(spec, dict):
-        return {k: _meta_tree(v) for k, v in spec.items()}
-    if isinstance(spec, list):
-        return [_meta_tree(v) for v in spec]
-    shp, dt = spec
-    return torch.empty(shp, dtype=dt, device="meta")
-
-
 def _placed_step(cfg, mesh: M.Mesh, fn_mesh, fn_one, out_pl, cp: bool):
     """A serving step over ``mesh``: `spmd`'s for the families it runs
     (`spmd.supports`); on a mesh of one position, any other family's
@@ -384,18 +375,18 @@ def plan(cfg: ArchConfig, shape: ShapeConfig, mesh: M.Mesh,
                             head_dim=hd)
     # the hybrid and RWKV caches have no int8 form: the reference's
     # cache_spec ignores the flag for them
-    int8 = bool(rules.get("kv_int8")) and not (cfg.attn_free
-                                               or cfg.family == "hybrid")
+    int8 = bool(rules.get("kv_int8")) and decoding.has_int8_cache(cfg)
     if shape.kind == "prefill":
         # a prefill returns a bf16 cache under every preset, as the
         # reference's does (`spmd.quantize_cache` makes the int8 one)
-        cspec = _meta_tree(decoding.cache_spec(cfg, shape))
+        cspec = spmd.meta_tree(decoding.cache_spec(cfg, shape))
         csh = M.cache_shardings(mesh, cspec)
         logits_sh = M.data_sharding(mesh, shape.global_batch, 2)
 
         def prefill_mesh(params, batch):
+            # the tokens and, for the VLM, its vision embeds and positions
             batch = place_batch(mesh, cfg, shape, batch)
-            return spmd.prefill(cfg, mesh, params, batch["tokens"], cp=cp)
+            return spmd.prefill(cfg, mesh, params, batch, cp=cp)
 
         def prefill_one(params, batch):
             return decoding.prefill(cfg, params, batch)
@@ -403,7 +394,7 @@ def plan(cfg: ArchConfig, shape: ShapeConfig, mesh: M.Mesh,
                                (logits_sh, csh), cp)
         return (step_fn, (pshapes, specs), (psh, bsh), (logits_sh, csh), ())
 
-    cspec = _meta_tree(decoding.cache_spec(cfg, shape, kv_int8=int8))
+    cspec = spmd.meta_tree(decoding.cache_spec(cfg, shape, kv_int8=int8))
     csh = M.cache_shardings(mesh, cspec)
     tok = ((shape.global_batch, 1), torch.int32)
     tok_sh = M.data_sharding(mesh, shape.global_batch, 2)

@@ -15,7 +15,8 @@ its
 ``tuple(mesh.shape.items())``. On a mesh of one position the state is
 plain tensors on that device; on a larger mesh it is placed by the
 storage rules (`meshes.param_shardings`), the step runs over the mesh
-(`steps.make_train_step(grad_shardings=...)`, the dense family only),
+(`steps.make_train_step(grad_shardings=...)`; the families that
+`distributed.spmd.supports`),
 and checkpoints hold whole logical arrays, so a restart may come back
 on another mesh (the reference's elastic restart) and continue from the
 checkpoint. Without ``--device`` it runs on the card and raises on a
@@ -61,8 +62,8 @@ def state_shardings(cfg, mesh: M.Mesh, rules=None):
 def default_mesh(cfg, device: DeviceLike = None) -> M.Mesh:
     """The mesh `train` runs on when it is given none: `make_mesh_for`
     over every local device of ``device``'s type where `distributed.spmd`
-    runs ``cfg`` over a mesh (`spmd.supports`: the dense and mixture-of-
-    experts families); else, and whenever ``device`` names one device by
+    runs ``cfg`` over a mesh (`spmd.supports`: the dense, mixture-of-
+    experts, hybrid and VLM families); else, and whenever ``device`` names one device by
     its index (``cuda:3``), a mesh of one position on ``device``."""
     dev = device_lib.resolve(device)
     local = device_lib.local_devices(dev.type)

@@ -51,8 +51,14 @@ def _cache_width(cfg: ArchConfig, seq_len: int) -> int:
     return seq_len
 
 
+def has_int8_cache(cfg: ArchConfig) -> bool:
+    """Whether ``cfg``'s cache has an int8 form: the stacked families'
+    has, the hybrid's and RWKV's have not."""
+    return not (cfg.attn_free or cfg.family == "hybrid")
+
+
 def _check_int8(cfg: ArchConfig, kv_int8: bool) -> None:
-    if kv_int8 and (cfg.attn_free or cfg.family == "hybrid"):
+    if kv_int8 and not has_int8_cache(cfg):
         raise ValueError(f"{cfg.name}: the int8 KV cache is for the "
                          f"stacked families (dense, VLM, MoE, Whisper's "
                          f"decoder); the {cfg.family} cache has no int8 "

@@ -9,6 +9,13 @@ D = B*H*Dh*N channels and calls `kernels.ops.ssm_scan` once per layer
 (the CUDA kernel on a card); the decay is passed compact, one value per
 (batch, head) shared by that head's Dh*N channels. Decode is a single
 recurrence step in plain PyTorch.
+
+`ssm_heads` and `ssm_decode_heads` are the head bank alone: the gated y
+(B, S, H_r*Dh) of the heads whose weights they are given (H_r read from
+``in_proj``'s width), without the ``out_proj`` product, so that a mesh
+(`distributed.spmd`) can run each model shard's heads and make
+``out_proj`` a row-parallel product; `ssm_scan` and `ssm_decode_step`
+add that product.
 """
 from __future__ import annotations
 
@@ -39,7 +46,8 @@ def declare_ssm(t: ParamTable, prefix: str, cfg: ArchConfig, n_layers: int):
 def _ssm_inputs(cfg: ArchConfig, p: Dict[str, torch.Tensor],
                 x: torch.Tensor):
     B, S, d = x.shape
-    H, Dh, N = cfg.n_heads, cfg.resolved_head_dim, cfg.ssm_state
+    Dh, N = cfg.resolved_head_dim, cfg.ssm_state
+    H = p["in_proj"].shape[-1] // Dh
     xh = (x @ p["in_proj"]).reshape(B, S, H, Dh)
     z = (x @ p["gate_proj"]).reshape(B, S, H, Dh)
     bc = x @ p["bc_proj"]
@@ -50,13 +58,15 @@ def _ssm_inputs(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     return xh, z, Bmat, Cmat, dt, a
 
 
-def ssm_scan(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
-             state: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,S,d) -> (y: (B,S,d), final_state: (B,H,Dh,N) float32)."""
+def ssm_heads(cfg: ArchConfig, p: Dict[str, torch.Tensor],
+              x: torch.Tensor, state: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The head bank of the weights ``p`` (H_r heads): x (B,S,d) -> (the
+    gated y (B,S,H_r*Dh) in x's type, final_state (B,H_r,Dh,N)
+    float32)."""
     B, S, d = x.shape
-    H, Dh, N = cfg.n_heads, cfg.resolved_head_dim, cfg.ssm_state
     xh, z, Bmat, Cmat, dt, a = _ssm_inputs(cfg, p, x)
+    H, Dh, N = xh.shape[2], cfg.resolved_head_dim, cfg.ssm_state
     if state is None:
         state = torch.zeros((B, H, Dh, N), dtype=torch.float32,
                             device=x.device)
@@ -77,21 +87,36 @@ def ssm_scan(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     y = y.view(S, B, H, Dh).transpose(0, 1).to(x.dtype)  # (B,S,H,Dh)
     y = y + p["d_skip"][None, None, :, None] * xh
     y = y * F.silu(z)
-    return (y.reshape(B, S, H * Dh) @ p["out_proj"],
-            y_final.view(B, H, Dh, N))
+    return y.reshape(B, S, H * Dh), y_final.view(B, H, Dh, N)
+
+
+def ssm_scan(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+             state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,S,d) -> (y: (B,S,d), final_state: (B,H,Dh,N) float32)."""
+    y, final = ssm_heads(cfg, p, x, state)
+    return y @ p["out_proj"], final
+
+
+def ssm_decode_heads(cfg: ArchConfig, p: Dict[str, torch.Tensor],
+                     x: torch.Tensor, state: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the head bank of ``p`` (H_r heads): x (B,1,d), state
+    (B,H_r,Dh,N) -> (the gated y (B,1,H_r*Dh), state')."""
+    B = x.shape[0]
+    xh, z, Bmat, Cmat, dt, a = _ssm_inputs(cfg, p, x)
+    H, Dh = xh.shape[2], cfg.resolved_head_dim
+    contrib = (dt[:, 0, :, None] * xh[:, 0])[..., None] * \
+        Bmat[:, 0, None, None, :]
+    state = a[:, 0, :, None, None] * state + contrib.float()
+    y = torch.einsum("bhdn,bn->bhd", state, Cmat[:, 0].float())
+    y = y.to(x.dtype) + p["d_skip"][None, :, None] * xh[:, 0]
+    return (y * F.silu(z[:, 0])).reshape(B, 1, H * Dh), state
 
 
 def ssm_decode_step(cfg: ArchConfig, p: Dict[str, torch.Tensor],
                     x: torch.Tensor, state: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,1,d); state: (B,H,Dh,N) -> (y: (B,1,d), state')."""
-    B = x.shape[0]
-    H, Dh = cfg.n_heads, cfg.resolved_head_dim
-    xh, z, Bmat, Cmat, dt, a = _ssm_inputs(cfg, p, x)
-    contrib = (dt[:, 0, :, None] * xh[:, 0])[..., None] * \
-        Bmat[:, 0, None, None, :]
-    state = a[:, 0, :, None, None] * state + contrib.float()
-    y = torch.einsum("bhdn,bn->bhd", state, Cmat[:, 0].float())
-    y = y.to(x.dtype) + p["d_skip"][None, :, None] * xh[:, 0]
-    y = (y * F.silu(z[:, 0])).reshape(B, 1, H * Dh)
+    y, state = ssm_decode_heads(cfg, p, x, state)
     return y @ p["out_proj"], state

@@ -324,17 +324,15 @@ def test_cross_attention_cache_matches_reference():
     np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
 
 
-def test_whisper_self_attention_takes_the_kernel_route_and_cross_does_not(
+def test_whisper_self_and_cross_attention_take_the_kernel_route(
         monkeypatch):
     """Reduced Whisper, 6 decoder tokens over 16 encoder frames: every
-    encoder layer (full mask) and every decoder layer's self-attention
-    (causal) go through ops.flash_attention. Since the kernel takes fewer
-    queries than keys, so does cross-attention (6 queries over 16 keys,
-    a full mask); a causal call of 6 queries over 16 keys at offset 0
-    still takes the plain route (the kernel aligns the mask
-    bottom-right). The name is older than the kernel's Sq < Sk and is
-    kept so that the test's record reads on; cross-attention now takes
-    the kernel route."""
+    encoder layer (full mask), every decoder layer's self-attention
+    (causal) and, since the kernel takes fewer queries than keys, its
+    cross-attention (6 queries over 16 keys, a full mask) go through
+    ops.flash_attention; a causal call of 6 queries over 16 keys at
+    offset 0 still takes the plain route (the kernel aligns the mask
+    bottom-right)."""
     _jcfg, tcfg, _jp, tp = _pair("whisper-large-v3", seed=16)
     seen = []
     real = ops.flash_attention

@@ -378,13 +378,13 @@ def test_ef_allreduce_over_data_matches_shard_map(reference):
 # refusals
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["hymba-1.5b", "rwkv6-3b",
-                                  "whisper-large-v3", "qwen2-vl-7b"])
+@pytest.mark.parametrize("name", ["rwkv6-3b", "whisper-large-v3"])
 def test_non_dense_family_on_a_mesh_raises(name):
-    """A step of a family the mesh layer does not run (neither dense nor
-    mixture-of-experts) on a mesh of more than one position raises
-    NotImplementedError naming ROADMAP.md; nothing falls back to one
-    device. On a mesh of one position it runs."""
+    """A step of a family the mesh layer does not run (RWKV-6, Whisper;
+    the dense, mixture-of-experts, hybrid and VLM families run,
+    `tests/test_torch_lm_mesh_families.py`) on a mesh of more than one
+    position raises NotImplementedError naming ROADMAP.md; nothing falls
+    back to one device. On a mesh of one position it runs."""
     cfg = T_ARCHS[name]
     mesh = _mesh((2, 2))
     fn, specs, ins, _o, _d = tsteps.plan(cfg, SHAPES["train"], mesh)
@@ -410,10 +410,11 @@ def test_non_dense_family_on_a_mesh_raises(name):
 
 def test_cp_preset_on_a_mesh_raises():
     """The context-parallel preset raises for a family the mesh layer does
-    not run (Hymba's hybrid one), in every kind of step, and passes the
-    dense and mixture-of-experts families
-    (`tests/test_torch_lm_mesh_cp.py` runs them)."""
-    cfg = T_ARCHS["hymba-1.5b"]
+    not run (RWKV-6), in every kind of step, and passes the dense,
+    mixture-of-experts, hybrid and VLM families
+    (`tests/test_torch_lm_mesh_cp.py` and
+    `tests/test_torch_lm_mesh_families.py` run them)."""
+    cfg = T_ARCHS["rwkv6-3b"]
     mesh = _mesh((2, 2))
     for kind in KINDS:
         fn, *_ = tsteps.plan(cfg, SHAPES[kind], mesh,
@@ -424,24 +425,26 @@ def test_cp_preset_on_a_mesh_raises():
             fn(*args)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         spmd.check_supported(cfg, mesh, tsteps.resolve_rules("cp"))
-    for name in ("granite-3-2b", "mixtral-8x7b"):
+    for name in ("granite-3-2b", "mixtral-8x7b", "hymba-1.5b",
+                 "qwen2-vl-7b"):
         spmd.check_supported(T_ARCHS[name], mesh, tsteps.resolve_rules("cp"))
 
 
 def test_default_mesh_keeps_other_families_on_one_device(monkeypatch):
-    """With ``mesh=None`` and two local devices, `train` spreads the dense
-    and mixture-of-experts families over both and keeps a family that
-    runs on no mesh (Hymba) on one, which still trains; a device named by
-    its index gets a mesh of one position."""
+    """With ``mesh=None`` and two local devices, `train` spreads the dense,
+    mixture-of-experts, hybrid and VLM families over both and keeps a
+    family that runs on no mesh (RWKV-6) on one, which still trains; a
+    device named by its index gets a mesh of one position."""
     from repro_torch import device as device_lib
     monkeypatch.setattr(device_lib, "local_devices", lambda kind=None:
                         [CPU, CPU])
     dense = T_ARCHS["granite-3-2b"]
     assert ttrain.default_mesh(dense, "cpu").size == 2
     assert ttrain.default_mesh(dense, "cpu:0").size == 1
-    for name in ("mixtral-8x7b", "moonshot-v1-16b-a3b"):
+    for name in ("mixtral-8x7b", "moonshot-v1-16b-a3b", "hymba-1.5b",
+                 "qwen2-vl-7b"):
         assert ttrain.default_mesh(T_ARCHS[name], "cpu").size == 2
-    cfg = T_ARCHS["hymba-1.5b"]
+    cfg = T_ARCHS["rwkv6-3b"]
     assert ttrain.default_mesh(cfg, "cpu").size == 1
     out = ttrain.train(cfg, ShapeConfig("t", 8, 2, "train"), 2, None,
                        log_every=0, device="cpu")

@@ -309,13 +309,13 @@ def test_attention_at_an_offset_with_a_window_stays_plain_and_right():
 
 
 def test_cp_refuses_only_the_families_the_mesh_does_not_run():
-    """`spmd.check_supported` under the cp preset: the dense and MoE
-    families pass; hybrid, RWKV-6, Whisper and the VLM raise."""
+    """`spmd.check_supported` under the cp preset: the dense, MoE, hybrid
+    and VLM families pass; RWKV-6 and Whisper raise."""
     mesh = _mesh((2, 2))
     rules = tsteps.resolve_rules("cp")
-    for name in ("granite-3-2b", "mixtral-8x7b", "moonshot-v1-16b-a3b"):
+    for name in ("granite-3-2b", "mixtral-8x7b", "moonshot-v1-16b-a3b",
+                 "hymba-1.5b", "qwen2-vl-7b"):
         spmd.check_supported(T_ARCHS[name], mesh, rules)
-    for name in ("hymba-1.5b", "rwkv6-3b", "whisper-large-v3",
-                 "qwen2-vl-7b"):
+    for name in ("rwkv6-3b", "whisper-large-v3"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             spmd.check_supported(T_ARCHS[name], mesh, rules)

@@ -8,6 +8,7 @@ pure row-independent NumPy, so fused cross-request batches cannot perturb
 rows, and a warm-started tenant serves the engine object `run_staged`
 memoized, so repeated configs are memo hits with identical floats.
 """
+import dataclasses
 import threading
 import time
 
@@ -421,6 +422,42 @@ def test_warm_start_serves_the_run_staged_engine(tmp_path):
                               ctx.inp, ctx.exact_out)
     assert np.array_equal(lr.value, want)
     assert store.stats.hits.get("dataset") and store.stats.hits.get("train")
+
+
+def test_warm_start_tenant_split_over_devices_answers_as_one_device(
+        tmp_path):
+    """A tenant warmed with ``eval_devices=("cpu", "cpu")``: its engine
+    (`stage_engine`) splits each chunk's configs over the two devices,
+    and its dse, predict and label responses equal those of a tenant
+    warmed on one device (each on its own store: the engine's store key
+    leaves the devices out)."""
+    base = P.PipelineConfig(app=APP, n_samples=120, epochs=2,
+                            dse_budget=100, hidden=32, n_layers=2,
+                            dse_pop=16, eval_chunk=32)
+    out = {}
+    for label, cfg in (("one", base), ("two", dataclasses.replace(
+            base, eval_devices=("cpu", "cpu")))):
+        with EvalService(ArtifactStore(str(tmp_path / label))) as svc:
+            name = svc.warm_start(cfg, device="cpu")
+            devices = svc._tenants[name].engine.devices
+            dr = svc.result(svc.submit(ServeRequest(
+                "dse", name, sampler=cfg.sampler, budget=cfg.dse_budget,
+                seed=cfg.seed, dse_kwargs={"pop": cfg.dse_pop})),
+                timeout=600.0)
+            assert dr.ok, dr.error
+            front = dr.value.pareto_configs
+            pr = svc.result(svc.submit(ServeRequest(
+                "predict", name, configs=front)), timeout=300.0)
+            lr = svc.result(svc.submit(ServeRequest(
+                "label", name, configs=front[:4])), timeout=300.0)
+            assert pr.ok and lr.ok, (pr.error, lr.error)
+            out[label] = (devices, dr.value, pr.value, lr.value)
+    (d1, dse1, p1, l1), (d2, dse2, p2, l2) = out["one"], out["two"]
+    assert d1 == 1 and d2 == 2
+    assert dse2.pareto_configs == dse1.pareto_configs
+    assert dse2.history == dse1.history
+    assert np.array_equal(np.asarray(p2), np.asarray(p1))
+    assert np.array_equal(np.asarray(l2), np.asarray(l1))
 
 
 # --------------------------------------------------------------------------
