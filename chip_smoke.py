@@ -108,7 +108,7 @@ graph of the calls, then drives the port's two main paths:
   float32), and a restart drill of `launch.train.train` (a crash, a
   restore, the end state against uninterrupted runs);
 - the dense LM over a (data, model) mesh (`lm_mesh_slice` line):
-  Granite-3-2B at full width and, here, 20 of its 40 layers (its full
+  Granite-3-2B at full width and, here, 8 of its 40 layers (its full
   depth, 2 timed steps, 32 decode steps and a profiled step in
   `scripts/lm_mesh_slice.py dense`; the line's "reduced") on a (2, 2)
   mesh over every card, or card 0 named four times (`split_devices`):
@@ -128,7 +128,7 @@ graph of the calls, then drives the port's two main paths:
   the elastic restart of `launch.train.train` at two layers in float32,
   crashed on (2, 2) and restarted onto (4, 1) and one device;
 - the mixture-of-experts family over a mesh (`lm_mesh_moe_slice` line),
-  expert parallelism: Moonlight-16B-A3B at full width and, here, 24 of
+  expert parallelism: Moonlight-16B-A3B at full width and, here, 8 of
   its 48 layers (its full depth and 32 decode steps in
   `scripts/lm_mesh_slice.py moe`) on (1, 4) (each shard 4 heads and 16
   experts), serve8 prefill of 8 x 1024 tokens and 16 decode steps
@@ -144,15 +144,35 @@ graph of the calls, then drives the port's two main paths:
   no m = 2: every shard computes every attention and SSM head, the ff
   columns split), the tp training step (8 x 1024 tokens in two
   micro-batches, remat on, K3 and K4 at every position) against the
-  unsplit step from the same state (bf16: the loss and first moments
-  within twice the unsplit step's own bf16-vs-float32 gap; float32
-  compute at 4 layers within 1e-4), serve8 (the hybrid cache in bf16,
-  32 decode steps) and a cp prefill against the unsplit run; Hymba on
-  (1, 5), the one mesh that splits its heads (5 query heads, one KV
-  head, 5 SSM heads a shard), prefill and 8 decode steps; Qwen2-VL-7B
-  serve8 on (1, 4) (7 query heads and one KV head a shard, 256 stub
-  vision embeds and M-RoPE positions placed with the rows, 32 steps on
-  the int8 cache);
+  unsplit step from the same state (float32 compute at 4 layers within
+  1e-4; the full-depth bf16 step, held within twice the unsplit step's
+  own bf16-vs-float32 gap, is `scripts/lm_mesh_slice.py families`'s and
+  left out here, the line's "reduced"), serve8 (the hybrid cache in bf16,
+  16 decode steps here, 32 in the script) and a cp prefill against the
+  unsplit run; Hymba on (1, 5), the one mesh that splits its heads (5
+  query heads, one KV head, 5 SSM heads a shard), prefill and 8 decode
+  steps; Qwen2-VL-7B serve8 on (1, 4) (7 query heads and one KV head a
+  shard, 256 stub vision embeds and M-RoPE positions placed with the
+  rows, 16 steps on the int8 cache here, 32 in the script); the serving
+  runs here at 8 of their 32 and 28 layers (the script's at full depth;
+  each line's "reduced");
+- the encoder-decoder and attention-free families over meshes
+  (`lm_mesh_whisper_rwkv_slice` line), card 0 named as many times as a
+  mesh has positions: Whisper large-v3 at full width and depth, serve8
+  on (1, 4) (8 prompts of 224 tokens over 1500 stub frames, 5 query and
+  KV heads and 375 cross-cache frames a shard, 16 decode steps on the
+  int8 self cache) and a cp prefill on (2, 2) (the encoder's 750-query
+  blocks over its 1500 keys), its tp training step on (2, 2) (8 x 224
+  decoder tokens over 8 x 1500 frames, two micro-batches, remat);
+  RWKV-6 3B's tp serving on (1, 4) (8 prompts of 1024 tokens, 10 heads
+  a shard, 8 decode steps against the families slice's run of the same
+  weights and prompts) and its tp step on (2, 2) at 4 of its 32 layers
+  over 8 x 128 tokens:
+  the bf16 runs timed with their gap to the unsplit run reported, each
+  held in float32 compute at 4 layers (RWKV-6's step at one: its float32
+  gradient is too sensitive to roundings deeper) within 1e-4 beside a
+  bf16 control that must exceed that bar, K3 counted in Whisper's
+  encoder, self-attention and cross-attention;
 - ApproxPilot-LM (`bridge_slice` line): `lm_bridge.train_surrogate` on
   Qwen2.5-32B's train_4k op graph at the reference's bench settings (400
   samples, 40 epochs), alone and as a 4-member ensemble, its engine
@@ -564,6 +584,24 @@ FA_SHAPES = [
     ("hymba_cp_shard1", 4, 25, 5, (512, 1024), 64, "bfloat16", True),
     ("hymba_1x5_shard", 8, 5, 1, 1024, 64, "bfloat16", True),
     ("qwen2_vl_1x4_shard_gqa7_d128", 8, 7, 1, 1024, 128, "bfloat16", True),
+    # Whisper large-v3's model shards: on (1, 4) 5 of its 20 heads (MHA)
+    # over 8 rows, on (2, 2) 10 heads over a training micro-batch's 2
+    # rows, each at its encoder (1500 frames, full), its decoder's
+    # 224-token self-attention (causal) and its cross-attention (224 over
+    # 1500, full); and the cp prefill's encoder block on (2, 2), 750
+    # queries over the 1500 keys, every head, 4 rows
+    ("whisper_1x4_shard_encoder", 8, 5, 5, 1500, 64, "bfloat16", False),
+    ("whisper_1x4_shard_decoder", 8, 5, 5, 224, 64, "bfloat16", True),
+    ("whisper_1x4_shard_cross", 8, 5, 5, (224, 1500), 64, "bfloat16",
+     False),
+    ("whisper_mesh_train_shard_encoder", 2, 10, 10, 1500, 64, "bfloat16",
+     False),
+    ("whisper_mesh_train_shard_decoder", 2, 10, 10, 224, 64, "bfloat16",
+     True),
+    ("whisper_mesh_train_shard_cross", 2, 10, 10, (224, 1500), 64,
+     "bfloat16", False),
+    ("whisper_cp_encoder_block", 4, 20, 20, (750, 1500), 64, "bfloat16",
+     False),
 ]
 
 
@@ -2265,8 +2303,9 @@ def moe_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
 # the last three LM families at full width and depth: (arch, decoder
 # prompt tokens, decode horizon). Whisper's decoder prompt is 224 tokens,
 # half of its 448-token text context; its encoder reads 1500 frames.
-# layers of RWKV-6's prefill under the profiler (of 32)
-RWKV_PROFILE_LAYERS = 8
+# layers of RWKV-6's prefill under the profiler (of 32): its ~12k kernels
+# a layer take the profiler ~4-6 s a layer to post-process
+RWKV_PROFILE_LAYERS = 1
 FAMILIES = (("qwen2-vl-7b", LM_PROMPT, LM_MAX_LEN),
             ("whisper-large-v3", 224, 224 + LM_STEPS),
             ("rwkv6-3b", LM_PROMPT, LM_MAX_LEN))
@@ -2389,12 +2428,16 @@ def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
                batch: int = LM_BATCH, n_steps: int = LM_STEPS,
                witness_len: int = FAMILY_WITNESS_PROMPT,
                witness_steps: int = FAMILY_WITNESS_STEPS,
-               int8_decode: bool = False):
+               int8_decode: bool = False, keep: int = 0):
     """One family at full width and depth on ``dev``: random bf16
     weights, a cold and a counted warm prefill of ``batch`` prompts
     through `make_prefill_step`, greedy `make_decode_step` steps, device
-    profiles, and the checks; returns (report, K3 launches a prefill). On
-    the CPU (a rehearsal at reduced size) the kernels' plain versions run,
+    profiles, and the checks; returns (report, K3 launches a prefill).
+    With ``keep``, the report's "_yardstick" holds what a mesh run of the
+    same weights and prompts compares with (`family_yardstick`): the
+    prefill's last logits, the first ``keep`` steps' fed tokens and
+    logits, the warm prefill's ms and the decode's ms a step. On the CPU
+    (a rehearsal at reduced size) the kernels' plain versions run,
     nothing is launched and nothing is profiled."""
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -2468,7 +2511,7 @@ def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
             (logits, cache), ms = timed_ms(
                 dev, lambda: decode(params, cache, tok, prompt_len + i))
             step_ms.append(ms)
-            if int8_decode:
+            if int8_decode or i < keep:
                 fed.append(tok)
                 seen.append(logits[:, 0].clone())
             tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
@@ -2482,6 +2525,13 @@ def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
         report["decode_tokens_per_s"] = (batch * 1e3
                                          / report["decode_ms_per_step"])
         report["launches"] = {"flash_attention": launches}
+        if keep:
+            report["_yardstick"] = {
+                "last": last.float(), "fed": fed[:keep],
+                "logits": [x.float() for x in seen[:keep]],
+                "prefill_warm_ms": warm,
+                "decode_ms_per_step": report["decode_ms_per_step"],
+                "decode_step_device_profile": None}
         del cache
         lap("prefills_and_decode")
 
@@ -2512,6 +2562,9 @@ def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
             _, cache = prefill(params, prompt)
             report["decode_step_device_profile"] = device_profile(
                 lambda: decode(params, cache, tok, prompt_len))
+            if keep:
+                report["_yardstick"]["decode_step_device_profile"] = \
+                    report["decode_step_device_profile"]
             del cache
         lap("profiles")
 
@@ -2598,22 +2651,28 @@ def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
 
 
 def families_slice_phase(card: str, dev, families=FAMILIES, archs=None,
-                         **kw):
+                         keep=None, **kw):
     """Drive the VLM, Whisper and RWKV-6 at full width and depth, one
     after the other, the memory freed between them; returns (report, K3
-    launches of the counted prefills). ``archs`` maps a name to its
-    config (default: the published ones); ``kw`` goes to `family_run`."""
+    launches of the counted prefills, {name: yardstick}). ``archs`` maps
+    a name to its config (default: the published ones); ``keep`` maps a
+    name to the decode steps to keep for a mesh run (`family_run`'s
+    ``keep``), whose "_yardstick" the third value holds; ``kw`` goes to
+    `family_run`."""
     import gc
     import torch
     from repro_torch.configs import ARCHS
     archs = archs or ARCHS
     report = {"card": card, "models": {}}
-    launches = 0
+    launches, yardsticks = 0, {}
     t0 = time.perf_counter()
     for name, prompt_len, max_len in families:
         t = time.perf_counter()
+        n_keep = (keep or {}).get(name, 0)
         r, n = family_run(card, dev, archs[name], prompt_len, max_len,
-                          int8_decode=name == INT8_FAMILY, **kw)
+                          int8_decode=name == INT8_FAMILY, keep=n_keep, **kw)
+        if n_keep:
+            yardsticks[name] = r.pop("_yardstick")
         r["phase_s"] = time.perf_counter() - t
         report["models"][name] = r
         launches += n
@@ -2624,7 +2683,7 @@ def families_slice_phase(card: str, dev, families=FAMILIES, archs=None,
                            "card_vs_cpu": list(CARD_CPU_TOL),
                            "state_atol_share": CARD_CPU_SSM_ATOL}
     report["wall_s"] = time.perf_counter() - t0
-    return report, launches
+    return report, launches, yardsticks
 
 
 # the LM training slice: Hymba-1.5B at full width and depth, TokenPipeline
@@ -3556,10 +3615,13 @@ def split_slice_phase(card: str, dev, devs, gaussian, trained, kept, *,
 MESH_BATCH, MESH_SEQ, MESH_ACCUM, MESH_TIMED = 8, 1024, 2, 2
 MESH_PROMPT, MESH_NEW = 1024, 32
 # the dense and MoE mesh phases in `main`: fewer timed training steps
-# and decode steps, no training-step profile, half of Granite-3-2B's 40
+# and decode steps, no training-step profile, 8 of Granite-3-2B's 40
 # layers and of Moonlight's 48 in serving (each line's "reduced")
 SMOKE_MESH_TIMED, SMOKE_MESH_NEW = 1, 16
-SMOKE_MESH_LAYERS, SMOKE_MOE_SERVE_LAYERS = 20, 24
+SMOKE_MESH_LAYERS, SMOKE_MOE_SERVE_LAYERS = 8, 8
+# the families mesh phase's serving runs (Hymba-1.5B on (2, 2) and
+# (1, 5), Qwen2-VL-7B on (1, 4)) in `main`: 8 of their 32 and 28 layers
+SMOKE_FAM_SERVE_LAYERS = 8
 # bf16 bars of the sharded run against the unsplit one: the loss (the
 # reference's own bar between its presets, tests/test_sharding.py), the
 # first moment (a tenth of the gradient) of the checked leaves, as the
@@ -3640,15 +3702,34 @@ def greedy_agree(a_list, b_list) -> float:
     return hits / sum(a.shape[0] for a in a_list)
 
 
+# AdamW's global-norm clip (`optim.adamw.update`'s default, which every
+# training step of the port keeps)
+MAX_GRAD_NORM = 1.0
+
+
+def leaf_paths(tree, prefix: str = "") -> list:
+    """A tree of dicts' leaf paths in `models.layers.tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in leaf_paths(tree[k], f"{prefix}/{k}" if prefix
+                                    else k)]
+    return [prefix]
+
+
 def train_run(dev, step, state, batch_at, n_steps: int, leaves,
-              routes: bool = False):
+              routes: bool = False, unclipped: bool = False):
     """``step`` run ``n_steps`` times from ``state`` (params, opt) on
     ``batch_at(i)``, each timed on the device. Returns (state, run): each
     step's loss, grad norm and K3 and K4 launches, the wall ms of the
     steps after the first and their mean, the first step's metrics, the
-    first layer's first moments of ``leaves`` after it and, with
-    ``routes``, its recorded `moe.place` calls."""
+    first layer's first moments of ``leaves`` (every leaf where None)
+    after it and, with ``routes``, its recorded `moe.place` calls. With
+    ``unclipped`` the first moments are divided by the step's clip scale
+    (min(1, MAX_GRAD_NORM / grad norm), the one scalar that moves every
+    leaf alike), and "sq0" holds each leaf's squared L2 over every layer
+    so divided: the share of the grad norm each carries."""
     from contextlib import nullcontext
+    from repro_torch.distributed import meshes as M
     params, opt = state
     run = {"losses": [], "grad_norms": [], "k3_per_step": [],
            "k4_per_step": [], "step_ms": []}
@@ -3667,7 +3748,20 @@ def train_run(dev, step, state, batch_at, n_steps: int, leaves,
             run["first_step_ms"] = ms
             run["metrics0"] = {k: float(m[k]) for k in
                                ("loss", "grad_norm", "moe_aux") if k in m}
-            run["m0"] = {p: _first_layer(_leaf(opt.m, p)) for p in leaves}
+            scale = (min(1.0, MAX_GRAD_NORM / max(float(m["grad_norm"]),
+                                                  1e-6))
+                     if unclipped else 1.0)
+            paths = leaf_paths(opt.m) if leaves is None else leaves
+            run["m0"] = {p: _first_layer(_leaf(opt.m, p)) / scale
+                         for p in paths}
+            if unclipped:
+                run["sq0"] = {}
+                for p in leaf_paths(opt.m):
+                    t = _leaf(opt.m, p)
+                    t = t.gather() if M.is_placed(t) else t
+                    run["sq0"][p] = float(t.double().square().sum()
+                                          ) / scale ** 2
+                    del t
             run["routes0"] = [(a.cpu(), k.cpu()) for a, k in seen]
         else:
             run["step_ms"].append(ms)
@@ -3677,29 +3771,39 @@ def train_run(dev, step, state, batch_at, n_steps: int, leaves,
 
 
 def held_train(label: str, run: dict, want: dict, bars: dict,
-               loss_bar: float, per_step: int, cuda: bool) -> dict:
+               loss_bar: float, per_step: int, cuda: bool,
+               grad_norm_bar: float = None) -> dict:
     """Check a sharded training run against the unsplit ``want`` (both of
     `train_run`): finite losses and norms, the first step's loss within
     ``loss_bar`` of ``want``'s, each first moment of ``bars`` within its
-    bar (relative L2), and, on the card, ``per_step`` K3 launches a
-    step. Returns the readings."""
+    bar (relative L2), the first step's grad norm within
+    ``grad_norm_bar`` (relative) where given, and, on the card,
+    ``per_step`` K3 launches a step. Returns the readings."""
     import math
     rel = rel_l2_each(run["m0"], want["m0"])
     loss_gap = abs(run["losses"][0] - want["losses"][0])
+    gn, gn_want = run["grad_norms"][0], want["grad_norms"][0]
+    gn_gap = abs(gn - gn_want) / max(abs(gn_want), 1e-30)
     over = {p: [rel[p], bar] for p, bar in bars.items() if not rel[p] <= bar}
     check(all(map(math.isfinite, run["losses"] + run["grad_norms"])),
           f"{label}: a non-finite loss or grad norm")
     check(loss_gap <= loss_bar, f"{label}: loss {run['losses'][0]} against "
           f"{want['losses'][0]}, bar {loss_bar}")
     check(not over, f"{label}: first moments over their bars {over}")
+    check(grad_norm_bar is None or gn_gap <= grad_norm_bar,
+          f"{label}: grad norm {gn} against {gn_want}, relative gap "
+          f"{gn_gap}, bar {grad_norm_bar}")
     check(not cuda or all(e == per_step for e in run["k3_per_step"]),
           f"{label}: {run['k3_per_step']} K3 launches a step, not "
           f"{per_step} (forward and recompute, every layer, position and "
           f"micro-batch)")
-    return {"loss_gap_step0": loss_gap, "loss_bar": loss_bar,
-            "grad_norm_step0": [run["grad_norms"][0],
-                                want["grad_norms"][0]],
-            "first_moment_rel_l2_layer0": rel, "first_moment_bars": bars}
+    out = {"loss_gap_step0": loss_gap, "loss_bar": loss_bar,
+           "grad_norm_step0": [gn, gn_want],
+           "first_moment_rel_l2_layer0": rel, "first_moment_bars": bars}
+    if grad_norm_bar is not None:
+        out["grad_norm_rel_gap_step0"] = gn_gap
+        out["grad_norm_bar"] = grad_norm_bar
+    return out
 
 
 def serve8_unsplit(dev, cfg, params, toks, new: int, feed=None,
@@ -3729,11 +3833,12 @@ def serve8_unsplit(dev, cfg, params, toks, new: int, feed=None,
 
 
 def serve8_mesh(dev, cfg, mesh, dfn, P, toks, feed, routes: bool = False,
-                extra=None):
-    """serve8 over ``mesh``: a warm prefill of ``toks`` and the family's
-    ``extra`` inputs placed by rows, a timed one, its cache quantized
-    where it has an int8 form, then the decode steps ``dfn`` of
-    `launch.steps.plan` fed ``feed``. Returns a dict: the logits
+                extra=None, warm: int = 0):
+    """serve8 over ``mesh``: a warm prefill of ``toks`` (of its first
+    ``warm`` positions where given) and the family's ``extra`` inputs
+    placed by rows, a timed one, its cache quantized where it has an int8
+    form, then the decode steps ``dfn`` of `launch.steps.plan` fed
+    ``feed``. Returns a dict: the logits
     (float32, gathered on ``dev``) as `serve8_unsplit`'s, the prefill's
     wall ms and K3 and K4 launches, each step's, the placed prompts
     ("tokens") and inputs ("batch"), the cache and, with ``routes``, the
@@ -3748,8 +3853,10 @@ def serve8_mesh(dev, cfg, mesh, dfn, P, toks, feed, routes: bool = False,
     placed = {"tokens": tplaced, **{
         k: M.place(v, M.data_sharding(mesh, B, v.dim()))
         for k, v in (extra or {}).items()}}
+    warm_in = placed if not warm else dict(placed, tokens=M.place(
+        toks[:, :warm], M.data_sharding(mesh, B, 2)))
     with (recorded_routes() if routes else nullcontext([])) as seen:
-        spmd.prefill(cfg, mesh, P, placed, max_len=max_len)      # warm
+        spmd.prefill(cfg, mesh, P, warm_in, max_len=max_len)     # warm
     out = {"tokens": tplaced, "batch": placed,
            "prefill_routes": [(i.cpu(), k.cpu()) for i, k in seen]}
     before, before4 = k3_launches(), k4_launches()
@@ -4564,16 +4671,32 @@ FAM_MESH_LEAVES = ("embed/tokens", "blocks/attn/wq", "blocks/attn/wk",
                    "blocks/mlp/w_down", "blocks/norm1", "head/w")
 
 
+def k3_per_pass(cfg, S: int) -> int:
+    """K3 launches a forward of S decoder positions makes at each mesh
+    position: one a decoder layer, and for Whisper one an encoder layer
+    and one a cross-attention where S <= Se (more queries than keys run
+    plain); none for RWKV-6. The same under cp (a block of queries is one
+    call)."""
+    if cfg.attn_free:
+        return 0
+    return cfg.n_layers + (cfg.enc_layers + cfg.n_layers * (S <= cfg.enc_len)
+                           if cfg.enc_dec else 0)
+
+
 def served_on_mesh(label: str, dev, cfg, params, mesh, toks, extra,
-                   new: int, held: bool) -> dict:
-    """serve8 of ``params`` (bf16, one card) over ``mesh`` against the
-    unsplit run fed the same tokens. With ``held``, the logits are held
-    at twice the unsplit run's own gap to its float32 run (the bf16
-    weights cast per product); else the gap is reported only (a family
-    whose bf16 gap is no yardstick holds its mesh in
-    `float32_served_on_mesh`). ``params`` are placed leaf by leaf and
-    consumed. Returns the reading, with "_run" (`serve8_mesh`'s) and
-    "_params" (the placed weights) for a caller that goes on with them."""
+                   new: int, held: bool, preset: str = "serve8",
+                   warm: int = 0, yard=None) -> dict:
+    """``preset`` serving (serve8) of ``params`` (bf16, one card) over
+    ``mesh`` against the unsplit run fed the same tokens: the one run
+    here, or ``yard`` (`family_run`'s "_yardstick" of the same weights
+    and prompts, whose tokens are fed) in its place. With ``held``, the
+    logits are held at twice the unsplit run's own gap to its float32 run
+    (the bf16 weights cast per product); else the gap is reported only (a
+    family whose bf16 gap is no yardstick holds its mesh in
+    `float32_served_on_mesh`). ``warm``: the warm-up prefill's length
+    (`serve8_mesh`). ``params`` are placed leaf by leaf and consumed.
+    Returns the reading, with "_run" (`serve8_mesh`'s) and "_params" (the
+    placed weights) for a caller that goes on with them."""
     import dataclasses
     import gc
     import torch
@@ -4589,10 +4712,12 @@ def served_on_mesh(label: str, dev, cfg, params, mesh, toks, extra,
     n, L = mesh.size, cfg.n_layers
     lay = spmd.Layout(cfg, mesh)
     hybrid = cfg.family == "hybrid"
+    per = k3_per_pass(cfg, prompt)
     out = {"mesh": dict(mesh.shape), "n_layers": L, "batch": B,
-           "prompt": prompt, "new_tokens": new, "preset": "serve8",
-           "cache": ("int8" if decoding.has_int8_cache(cfg)
-                     else "bf16 (no int8 form)"),
+           "prompt": prompt, "new_tokens": new, "preset": preset,
+           "cache": ("int8" if decoding.has_int8_cache(cfg) else
+                     "bf16 (no int8 form)" if hybrid else
+                     "float32 state, bf16 token shifts (no int8 form)"),
            "split_heads": lay.split_heads,
            "heads_per_shard": lay.heads(0)[1] - lay.heads(0)[0],
            "kv_heads_per_shard": lay.kv_heads(0)[1] - lay.kv_heads(0)[0],
@@ -4600,24 +4725,40 @@ def served_on_mesh(label: str, dev, cfg, params, mesh, toks, extra,
            "params": sum(t.numel() for t in tree_leaves(params))}
     batch = {"tokens": toks, **extra}
     with torch.no_grad():
-        decoding.prefill(cfg, params, batch, max_len=max_len)     # warm
-        before, before4 = k3_launches(), k4_launches()
-        _, pre_ms_u = timed_ms(dev, lambda: decoding.prefill(
-            cfg, params, batch, max_len=max_len))
-        unsplit_k = [k3_launches() - before, k4_launches() - before4]
-        want, feed, dec_u, ucache = serve8_unsplit(dev, cfg, params, toks,
-                                                   new, extra=extra)
-        if cuda:
-            out["unsplit_decode_device_profile"] = device_profile(
-                lambda: decoding.decode_step(cfg, params, ucache, feed[-1],
-                                             max_len - 1))
-        del ucache
-        out["unsplit"] = {
-            "prefill_warm_ms": pre_ms_u,
-            "prefill_tokens_per_s": B * prompt / pre_ms_u * 1e3,
-            "decode_ms_per_step": sum(dec_u[1:]) / max(len(dec_u) - 1, 1),
-            "k3_launches_prefill": unsplit_k[0],
-            "k4_launches_prefill": unsplit_k[1], "peak_gib": peak_gib(dev)}
+        if yard is not None:
+            # the families slice's run of these weights and prompts
+            want = [yard["last"]] + yard["logits"][:new]
+            feed, pre_ms_u = yard["fed"][:new], yard["prefill_warm_ms"]
+            out["unsplit_decode_device_profile"] = \
+                yard["decode_step_device_profile"]
+            out["unsplit"] = {
+                "prefill_warm_ms": pre_ms_u,
+                "prefill_tokens_per_s": B * prompt / pre_ms_u * 1e3,
+                "decode_ms_per_step": yard["decode_ms_per_step"],
+                "from": "families_slice (the same weights, prompts and "
+                "fed tokens)"}
+            unsplit_k = [per, 0]
+        else:
+            decoding.prefill(cfg, params, batch, max_len=max_len)  # warm
+            before, before4 = k3_launches(), k4_launches()
+            _, pre_ms_u = timed_ms(dev, lambda: decoding.prefill(
+                cfg, params, batch, max_len=max_len))
+            unsplit_k = [k3_launches() - before, k4_launches() - before4]
+            want, feed, dec_u, ucache = serve8_unsplit(
+                dev, cfg, params, toks, new, extra=extra)
+            if cuda:
+                out["unsplit_decode_device_profile"] = device_profile(
+                    lambda: decoding.decode_step(cfg, params, ucache,
+                                                 feed[-1], max_len - 1))
+            del ucache
+            out["unsplit"] = {
+                "prefill_warm_ms": pre_ms_u,
+                "prefill_tokens_per_s": B * prompt / pre_ms_u * 1e3,
+                "decode_ms_per_step": (sum(dec_u[1:])
+                                       / max(len(dec_u) - 1, 1)),
+                "k3_launches_prefill": unsplit_k[0],
+                "k4_launches_prefill": unsplit_k[1],
+                "peak_gib": peak_gib(dev)}
         if held:
             # the bar's yardstick: the unsplit path in float32 at the
             # same prompts and fed tokens
@@ -4630,13 +4771,16 @@ def served_on_mesh(label: str, dev, cfg, params, mesh, toks, extra,
     free_card(dev)
     dshape = ShapeConfig("decode", max_len, B, "decode")
     dfn, _s, dins, _o, _d = steps.plan(cfg, dshape, mesh,
-                                       steps.resolve_rules("serve8"))
+                                       steps.resolve_rules(preset))
     P = place_consuming(params, dins[0])
     del params
     gc.collect()
     out["param_bytes_per_position"] = M.nbytes_per_position(P)
     out["peak_gib_after_placing"] = peak_gib(dev)
-    run = serve8_mesh(dev, cfg, mesh, dfn, P, toks, feed, extra=extra)
+    run = serve8_mesh(dev, cfg, mesh, dfn, P, toks, feed, extra=extra,
+                      warm=warm)
+    if warm:
+        out["warm_prefill_prompt"] = warm
     dec = run["step_ms"]
     out["cache_bytes_per_position"] = run["cache_bytes_per_position"]
     out["sharded"] = {
@@ -4645,7 +4789,7 @@ def served_on_mesh(label: str, dev, cfg, params, mesh, toks, extra,
         "decode_ms_per_step": sum(dec[1:]) / max(len(dec) - 1, 1),
         "k3_launches_prefill": run["prefill_k3"],
         "k4_launches_prefill": run["prefill_k4"],
-        "k3_launches_expected": L * n,
+        "k3_launches_expected": per * n,
         "k4_launches_expected": L * n if hybrid else 0,
         "k3_launches_decode_step": max(run["step_k3"]),
         "peak_gib": peak_gib(dev)}
@@ -4670,63 +4814,74 @@ def served_on_mesh(label: str, dev, cfg, params, mesh, toks, extra,
             "prefill_gap": float((run["got"][0] - want[0]).abs().max()),
             "logits_max_abs": max(float(w.abs().max()) for w in want),
             "greedy_agree_share": greedy_agree(run["got"], want)}
-    check(not cuda or (run["prefill_k3"] == L * n
+    check(not cuda or (run["prefill_k3"] == per * n
                        and run["prefill_k4"] == (L * n if hybrid else 0)
-                       and unsplit_k == [L, L if hybrid else 0]
+                       and unsplit_k == [per, L if hybrid else 0]
                        and max(run["step_k3"]) == 0),
           f"{label}: {run['prefill_k3']} K3 and {run['prefill_k4']} K4 "
-          f"launches in the mesh prefill (not {L * n} each), {unsplit_k} "
-          f"unsplit, {run['step_k3']} K3 a decode step")
+          f"launches in the mesh prefill (not {per * n} and "
+          f"{L * n if hybrid else 0}), {unsplit_k} unsplit, "
+          f"{run['step_k3']} K3 a decode step")
     out["_params"], out["_want"], out["_run"] = P, want, run
     return out
 
 
 def cache_gaps(got, want) -> dict:
-    """A placed hybrid cache ``got`` against the unsplit ``want``: each
-    layer's k and v by relative L2, and for bf16 ones the share of
-    elements more than one bf16 rounding (2^-7 relative) apart;
-    positions equal; the SSM state by the relative L2 of each position's
-    piece against the same block of ``want``'s."""
+    """A placed cache ``got`` against the unsplit ``want``: each k, v
+    (the hybrid family's per layer), Whisper's xk and xv and RWKV-6's
+    token shifts by relative L2, and for bf16 ones the share of elements
+    more than one bf16 rounding (2^-7 relative) apart; positions equal;
+    the recurrent state (Hymba's "ssm", RWKV-6's "state") by the relative
+    L2 of each position's piece against the same block of ``want``'s."""
     import torch
     out = {"kv_rel_l2": 0.0, "kv_bf16_share_over_one_rounding": 0.0,
-           "pos_equal": True, "ssm_rel_l2": 0.0}
-    for g, w in zip(got["layers"], want["layers"]):
-        for name, b in w.items():
-            a = g[name].gather(b.device)
-            if name == "pos":
-                out["pos_equal"] &= bool(torch.equal(a, b))
-                continue
-            a, b = a.float(), b.float()
-            out["kv_rel_l2"] = max(out["kv_rel_l2"],
-                                   rel_l2_each({0: a}, {0: b})[0])
-            if w[name].dtype == torch.bfloat16:
-                out["kv_bf16_share_over_one_rounding"] = max(
-                    out["kv_bf16_share_over_one_rounding"],
-                    float(((a - b).abs() > b.abs() * 2 ** -7).float()
-                          .mean()))
-    x = got["ssm"]
-    for piece, blk in zip(x.pieces, x.blocks()):
-        ref = want["ssm"][tuple(slice(lo, hi) for lo, hi in blk)]
-        out["ssm_rel_l2"] = max(out["ssm_rel_l2"], rel_l2_each(
-            {0: piece.to(ref.device)}, {0: ref})[0])
+           "pos_equal": True}
+    leaves = []
+    for g, w in zip(got.get("layers", []), want.get("layers", [])):
+        leaves += [(name, g[name], b) for name, b in w.items()]
+    leaves += [(name, got[name], b) for name, b in want.items()
+               if name != "layers"]
+    for name, x, b in leaves:
+        if name in ("ssm", "state"):
+            key = f"{name}_rel_l2"
+            for piece, blk in zip(x.pieces, x.blocks()):
+                ref = b[tuple(slice(lo, hi) for lo, hi in blk)]
+                out[key] = max(out.get(key, 0.0), rel_l2_each(
+                    {0: piece.to(ref.device)}, {0: ref})[0])
+            continue
+        a = x.gather(b.device)
+        if name == "pos":
+            out["pos_equal"] &= bool(torch.equal(a, b))
+            continue
+        af, bf = a.float(), b.float()
+        out["kv_rel_l2"] = max(out["kv_rel_l2"],
+                               rel_l2_each({0: af}, {0: bf})[0])
+        if b.dtype == torch.bfloat16:
+            out["kv_bf16_share_over_one_rounding"] = max(
+                out["kv_bf16_share_over_one_rounding"],
+                float(((af - bf).abs() > bf.abs() * 2 ** -7).float()
+                      .mean()))
     return out
 
 
 def float32_served_on_mesh(label: str, dev, cfg, mesh, toks, new: int,
-                           cp_too: bool, gen) -> tuple:
-    """Hymba in float32 compute at FAM_MESH_F32_LAYERS layers, fresh
-    weights from ``gen``, over ``mesh`` against the unsplit float32 run:
-    `plan`'s serve8 prefill (the logits) and the cache `spmd.prefill`
-    writes; ``new`` decode steps of `plan`'s serve8 step from the unsplit
-    prefill's cache in float32 slots, fed the unsplit run's greedy
-    tokens, and the cache after them; with ``cp_too``, `plan`'s cp
-    prefill. Each logits within FAM_MESH_F32_REL of its largest value in
+                           cp_too: bool, gen, extra=None,
+                           preset: str = "serve8") -> tuple:
+    """A family in float32 compute at FAM_MESH_F32_LAYERS layers (both
+    of Whisper's stacks), fresh weights from ``gen``, over ``mesh``
+    against the unsplit float32 run of the prompts ``toks`` and the
+    family's ``extra`` inputs: `plan`'s ``preset`` prefill (the logits)
+    and the cache `spmd.prefill` writes; ``new`` decode steps of `plan`'s
+    ``preset`` step from the unsplit prefill's cache in float32 slots,
+    fed the unsplit run's greedy tokens, and the cache after them; with
+    ``cp_too``, `plan`'s cp prefill. Each logits within FAM_MESH_F32_REL of its largest value in
     the unsplit run; the prefill's bf16 k and v within one bf16 rounding
-    (2^-8) by relative L2 (each layer's; per element, an entry that
-    cancels to near zero moves by more than its own rounding when the
-    layers' float32 sums run in another order), the float32 ones after
-    the decode steps and the SSM state per head block within
-    FAM_MESH_F32_REL (relative L2), positions equal. A bf16 control, the unsplit run of the same
+    (2^-8) by relative L2 (each layer's, and Whisper's xk and xv, RWKV's
+    token shifts; per element, an entry that cancels to near zero moves
+    by more than its own rounding when the layers' float32 sums run in
+    another order), the float32 ones after the decode steps and the
+    recurrent state per head block within FAM_MESH_F32_REL (relative
+    L2), positions equal. A bf16 control, the unsplit run of the same
     weights in bf16 compute fed the same tokens, reads against the same
     bar and must exceed it. Returns (the readings, [K3, K4] launches of
     the mesh runs)."""
@@ -4741,13 +4896,16 @@ def float32_served_on_mesh(label: str, dev, cfg, mesh, toks, new: int,
     cuda = dev.type == "cuda"
     cf = dataclasses.replace(cfg, dtype="float32",
                              n_layers=FAM_MESH_F32_LAYERS)
+    if cf.enc_dec:
+        cf = dataclasses.replace(cf, enc_layers=FAM_MESH_F32_LAYERS)
+    extra = extra or {}
     B, prompt = toks.shape
     max_len = prompt + new
     n, L = mesh.size, cf.n_layers
     lay = spmd.Layout(cf, mesh)
     params = transformer.build_param_table(cf).init(gen, device=dev,
                                                     dtype=torch.float32)
-    batch = {"tokens": toks}
+    batch = {"tokens": toks, **extra}
 
     def slots32(c):
         """A copy of the cache ``c``, its floating leaves in float32."""
@@ -4774,18 +4932,20 @@ def float32_served_on_mesh(label: str, dev, cfg, mesh, toks, new: int,
         bars = [FAM_MESH_F32_REL * float(w.abs().max()) for w in want]
         cb = dataclasses.replace(cf, dtype="bfloat16")
         ctrl = serve8_unsplit(dev, cb, tree_map(torch.Tensor.bfloat16,
-                                                params), toks, new, feed)[0]
+                                                params), toks, new, feed,
+                              extra=extra)[0]
 
         def over(got):
             return [float((a - b).abs().max()) / bar
                     for a, b, bar in zip(got, want, bars)]
-        rules = steps.resolve_rules("serve8")
+        rules = steps.resolve_rules(preset)
         pfn, _s, pins, _o, _d = steps.plan(
             cf, ShapeConfig("prefill", prompt, B, "prefill"), mesh, rules)
         P = M.place_tree(params, pins[0])
         lg, _c = counted(lambda: pfn(P, batch))
         pre = [lg.gather(dev).float()]
-        placed = {"tokens": M.place(toks, M.data_sharding(mesh, B, 2))}
+        placed = {k: M.place(v, M.data_sharding(mesh, B, v.dim()))
+                  for k, v in batch.items()}
         _, mc = counted(lambda: spmd.prefill(cf, mesh, P, placed,
                                              max_len=max_len))
         after_prefill = cache_gaps(mc, c0)
@@ -4802,7 +4962,7 @@ def float32_served_on_mesh(label: str, dev, cfg, mesh, toks, new: int,
         gaps = over(pre + got)
         out = {"mesh": dict(mesh.shape), "n_layers": L, "dtype": "float32",
                "batch": B, "prompt": prompt, "new_tokens": new,
-               "split_heads": lay.split_heads,
+               "preset": preset, "split_heads": lay.split_heads,
                "bar_rule": "FAM_MESH_F32_REL x each logits' largest |value| "
                "in the unsplit float32 run", "rel": FAM_MESH_F32_REL,
                "logits_max_abs": max(float(w.abs().max()) for w in want),
@@ -4824,38 +4984,40 @@ def float32_served_on_mesh(label: str, dev, cfg, mesh, toks, new: int,
             out["cp_prefill_over_bar"] = over([lg.gather(dev).float()])[0]
             ok.append(out["cp_prefill_over_bar"])
             del _c
-    pre_k = 2 * L * n + (L * n if cp_too else 0)
+    passes = 2 + bool(cp_too)
+    want_k = [passes * k3_per_pass(cf, prompt) * n,
+              passes * L * n if cf.family == "hybrid" else 0]
     out["launches"] = {"flash_attention": k[0], "ssm_scan": k[1],
-                       "expected_each": pre_k}
+                       "expected": want_k}
     check(max(ok) <= 1 and all(map(finite, pre + got)),
           f"{label} in float32 over the mesh against the unsplit run: "
           f"{ok} of the bar")
     cg = [after_prefill, after_decode]
     check(after_prefill["kv_rel_l2"] <= 2 ** -8
           and after_decode["kv_rel_l2"] <= FAM_MESH_F32_REL
-          and all(c["pos_equal"] and c["ssm_rel_l2"] <= FAM_MESH_F32_REL
-                  for c in cg),
+          and all(c["pos_equal"] and all(
+              v <= FAM_MESH_F32_REL for key, v in c.items()
+              if key in ("ssm_rel_l2", "state_rel_l2")) for c in cg),
           f"{label} in float32: the mesh cache against the unsplit one {cg}")
     check(out["bf16_control_over_bar"] > 1,
           f"{label}: the bf16 control reads {out['bf16_control_over_bar']} "
           f"of the float32 bar, which would not see it")
-    check(not cuda or k == [pre_k, pre_k],
+    check(not cuda or k == want_k,
           f"{label} in float32: {k} K3 and K4 launches over the mesh, not "
-          f"{pre_k} each (every layer and position a prefill)")
+          f"{want_k} (every layer and position a prefill)")
     return out, k
 
 
 def lm_mesh_families_slice_phase(card: str, dev, devs,
-                                 profile_train: bool = True):
+                                 profile_train: bool = True,
+                                 bf16_train: bool = True,
+                                 new: int = MESH_NEW, serve_layers: int = 0):
     """The hybrid and VLM families over meshes of ``devs`` (cycled to the
-    mesh's size). Hymba-1.5B on FAM_MESH_SHAPE: the tp training step
-    (`launch.steps.plan`, float32 masters, bf16 compute copies) against
-    the unsplit step from the same state, in float32 compute at
-    FAM_MESH_F32_LAYERS layers within FAM_MESH_F32_REL, the loss and
-    first moments (the MoE phase's check), and in bf16 at full depth
-    within twice the unsplit step's own bf16-vs-float32 gap; the same
-    float32 step on FAM_MESH_SPLIT, where the heads split; K3 and K4
-    launches a step counted. Serve8 (the hybrid cache in bf16) and a cp
+    mesh's size). Hymba-1.5B's tp training step on FAM_MESH_SHAPE and,
+    in float32, on FAM_MESH_SPLIT, where the heads split
+    (`mesh_train_compare`: the float32 checks at FAM_MESH_F32_LAYERS
+    layers, the full-depth bf16 step held at twice the unsplit step's
+    own bf16-vs-float32 gap). Serve8 (the hybrid cache in bf16) and a cp
     prefill on FAM_MESH_SHAPE, and prefill and FAM_MESH_SPLIT_NEW decode
     steps on FAM_MESH_SPLIT, timed at full depth with their gap to the
     unsplit run reported, and each held in float32 compute by
@@ -4863,25 +5025,24 @@ def lm_mesh_families_slice_phase(card: str, dev, devs,
     with its vision embeds and M-RoPE positions, held at twice the
     unsplit run's own bf16-vs-float32 gap. A warm decode step of each
     serving run is profiled, and with ``profile_train`` the tp step too
-    (its profiler's post-processing takes about a minute). Returns
+    (its profiler's post-processing takes about a minute). Without
+    ``bf16_train`` the full-depth bf16 steps (unsplit, its float32
+    yardstick, tp) are left out and the train line's "reduced" says so;
+    ``new`` decode steps on FAM_MESH_SHAPE and FAM_MESH_VLM_SHAPE, and
+    with ``serve_layers`` the serving runs at that many layers (each
+    serving line's "reduced"). Returns
     (report, {"flash_attention": K3 launches, "ssm_scan": K4 launches}
     of the mesh runs)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data.tokens import TokenPipeline
     from repro_torch.distributed import meshes as M
     from repro_torch.distributed import spmd
-    from repro_torch.kernels import ops
     from repro_torch.launch import steps
-    from repro_torch.launch import train as train_lib
-    from repro_torch.launch.train import batch_on
     from repro_torch.models import transformer
-    from repro_torch.models.layers import tree_leaves
-    from repro_torch.optim import adamw
-    batch, seq, accum = MESH_BATCH, MESH_SEQ, MESH_ACCUM
-    prompt, new = MESH_PROMPT, MESH_NEW
+    batch = MESH_BATCH
+    prompt = MESH_PROMPT
     cuda = dev.type == "cuda"
     t0 = time.perf_counter()
     timing = {}
@@ -4890,128 +5051,32 @@ def lm_mesh_families_slice_phase(card: str, dev, devs,
               "distinct_cards": len(set(devs))}
 
     # -- Hymba: the tp step on FAM_MESH_SHAPE against the unsplit step,
-    # from the same state: in bf16 at full depth, each first moment
-    # within twice the unsplit step's own bf16-vs-float32 gap of that
-    # leaf; in float32 compute at FAM_MESH_F32_LAYERS layers within
-    # FAM_MESH_F32_REL, on FAM_MESH_SHAPE and on FAM_MESH_SPLIT --------
+    # from the same state (`mesh_train_compare`): in bf16 at full depth,
+    # each first moment within twice the unsplit step's own
+    # bf16-vs-float32 gap of that leaf; in float32 compute at
+    # FAM_MESH_F32_LAYERS layers within FAM_MESH_F32_REL, on
+    # FAM_MESH_SHAPE and on FAM_MESH_SPLIT -----------------------------------
     cfg = get_arch(FAM_MESH_HYMBA)
     mesh, _ = mesh_on(devs, FAM_MESH_SHAPE)
     mesh5, _ = mesh_on(devs, FAM_MESH_SPLIT)
     lay = spmd.Layout(cfg, mesh)
-    shape_t = ShapeConfig("train", seq, batch, "train", grad_accum=accum)
-    pipe = TokenPipeline(cfg.vocab_size, seq, batch)
-    tokens_per_step = batch * seq
-    c32 = dataclasses.replace(cfg, dtype="float32")
-    cf = dataclasses.replace(c32, n_layers=FAM_MESH_F32_LAYERS)
-    train = {"mesh": dict(mesh.shape), "n_layers": cfg.n_layers,
-             "n_layers_float32_check": cf.n_layers,
-             "d_model": cfg.d_model, "n_heads": cfg.n_heads,
-             "n_kv_heads": cfg.n_kv_heads, "batch": batch, "seq": seq,
-             "grad_accum": accum, "remat": cfg.remat,
-             "reduced": f"n_layers {cfg.n_layers} -> {cf.n_layers} in the "
-             f"float32 checks only", "split_heads": lay.split_heads,
-             "split_ff": lay.split_ff,
-             "float32_split_mesh": dict(mesh5.shape),
-             "float32_split_mesh_split_heads":
-                 spmd.Layout(cf, mesh5).split_heads}
-
-    def per_step(c, n):
-        """K3 launches a step (forward and remat's recompute) and K4's
-        (those and its reverse-time backward), every layer, position and
-        micro-batch."""
-        r = 1 if c.remat else 0
-        return ((1 + r) * accum * c.n_layers * n,
-                (2 + r) * accum * c.n_layers * n)
-    runs = {}
-    for label, c, on, n_steps in (
-            ("unsplit", cfg, None, 1 + FAM_MESH_TIMED),
-            ("unsplit_float32", c32, None, 1),
-            ("tp", cfg, mesh, 1 + FAM_MESH_TIMED),
-            ("unsplit_float32_check", cf, None, 1),
-            ("tp_float32_check", cf, mesh, 1),
-            ("tp_split_float32_check", cf, mesh5, 1)):
-        free_card(dev)
-        if on is not None:
-            fn = steps.plan(c, shape_t, on, steps.resolve_rules("tp"))[0]
-            state = train_lib.build_state(c, dev, mesh=on)
-            r = {"state_bytes_per_position": M.nbytes_per_position(state)}
-            state, run = train_run(dev, fn, state, pipe.batch_at, n_steps,
-                                   FAM_MESH_LEAVES)
-            k3 += sum(run["k3_per_step"])
-            k4 += sum(run["k4_per_step"])
-        else:
-            fn = steps.make_train_step(c, shape_t)
-            state = train_lib.build_state(c, dev)
-            r = {"params": sum(a.numel() for a in tree_leaves(state[0]))}
-            state, run = train_run(dev, fn, state,
-                                   lambda i: batch_on(pipe.batch_at(i), {},
-                                                      dev),
-                                   n_steps, FAM_MESH_LEAVES)
-        r.update(run)
-        r["peak_gib"] = peak_gib(dev)
-        if cuda and profile_train and label == "tp":
-            b = pipe.batch_at(n_steps)
-            before, before4 = k3_launches(), k4_launches()
-            t = time.perf_counter()
-            r["step_device_profile"] = device_profile(
-                lambda: fn(*state, b), spans=(*ops.SPANS, adamw.SPAN))
-            r["step_device_profile"]["s"] = time.perf_counter() - t
-            k3 += k3_launches() - before
-            k4 += k4_launches() - before4
-        runs[label] = r
-        del state, fn
-        timing["hymba_train_" + label] = time.perf_counter() - t0
-    free_card(dev)
-    for label, r in runs.items():
-        train[label] = {
-            k: r[k] for k in ("params", "losses", "grad_norms", "metrics0",
-                              "ms_per_step", "step_ms", "first_step_ms",
-                              "k3_per_step", "k4_per_step", "peak_gib",
-                              "state_bytes_per_position",
-                              "step_device_profile") if k in r}
-        if r["ms_per_step"]:
-            train[label]["tokens_per_s"] = (tokens_per_step
-                                            / r["ms_per_step"] * 1e3)
-    u, u32, tp, uf, tpf, tps = (runs[k] for k in (
-        "unsplit", "unsplit_float32", "tp", "unsplit_float32_check",
-        "tp_float32_check", "tp_split_float32_check"))
-    train["sharded_over_unsplit"] = tp["ms_per_step"] / u["ms_per_step"]
-    # float32: the loss and first moments within FAM_MESH_F32_REL
-    f32 = {name: held_train(f"hymba mesh {name} step in float32", r, uf,
-                            dict.fromkeys(FAM_MESH_LEAVES, FAM_MESH_F32_REL),
-                            FAM_MESH_F32_REL * abs(uf["losses"][0]),
-                            per_step(cf, on.size)[0], cuda)
-           for name, r, on in (("tp", tpf, mesh), ("tp_split", tps, mesh5))}
-    # bf16: the loss and each leaf within twice the unsplit step's own
-    # bf16-vs-float32 gap (32 layers of random weights amplify a rounding
-    # of another summation order: the unsplit run's own gap reads ~1.3)
-    own = rel_l2_each(u["m0"], u32["m0"])
-    own_loss = abs(u["losses"][0] - u32["losses"][0])
-    bf16 = held_train("hymba mesh tp step", tp, u,
-                      {p: 2 * own[p] for p in FAM_MESH_LEAVES},
-                      2 * own_loss, per_step(cfg, mesh.size)[0], cuda)
-    bf16["bar_rule"] = ("2 x the unsplit step's own bf16-vs-float32 gap: "
-                        "the loss's and each leaf's first moment's")
-    bf16["unsplit_bf16_vs_float32_first_moment_rel_l2"] = own
-    bf16["unsplit_bf16_vs_float32_loss_gap"] = own_loss
-    expected = {}
-    for label, c, on, r in (("tp", cfg, mesh, tp),
-                            ("tp_float32_check", cf, mesh, tpf),
-                            ("tp_split_float32_check", cf, mesh5, tps)):
-        expected[label] = dict(zip(("flash_attention", "ssm_scan"),
-                                   per_step(c, on.size)))
-        check(not cuda or all(e == per_step(c, on.size)[1]
-                              for e in r["k4_per_step"]),
-              f"hymba mesh {label} step: {r['k4_per_step']} K4 launches a "
-              f"step, not {per_step(c, on.size)[1]}")
-    train["launches_expected_per_step"] = expected
-    train["checks"] = {"float32": f32, "bf16": bf16}
+    train, kt = mesh_train_compare(
+        "hymba mesh", dev, cfg, {"tp": mesh, "tp_split": mesh5}, MESH_SEQ,
+        FAM_MESH_LEAVES, bf16=bf16_train,
+        bf16_held=True, profile=profile_train)
+    if not bf16_train:
+        train["reduced"] += (": scripts/lm_mesh_slice.py families runs it "
+                             "at full depth")
+    k3, k4 = k3 + kt["flash_attention"], k4 + kt["ssm_scan"]
     report["hymba_train"] = train
-    del runs, u, u32, tp, uf, tpf, tps
+    timing["hymba_train"] = time.perf_counter() - t0
     free_card(dev)
 
     # -- Hymba serve8 on FAM_MESH_SHAPE, then a cp prefill, timed in bf16
-    # at full depth; then both held in float32 compute -------------------
+    # at full depth (``serve_layers``); then both held in float32 compute
+    full = cfg.n_layers
+    if serve_layers:
+        cfg = dataclasses.replace(cfg, n_layers=serve_layers)
     gen = torch.Generator(device=dev).manual_seed(3)
     params = transformer.build_param_table(cfg).init(
         gen, device=dev, dtype=torch.bfloat16)
@@ -5023,7 +5088,8 @@ def lm_mesh_families_slice_phase(card: str, dev, devs,
     run = serve.pop("_run")
     k3 += run["prefill_k3"] + sum(run["step_k3"])
     k4 += run["prefill_k4"]
-    serve["reduced"] = None
+    serve["reduced"] = phase_cuts(1, 1, new, MESH_NEW, True, serve_layers,
+                                  full)
     P, want = serve.pop("_params"), serve.pop("_want")
     del run
     free_card(dev)
@@ -5079,7 +5145,8 @@ def lm_mesh_families_slice_phase(card: str, dev, devs,
     k4 += run["prefill_k4"]
     split.pop("_params")
     split.pop("_want")
-    split["reduced"] = f"new tokens {new} -> {FAM_MESH_SPLIT_NEW}"
+    split["reduced"] = phase_cuts(1, 1, FAM_MESH_SPLIT_NEW, MESH_NEW, True,
+                                  serve_layers, full)
     check(not cuda or split["split_heads"],
           f"hymba on {FAM_MESH_SPLIT}: the heads do not split")
     del run
@@ -5096,6 +5163,9 @@ def lm_mesh_families_slice_phase(card: str, dev, devs,
 
     # -- Qwen2-VL-7B serve8 on FAM_MESH_VLM_SHAPE ---------------------------
     cfg = get_arch(FAM_MESH_VLM)
+    full = cfg.n_layers
+    if serve_layers:
+        cfg = dataclasses.replace(cfg, n_layers=serve_layers)
     meshv, _ = mesh_on(devs, FAM_MESH_VLM_SHAPE)
     params = transformer.build_param_table(cfg).init(
         gen, device=dev, dtype=torch.bfloat16)
@@ -5109,7 +5179,8 @@ def lm_mesh_families_slice_phase(card: str, dev, devs,
     k3 += run["prefill_k3"] + sum(run["step_k3"])
     vl.pop("_params")
     vl.pop("_want")
-    vl["reduced"] = None
+    vl["reduced"] = phase_cuts(1, 1, new, MESH_NEW, True, serve_layers,
+                               full)
     vl["n_vision_tokens"] = cfg.n_vision_tokens
     vl["mrope_sections"] = list(cfg.mrope_sections)
     report["vlm_serve"] = vl
@@ -5120,6 +5191,413 @@ def lm_mesh_families_slice_phase(card: str, dev, devs,
     report["wall_s"] = time.perf_counter() - t0
     report["launches"] = {"flash_attention": k3, "ssm_scan": k4}
     return report, {"flash_attention": k3, "ssm_scan": k4}
+
+
+# -- Whisper large-v3 and RWKV-6 3B over a (data, model) mesh ----------------
+# Whisper serve8 on (1, 4): the families slice's 8 prompts of 224 tokens
+# over 1500 stub frames (5 query and 5 KV heads and 375 cross-cache
+# frames a shard), WR_WHISPER_NEW decode steps on the int8 self cache; a
+# cp prefill on (2, 2), the encoder's 750-query blocks over its 1500
+# keys. Its tp step on (2, 2): 8 x 224 decoder tokens over 8 x 1500
+# frames, two micro-batches, remat, full depth. RWKV-6 3B tp serving on
+# (1, 4): the families slice's 8 prompts of 1024 tokens, 10 heads a
+# shard, WR_RWKV_NEW decode steps fed the families slice's greedy tokens
+# (its run is the unsplit yardstick: the same weights and prompts); its
+# tp step on (2, 2) at WR_RWKV_TRAIN_LAYERS of 32 layers (the float32
+# state, moments and the recurrence's saved states of 3.1 B parameters
+# do not fit beside the rest at full depth) over WR_RWKV_TRAIN_SEQ
+# tokens a row (the autograd loop over time issues ~30k launches a layer
+# and position at 1024, 31 s a mesh step at 4 layers). The checks run at
+# FAM_MESH_F32_LAYERS and cover every leaf; RWKV-6's in float64 compute:
+# its float32 step at random weights is ill-conditioned (u_bonus starts
+# at zero, so the token at t = 0 reaches the group norm with no variance,
+# whose gradient there is 1/sqrt(eps) = 316 times the incoming one; that
+# leaf carries 99.9% of the grad norm), and on an H100 the unsplit float32
+# step regrouped (grad_accum 1 for 2, the same function) moves u_bonus's
+# moment by 1.3e-3 and the median leaf by 1.0e-4, the bar
+# (`scripts/rwkv_mesh_rounding.py`). In float64
+# (`layers.wide`: the norms, the recurrence and the loss head in float64
+# too) a split fault keeps its size while the rounding falls to the
+# float32 moments' own (6.3e-8 read)
+WR_WHISPER, WR_RWKV = "whisper-large-v3", "rwkv6-3b"
+WR_SERVE_SHAPE, WR_TRAIN_SHAPE = (1, 4), (2, 2)
+WR_WHISPER_PROMPT, WR_WHISPER_NEW = 224, 16
+WR_RWKV_NEW = 8
+# RWKV's warm-up prefill: 16 tokens (its 1024-token prefill over the
+# mesh is a step loop of ~400k launches, ~6 s; no kernel is built)
+WR_RWKV_WARM = 16
+WR_TRAIN_SEQ = 224
+WR_RWKV_TRAIN_LAYERS, WR_RWKV_TRAIN_SEQ = 4, 128
+WR_RWKV_CHECK_DTYPE = "float64"
+
+
+def k4_per_pass(cfg) -> int:
+    """K4 launches a forward makes at each mesh position: one a hybrid
+    layer (its SSM heads), none for the other families."""
+    return cfg.n_layers if cfg.family == "hybrid" else 0
+
+
+def mesh_train_compare(label: str, dev, cfg, meshes: dict, seq: int,
+                       leaves=None, layers: int = 0, bf16: bool = True, bf16_held: bool = False,
+                       profile: bool = False, check_dtype: str = "float32"):
+    """The tp training step (`launch.steps.plan`, float32 masters, the
+    compute copies in ``cfg``'s type) of ``cfg`` (cut to ``layers``
+    layers of each stack where given) on each mesh of ``meshes`` ({name:
+    mesh}, the first the bf16 one) against the unsplit step from the same
+    state and `TokenPipeline` batches of MESH_BATCH x ``seq`` (Whisper's
+    frames beside them), MESH_ACCUM micro-batches. First moments are
+    compared with the clip scale divided out (`train_run`'s
+    ``unclipped``), for ``leaves`` (every leaf where None).
+
+    - ``check_dtype`` compute (float32, or float64 where the float32
+      step's own rounding exceeds the bar) at FAM_MESH_F32_LAYERS, on
+      every mesh: the loss, the grad norm and each first moment within
+      FAM_MESH_F32_REL. The leaf that carries the grad norm's gap is
+      reported (each leaf's share of the squared norm's change).
+    - The unsplit bf16 step at that depth, a control, read against the
+      same bar, must exceed it.
+    - With ``bf16``: 1 + FAM_MESH_TIMED steps unsplit and on the first mesh in
+      ``cfg``'s type, timed; their gap reported or, with ``bf16_held``,
+      held within twice the unsplit step's own bf16-vs-float32 gap (the
+      loss's and each leaf's first moment's), which takes one more
+      unsplit step in float32 at that depth. With ``profile`` (on the
+      card) a warm step of that mesh run is profiled.
+
+    K3 and K4 launches a step counted and held. Returns (report,
+    {"flash_attention": K3, "ssm_scan": K4 launches of the mesh runs})."""
+    import dataclasses
+    import math
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.distributed import meshes as M
+    from repro_torch.distributed import spmd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import adamw
+    cuda = dev.type == "cuda"
+
+    def cut(c, n):
+        over = {"n_layers": n}
+        if c.enc_dec:
+            over["enc_layers"] = n
+        return dataclasses.replace(c, **over)
+    full = cfg.n_layers
+    layers = layers if layers and layers < full else 0
+    if layers:
+        cfg = cut(cfg, layers)
+    batch, accum, timed = MESH_BATCH, MESH_ACCUM, FAM_MESH_TIMED
+    shape_t = ShapeConfig("train", seq, batch, "train", grad_accum=accum)
+    extra = {k: v for k, v in steps.input_specs(cfg, shape_t).items()
+             if k not in ("tokens", "labels")}
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch)
+    cf = dataclasses.replace(cut(cfg, FAM_MESH_F32_LAYERS),
+                             dtype=check_dtype)
+    cb = dataclasses.replace(cf, dtype="bfloat16")
+    held = f"{check_dtype}_check"
+    main = next(iter(meshes))
+    reduced = [f"n_layers {full} -> {cfg.n_layers}"] if layers else []
+    if cf.n_layers < cfg.n_layers:
+        reduced.append(f"n_layers {cfg.n_layers} -> {cf.n_layers} in the "
+                       f"{check_dtype} checks")
+    if not bf16:
+        reduced.append("no bf16 step at the run's depth (unsplit, tp)")
+    out = {"meshes": {}, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "batch": batch, "seq": seq, "grad_accum": accum,
+           "remat": cfg.remat, "check_dtype": check_dtype,
+           "n_layers_check": cf.n_layers,
+           "reduced": "; ".join(reduced) or None}
+    for name, mesh in meshes.items():
+        lay = spmd.Layout(cfg, mesh)
+        out["meshes"][name] = {
+            "shape": dict(mesh.shape), "split_heads": lay.split_heads,
+            "heads_per_shard": lay.heads(0)[1] - lay.heads(0)[0],
+            "split_ff": lay.split_ff}
+    if cfg.enc_dec:
+        out["enc_frames"] = cfg.enc_len
+
+    def per_step(c, n):
+        """K3 launches a step (forward and remat's recompute) and K4's
+        (those and its reverse-time backward), every layer, position and
+        micro-batch."""
+        r = bool(c.remat)
+        return ((1 + r) * accum * k3_per_pass(c, seq) * n,
+                (2 + r) * accum * k4_per_pass(c) * n)
+    plan_runs = []
+    if bf16:
+        plan_runs.append(("unsplit", cfg, None, 1 + timed))
+        if bf16_held:
+            plan_runs.append(("unsplit_float32",
+                              dataclasses.replace(cfg, dtype="float32"),
+                              None, 1))
+        plan_runs.append((main, cfg, meshes[main], 1 + timed))
+    plan_runs.append((f"unsplit_{held}", cf, None, 1))
+    plan_runs += [(f"{name}_{held}", cf, mesh, 1)
+                  for name, mesh in meshes.items()]
+    if not (bf16 and cb == cfg):  # else the unsplit bf16 run is the control
+        plan_runs.append(("unsplit_bf16_control", cb, None, 1))
+    runs, k3, k4 = {}, 0, 0
+    for name, c, on, n_steps in plan_runs:
+        free_card(dev)
+        if on is not None:
+            fn = steps.plan(c, shape_t, on, steps.resolve_rules("tp"))[0]
+            state = train_lib.build_state(c, dev, mesh=on)
+            r = {"state_bytes_per_position": M.nbytes_per_position(state)}
+            state, run = train_run(dev, fn, state,
+                                   lambda i: pipe.batch_at(i, extra),
+                                   n_steps, leaves, unclipped=True)
+            k3 += sum(run["k3_per_step"])
+            k4 += sum(run["k4_per_step"])
+            want = per_step(c, on.size)
+            check(not cuda or all(e == want[1] for e in run["k4_per_step"]),
+                  f"{label} {name} step: {run['k4_per_step']} K4 launches "
+                  f"a step, not {want[1]}")
+            if cuda and profile and name == main:
+                b = pipe.batch_at(n_steps, extra)
+                before, before4 = k3_launches(), k4_launches()
+                t = time.perf_counter()
+                r["step_device_profile"] = device_profile(
+                    lambda: fn(*state, b), spans=(*ops.SPANS, adamw.SPAN))
+                r["step_device_profile"]["s"] = time.perf_counter() - t
+                k3 += k3_launches() - before
+                k4 += k4_launches() - before4
+        else:
+            fn = steps.make_train_step(c, shape_t)
+            state = train_lib.build_state(c, dev)
+            r = {"params": sum(a.numel() for a in tree_leaves(state[0]))}
+            state, run = train_run(
+                dev, fn, state,
+                lambda i: batch_on(pipe.batch_at(i, extra), extra, dev),
+                n_steps, leaves, unclipped=True)
+        r.update(run)
+        r["peak_gib"] = peak_gib(dev)
+        runs[name] = r
+        del state, fn
+    free_card(dev)
+    for name, r in runs.items():
+        out[name] = {k: r[k] for k in (
+            "params", "losses", "grad_norms", "ms_per_step", "step_ms",
+            "first_step_ms", "k3_per_step", "k4_per_step", "peak_gib",
+            "state_bytes_per_position", "step_device_profile") if k in r}
+        if r["ms_per_step"]:
+            out[name]["tokens_per_s"] = batch * seq / r["ms_per_step"] * 1e3
+    uf = runs[f"unsplit_{held}"]
+    total = sum(uf["sq0"].values())
+    checked = {}
+    for name, mesh in meshes.items():
+        r = runs[f"{name}_{held}"]
+        checked[name] = held_train(
+            f"{label} {name} step in {check_dtype}", r, uf,
+            dict.fromkeys(uf["m0"], FAM_MESH_F32_REL),
+            FAM_MESH_F32_REL * abs(uf["losses"][0]),
+            per_step(cf, mesh.size)[0], cuda, FAM_MESH_F32_REL)
+        share = {p: (r["sq0"][p] - uf["sq0"][p]) / (2 * total)
+                 for p in uf["sq0"]}
+        top = sorted(share, key=lambda p: -abs(share[p]))[:3]
+        checked[name]["grad_norm_gap_by_leaf"] = {p: share[p] for p in top}
+        checked[name]["grad_norm_share_by_leaf"] = {
+            p: uf["sq0"][p] / total for p in top}
+    ctl = runs.get("unsplit_bf16_control", runs.get("unsplit"))
+    control = rel_l2_each(ctl["m0"], uf["m0"])
+    over_bar = max(control.values()) / FAM_MESH_F32_REL
+    check(over_bar > 1, f"{label}: the bf16 control reads {over_bar} of "
+          f"the {check_dtype} bar")
+    checks = {check_dtype: checked, "bf16_control_over_bar": over_bar,
+              "bf16_control_rule": "the unsplit step in bf16 compute at the "
+              f"same depth, state and batch, against the {check_dtype} one: "
+              "its largest first-moment gap over the bar must exceed 1",
+              "bf16": None}
+    if bf16:
+        u, tp = runs["unsplit"], runs[main]
+        out["sharded_over_unsplit"] = tp["ms_per_step"] / u["ms_per_step"]
+        check(all(map(math.isfinite, tp["losses"] + tp["grad_norms"])),
+              f"{label} {main} step: a non-finite loss or grad norm")
+        want = per_step(cfg, meshes[main].size)[0]
+        check(not cuda or all(e == want for e in tp["k3_per_step"]),
+              f"{label} {main} step: {tp['k3_per_step']} K3 launches a "
+              f"step, not {want}")
+        if bf16_held:
+            u32 = runs["unsplit_float32"]
+            own = rel_l2_each(u["m0"], u32["m0"])
+            own_loss = abs(u["losses"][0] - u32["losses"][0])
+            checks["bf16"] = held_train(
+                f"{label} {main} step", tp, u,
+                {p: 2 * own[p] for p in own}, 2 * own_loss, want, cuda)
+            checks["bf16"]["bar_rule"] = (
+                "2 x the unsplit step's own bf16-vs-float32 gap: the "
+                "loss's and each leaf's first moment's")
+            checks["bf16"]["unsplit_bf16_vs_float32_first_moment_rel_l2"] \
+                = own
+        else:
+            checks["bf16"] = {
+                "held": False, "loss_gap_step0": abs(
+                    tp["losses"][0] - u["losses"][0]),
+                "first_moment_rel_l2_layer0": rel_l2_each(tp["m0"],
+                                                          u["m0"])}
+    out["checks"] = checks
+    out["launches_expected_per_step"] = {
+        name: dict(zip(("flash_attention", "ssm_scan"),
+                       per_step(c, on.size)))
+        for name, c, on, _n in plan_runs if on is not None}
+    return out, {"flash_attention": k3, "ssm_scan": k4}
+
+
+def lm_mesh_whisper_rwkv_slice_phase(card: str, dev, devs, yardsticks=None,
+                                     rwkv_train_seq: int = WR_RWKV_TRAIN_SEQ,
+                                     archs=None, batch: int = MESH_BATCH):
+    """Whisper large-v3 and RWKV-6 3B over meshes of ``devs`` (cycled to
+    each mesh's size), at full width: Whisper serve8 on WR_SERVE_SHAPE
+    and a cp prefill on WR_TRAIN_SHAPE (full depth, timed, the gap to the
+    unsplit run reported; held in float32 compute at FAM_MESH_F32_LAYERS
+    by `float32_served_on_mesh`, a bf16 control beside it), its tp step
+    on WR_TRAIN_SHAPE at full depth (`mesh_train_compare`); RWKV-6's tp
+    serving on WR_SERVE_SHAPE at full depth against ``yardsticks``'s
+    run of the same weights and prompts (`family_run`'s; run here when
+    absent) and held in float32 alike, its tp step at
+    WR_RWKV_TRAIN_LAYERS layers over ``rwkv_train_seq`` tokens a row,
+    held in WR_RWKV_CHECK_DTYPE compute. A warm decode step of each
+    serving run is profiled. ``archs`` maps a name to its config (default
+    the published ones). Returns (report, {"flash_attention": K3 launches of
+    the mesh runs})."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import meshes as M
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import tree_map
+    archs = archs or ARCHS
+    yardsticks = yardsticks or {}
+    t0 = time.perf_counter()
+    timing, k3 = {}, 0
+    report = {"card": card, "devices": [str(d) for d in devs],
+              "distinct_cards": len(set(devs))}
+    mesh_s, _ = mesh_on(devs, WR_SERVE_SHAPE)
+    mesh_t, _ = mesh_on(devs, WR_TRAIN_SHAPE)
+
+    def weights(cfg, length):
+        """The families slice's weights and inputs of ``cfg`` (`family_run`
+        draws them from a generator seeded with 0 in this order)."""
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = transformer.build_param_table(cfg).init(
+            gen, device=dev, dtype=torch.bfloat16)
+        return (gen, params) + family_inputs(cfg, gen, dev, batch, length)
+
+    # -- Whisper serve8 on WR_SERVE_SHAPE, then a cp prefill on
+    # WR_TRAIN_SHAPE; both held in float32 compute --------------------------
+    cfg = archs[WR_WHISPER]
+    prompt, new = WR_WHISPER_PROMPT, WR_WHISPER_NEW
+    gen, params, tokens, extra = weights(cfg, prompt + LM_STEPS)
+    toks = tokens[:, :prompt]
+    serve = served_on_mesh("whisper serve8", dev, cfg, params, mesh_s, toks,
+                           extra, new, held=False)
+    del params
+    run = serve.pop("_run")
+    k3 += run["prefill_k3"] + sum(run["step_k3"])
+    serve["reduced"] = None
+    serve["enc_frames"] = cfg.enc_len
+    serve["cross_cache_frames_per_shard"] = run["cache"]["xk"].pieces[0] \
+        .shape[2]
+    P, want = serve.pop("_params"), serve.pop("_want")
+    del run
+    whole = tree_map(lambda x: x.gather(dev), P)
+    del P
+    free_card(dev)
+    timing["whisper_serve"] = time.perf_counter() - t0
+    pshape = ShapeConfig("prefill", prompt, batch, "prefill")
+    cfn, _s, cins, _o, _d = steps.plan(cfg, pshape, mesh_t,
+                                       steps.resolve_rules("cp"))
+    P = place_consuming(whole, cins[0])
+    del whole
+    placed = {k: M.place(v, M.data_sharding(mesh_t, batch, v.dim()))
+              for k, v in {"tokens": toks, **extra}.items()}
+    cfn(P, placed)                                               # warm
+    before = k3_launches()
+    (lg, _c), cp_ms = timed_ms(dev, lambda: cfn(P, placed))
+    cp_k = k3_launches() - before
+    k3 += cp_k
+    cp_last = lg.gather(dev).float()
+    per = k3_per_pass(cfg, prompt) * mesh_t.size
+    serve["cp_prefill"] = {
+        "mesh": dict(mesh_t.shape), "prefill_warm_ms": cp_ms,
+        "peak_gib": peak_gib(dev), "k3_launches_prefill": cp_k,
+        "k3_launches_expected": per,
+        "encoder_block_queries": cfg.enc_len // mesh_t.shape["model"],
+        "logits_max_abs_gap_vs_unsplit": float(
+            (cp_last - want[0]).abs().max())}
+    check(finite(cp_last), "whisper cp prefill over the mesh: non-finite "
+          "logits")
+    check(dev.type != "cuda" or cp_k == per,
+          f"whisper cp prefill: {cp_k} K3 launches, not {per}")
+    del P, want, lg, _c, cp_last, placed
+    free_card(dev)
+    timing["whisper_cp_prefill"] = time.perf_counter() - t0
+    serve["float32"], kf = float32_served_on_mesh(
+        "whisper serve8", dev, cfg, mesh_s, toks, new, False, gen,
+        extra=extra)
+    serve["float32_cp"], kc = float32_served_on_mesh(
+        "whisper serve8 and cp prefill", dev, cfg, mesh_t, toks, new, True,
+        gen, extra=extra)
+    k3 += kf[0] + kc[0]
+    report["whisper_serve"] = serve
+    del toks, tokens, extra
+    free_card(dev)
+    timing["whisper_serve_float32"] = time.perf_counter() - t0
+
+    # -- Whisper's tp step on WR_TRAIN_SHAPE ---------------------------------
+    train, kt = mesh_train_compare("whisper mesh", dev, cfg,
+                                   {"tp": mesh_t}, WR_TRAIN_SEQ)
+    k3 += kt["flash_attention"]
+    report["whisper_train"] = train
+    timing["whisper_train"] = time.perf_counter() - t0
+
+    # -- RWKV-6 tp serving on WR_SERVE_SHAPE, against the families slice's
+    # run of the same weights and prompts ----------------------------------
+    cfg = archs[WR_RWKV]
+    prompt = LM_PROMPT
+    gen, params, tokens, extra = weights(cfg, LM_MAX_LEN)
+    toks = tokens[:, :prompt]
+    yard = yardsticks.get(WR_RWKV)
+    rserve = served_on_mesh("rwkv tp serving", dev, cfg, params, mesh_s,
+                            toks, extra, WR_RWKV_NEW, held=False,
+                            preset="tp", warm=WR_RWKV_WARM,
+                            yard=yard)
+    del params
+    run = rserve.pop("_run")
+    rserve.pop("_params")
+    rserve.pop("_want")
+    rserve["reduced"] = f"new tokens {MESH_NEW} -> {WR_RWKV_NEW}"
+    rserve["state_heads_per_shard"] = run["cache"]["state"].pieces[0] \
+        .shape[2]
+    del run
+    free_card(dev)
+    timing["rwkv_serve"] = time.perf_counter() - t0
+    rserve["float32"], _k = float32_served_on_mesh(
+        "rwkv tp serving", dev, cfg, mesh_s, toks, WR_RWKV_NEW, False, gen,
+        preset="tp")
+    report["rwkv_serve"] = rserve
+    del toks, tokens, extra
+    free_card(dev)
+    timing["rwkv_serve_float32"] = time.perf_counter() - t0
+
+    # -- RWKV-6's tp step on WR_TRAIN_SHAPE at WR_RWKV_TRAIN_LAYERS ---------
+    rtrain, _k = mesh_train_compare("rwkv mesh", dev, cfg, {"tp": mesh_t},
+                                    rwkv_train_seq,
+                                    layers=WR_RWKV_TRAIN_LAYERS,
+                                    check_dtype=WR_RWKV_CHECK_DTYPE)
+    rtrain["reduced"] = "; ".join(
+        x for x in (rtrain["reduced"], f"seq {MESH_SEQ} -> {rwkv_train_seq}")
+        if x)
+    report["rwkv_train"] = rtrain
+    free_card(dev)
+    timing["rwkv_train"] = time.perf_counter() - t0
+    report["timing_s"] = timing
+    report["wall_s"] = time.perf_counter() - t0
+    report["launches"] = {"flash_attention": k3}
+    return report, {"flash_attention": k3}
 
 
 def main() -> int:
@@ -5207,8 +5685,9 @@ def main() -> int:
     print("moe_slice " + json.dumps(moe_report), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    fam_report, fam_launches = families_slice_phase(card,
-                                                    torch.device("cuda"))
+    # RWKV-6's run there is the unsplit yardstick of its mesh serving
+    fam_report, fam_launches, yard = families_slice_phase(
+        card, torch.device("cuda"), keep={WR_RWKV: WR_RWKV_NEW})
     print("families_slice " + json.dumps(fam_report), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5232,11 +5711,20 @@ def main() -> int:
     print("lm_mesh_moe_slice " + json.dumps(moe_mesh_report), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    # the tp step's profile is `scripts/lm_mesh_slice.py families`'s
+    # the tp step's profile and the full-depth bf16 step are
+    # `scripts/lm_mesh_slice.py families`'s
     fam_mesh_report, fam_mesh_launches = lm_mesh_families_slice_phase(
-        card, torch.device("cuda"), split_devices(), profile_train=False)
+        card, torch.device("cuda"), split_devices(), profile_train=False,
+        bf16_train=False, new=SMOKE_MESH_NEW,
+        serve_layers=SMOKE_FAM_SERVE_LAYERS)
     print("lm_mesh_families_slice " + json.dumps(fam_mesh_report),
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wr_report, wr_launches = lm_mesh_whisper_rwkv_slice_phase(
+        card, torch.device("cuda"), split_devices(), yardsticks=yard)
+    del yard
+    print("lm_mesh_whisper_rwkv_slice " + json.dumps(wr_report), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     fams = fam_report["models"]
@@ -5286,12 +5774,14 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:67",
          # the Hymba, Moonlight, Qwen2-VL and Whisper prefills', the
          # Hymba training steps' (forward and recompute) and the Granite
-         # GPipe passes of the split slice, the mesh slices'
+         # GPipe passes of the split slice, the mesh slices' (Whisper's
+         # encoder, self- and cross-attention among them)
          "launches": lm_launches["flash_attention"]
          + moe_launches["flash_attention"] + fam_launches
          + train_lm_launches["flash_attention"]
          + split_launches["flash_attention"] + mesh_k3 + moe_mesh_k3
-         + fam_mesh_launches["flash_attention"],
+         + fam_mesh_launches["flash_attention"]
+         + wr_launches["flash_attention"],
          "max_abs_err": fr["max_abs_err"], "ms": fr["ms"],
          "plain_ms": fr["plain_ms"], "bound_ms": fr["bound_ms"],
          "bound_by": fr["bound_by"], "library_ms": fr["library_ms"]},

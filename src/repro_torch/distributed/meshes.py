@@ -607,18 +607,24 @@ def _exchange_plan(mesh: Mesh, src_spec: PartitionSpec,
     return sblk, dblk, None, tuple(reads)
 
 
+def _sum_type(dtype: torch.dtype) -> torch.dtype:
+    """The type a collective sums in: float32, or float64 for float64
+    pieces."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 class _Exchange(torch.autograd.Function):
     """Pieces of ``src`` -> pieces of the placement ``dst`` (not partial).
 
     Forward: every destination piece is assembled from the source: a
     non-partial source's blocks are copied from one holder each
     (`_holder`: its own piece, else a group peer's); a partial source is
-    summed in float32 over the destination's group (positions that differ
+    summed in float32 (`_sum_type`) over the destination's group (positions that differ
     only along the partial axes), once per group and block on the group's
     first device, and copied to the rest, so every device of a group
     holds the same values.
     Backward, the transpose: a non-partial source piece receives the
-    float32 sum, in mesh order, of the gradients of the destination
+    float32 (`_sum_type`) sum, in mesh order, of the gradients of the destination
     regions read from it (the transpose of a gather is a reduce-scatter);
     a partial source piece receives the sum over its group's destination
     pieces (the transpose of an all-reduce is an all-reduce). The copies
@@ -642,7 +648,7 @@ class _Exchange(torch.autograd.Function):
                         acc = None
                         for j in grp:        # mesh order
                             part = pieces[j][_region(key, sblk[j])].to(
-                                devs[grp[0]], torch.float32)
+                                devs[grp[0]], _sum_type(pieces[j].dtype))
                             acc = part if acc is None else acc + part
                         done[key] = acc
                     out[i] = done[key].to(devs[i], dtype or pieces[0].dtype,
@@ -668,9 +674,9 @@ class _Exchange(torch.autograd.Function):
         def add(j, region, g):
             if acc[j] is None:
                 acc[j] = torch.zeros([hi - lo for lo, hi in sblk[j]],
-                                     dtype=torch.float32, device=devs[j])
-            acc[j][_region(region, sblk[j])] += g.to(devs[j],
-                                                     torch.float32)
+                                     dtype=_sum_type(g.dtype),
+                                     device=devs[j])
+            acc[j][_region(region, sblk[j])] += g.to(devs[j], acc[j].dtype)
 
         if partial:
             for grp in groups:

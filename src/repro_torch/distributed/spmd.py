@@ -1,5 +1,6 @@
-"""The dense, mixture-of-experts, hybrid and VLM LM families over a
-(data, model) mesh, single-controller.
+"""Every LM family over a (data, model) mesh, single-controller: the
+dense, mixture-of-experts, hybrid, VLM, encoder-decoder (Whisper) and
+attention-free (RWKV-6) ones.
 
 No file of the JAX package corresponds to this one: there, GSPMD
 partitions `repro.models.transformer.loss_fn` and
@@ -117,8 +118,46 @@ with the vision embeds in place of the first positions
 placement, under cp each block takes its slice of the positions, and a
 decode step puts ``step`` on all three position sections.
 
-RWKV-6 and Whisper raise `NotImplementedError` on a mesh of more than
-one position (`check_supported`), under every preset.
+The encoder-decoder family (Whisper): the decoder's positions add the
+sinusoidal table (`transformer.embed_inputs`, each position on its
+rows). The encoder runs over ``enc_frames`` placed with the batch's
+rows: its blocks are the decoder's without the cross-attention, each
+shard at its heads with a full mask (K3) and its ff columns, ending in
+``enc_final_norm``; each position keeps the encoder output of its rows,
+whole over "model". A decoder layer's cross-attention takes the shard's
+query heads and its KV heads of that output (``xattn/wq`` and
+``xattn/wk``/``wv`` cut on their columns, K3 at Sq < Sk under a full
+mask), and ``xattn/wo`` is row-parallel, its float32 partials summed and
+rounded once. Under cp the encoder's self-attention runs context-
+parallel under a full mask (each block's S/m queries over all S keys)
+where the model axis divides its length, and as under tp elsewhere; the
+decoder's self-attention as the dense family's; the cross-attention as
+under tp. The cache adds the cross keys and values (L, B, Se, KV, D)
+bf16, computed a second time from the encoder's output after the
+forward, as the reference computes them; `meshes.cache_shardings` cuts
+Se over "model" where it divides, so each position takes its rows and
+Se block of every KV head from the shards that computed them. They stay
+bf16 under serve8 and kv8 (only the self-attention ring is int8). A
+decode step adds the sinusoidal table at ``step``; its cross-attention
+gathers the queries across "model", each shard attends over its Se
+block with every head and no mask, and the blocks merge by log-sum-exp,
+as the self-attention's slots do.
+
+The attention-free family (RWKV-6): the time mix's head bank splits as
+the query heads do (`Layout.heads`; the state is per head, so shard r
+runs `models.rwkv.wkv` over its heads with no communication): ``w_r``,
+``w_k``, ``w_v``, ``w_g`` and ``w_lora_b`` are cut on their columns,
+``w0``, ``ln_g`` and ``u_bonus`` to the shard's heads, ``w_lora_a``,
+``c_wr`` and the token-shift mixes stay whole. ``w_o`` is row-parallel;
+the channel mix's ``c_wk`` is cut on its ff columns and ``c_wv`` on its
+rows, its float32 partial summed and rounded once before the
+``sigmoid(xr @ c_wr)`` gate multiplies it, as the unsplit ``k @ c_wv``
+is. Every shard computes the token shifts of its rows. There is no
+attention, so cp is tp. The cache's state (L, B, H, Dk, Dv) float32 is
+cut by H where H divides (each shard's heads when they split, else
+resharded, as the hybrid family's SSM state is); ``x_tm`` and ``x_cm``
+(L, B, d) follow the rows, and a decode step writes every position's
+piece of them.
 """
 from __future__ import annotations
 
@@ -131,36 +170,30 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.distributed import meshes as M
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import decoding, moe, transformer
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (activation, apply_rope, fdot,
-                                       rms_norm, rope_angles)
+                                       rms_norm, rope_angles,
+                                       sinusoidal_positions, wide)
 
-NOT_PORTED = ("ROADMAP.md queue 1: RWKV-6 and Whisper do not run over a "
-              "mesh of more than one position yet")
+FAMILIES = ("dense", "moe", "hybrid", "vlm", "audio", "ssm")
 
 
-def supports(cfg: ArchConfig, rules: Optional[Dict[str, Any]] = None
-             ) -> bool:
+def supports(cfg: ArchConfig) -> bool:
     """Whether this module runs ``cfg`` on a mesh of more than one
-    position: the dense, mixture-of-experts, hybrid and VLM families,
-    under every preset ``rules`` (the context-parallel one included)."""
-    family = ((cfg.family in ("dense", "hybrid", "vlm") and not cfg.is_moe)
-              or (cfg.family == "moe" and cfg.is_moe))
-    return family and not (cfg.attn_free or cfg.enc_dec)
+    position: every family of `FAMILIES`, under every preset (the
+    context-parallel one included)."""
+    return cfg.family in FAMILIES
 
 
-def check_supported(cfg: ArchConfig, mesh: M.Mesh,
-                    rules: Optional[Dict[str, Any]] = None) -> None:
-    """Raise `NotImplementedError` for a family this module does not run
-    (`supports`) on a mesh of more than one position, whatever the preset
-    ``rules``. Nothing falls back to one device."""
-    if mesh.size <= 1 or supports(cfg, rules):
-        return
-    preset = ("the context-parallel preset of "
-              if rules and rules.get("context_parallel") else "")
-    raise NotImplementedError(
-        f"{preset}{cfg.name} ({cfg.family}) on a mesh of {mesh.size} "
-        f"positions: {NOT_PORTED}")
+def check_supported(cfg: ArchConfig, mesh: M.Mesh) -> None:
+    """Raise `NotImplementedError` for a family this module does not know
+    (`supports`) on a mesh of more than one position. Nothing falls back
+    to one device."""
+    if mesh.size > 1 and not supports(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: no split of the {cfg.family!r} family over a "
+            f"mesh of {mesh.size} positions")
 
 
 # --------------------------------------------------------------------------
@@ -170,9 +203,10 @@ def check_supported(cfg: ArchConfig, mesh: M.Mesh,
 def _mm_out_f32(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x2 (N, K) @ w (K, F) with float32 products and sums, float32 out:
     ``torch.mm(..., out_dtype=float32)`` on the card (no float32 copies
-    of the operands), the float32 copies' product on the CPU."""
-    if x2.dtype == torch.float32:
-        return x2 @ w.float()
+    of the operands), the float32 copies' product on the CPU. float32
+    and float64 operands keep their type."""
+    if x2.dtype in (torch.float32, torch.float64):
+        return x2 @ w.to(x2.dtype)
     if x2.is_cuda:
         return torch.mm(x2, w.to(x2.dtype), out_dtype=torch.float32)
     return x2.float() @ w.float()
@@ -215,8 +249,9 @@ def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 # which dim of a per-layer leaf the model axis cuts, and by what range
 # ("q": query heads' columns, "kv": key/value heads' columns, "h": query
-# heads, one entry each, "ff": ff columns, "experts"); the SSM's heads
-# are the query heads' range
+# heads, one entry each, "ff": ff columns, "experts"); the SSM's and the
+# RWKV time mix's heads are the query heads' range; Whisper's encoder
+# blocks are cut as the decoder's "attn/" and "mlp/" leaves
 _SPLIT = {"attn/wq": (1, "q"), "attn/wk": (1, "kv"), "attn/wv": (1, "kv"),
           "attn/wo": (0, "q"), "attn/bq": (0, "q"), "attn/bk": (0, "kv"),
           "attn/bv": (0, "kv"), "mlp/w_gate": (1, "ff"),
@@ -225,9 +260,16 @@ _SPLIT = {"attn/wq": (1, "q"), "attn/wk": (1, "kv"), "attn/wv": (1, "kv"),
           "moe/w_down": (0, "experts"),
           "ssm/in_proj": (1, "q"), "ssm/gate_proj": (1, "q"),
           "ssm/out_proj": (0, "q"), "ssm/dt_proj": (1, "h"),
-          "ssm/a_log": (0, "h"), "ssm/d_skip": (0, "h")}
-# under context parallelism every shard projects every attention head
-# (the SSM's heads split as under tp)
+          "ssm/a_log": (0, "h"), "ssm/d_skip": (0, "h"),
+          "xattn/wq": (1, "q"), "xattn/wk": (1, "kv"),
+          "xattn/wv": (1, "kv"), "xattn/wo": (0, "q"),
+          "rwkv/w_r": (1, "q"), "rwkv/w_k": (1, "q"), "rwkv/w_v": (1, "q"),
+          "rwkv/w_g": (1, "q"), "rwkv/w0": (0, "q"), "rwkv/ln_g": (0, "q"),
+          "rwkv/w_lora_b": (1, "q"), "rwkv/u_bonus": (0, "h"),
+          "rwkv/w_o": (0, "q"), "rwkv/c_wk": (1, "ff"),
+          "rwkv/c_wv": (0, "ff")}
+# under context parallelism every shard projects every self-attention
+# head (the SSM's heads and Whisper's cross-attention split as under tp)
 _SPLIT_CP = {k: v for k, v in _SPLIT.items() if not k.startswith("attn/")}
 
 
@@ -252,14 +294,16 @@ class Layout:
         self.n = mesh.size
         self.m = mesh.shape.get("model", 1)
         H, KV = cfg.n_heads, cfg.n_kv_heads
-        self.G = H // KV
+        # RWKV's head bank has no KV heads: its heads split alone
+        self.G = 1 if cfg.attn_free else H // KV
         hq = H // self.m
         self.split_heads = (self.m > 1 and H % self.m == 0
                             and (hq % self.G == 0 or self.G % hq == 0))
         self.split_ff = self.m > 1 and cfg.d_ff % self.m == 0
         self.split_experts = (cfg.is_moe and self.m > 1
                               and cfg.n_experts % self.m == 0)
-        self.cp = cp and self.m > 1
+        # an attention-free stack has nothing to run context-parallel
+        self.cp = cp and self.m > 1 and not cfg.attn_free
         self._want: Dict[tuple, M.PartitionSpec] = {}
         # each position's group over "model" (the positions that hold the
         # same batch rows), in mesh order
@@ -419,13 +463,13 @@ def _project(cfg, p, nx):
             v.reshape(B, S, -1, hd))
 
 
-def _attn_out(cfg, p, nx, positions, is_global):
+def _attn_out(cfg, p, nx, positions, is_global, causal: bool = True):
     q, k, v = _project(cfg, p, nx)
     if cfg.rope_theta:
         ang = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
                           cfg.mrope_sections)
         q, k = apply_rope(q, ang), apply_rope(k, ang)
-    o = attn_lib.attention(q, k, v, causal=True, window=cfg.swa_window,
+    o = attn_lib.attention(q, k, v, causal=causal, window=cfg.swa_window,
                            chunk=cfg.attn_chunk, is_global=is_global)
     return o.reshape(*nx.shape[:2], -1), (k, v)
 
@@ -446,24 +490,30 @@ def _row_products(lay: Layout, pairs, spec0, dt: torch.dtype
 
 
 def _block(cfg, lay: Layout, lsrc, xs, positions, ctx: _Ctx, is_global,
-           collect: bool):
-    """One decoder layer at every position. Returns (the layers' outputs,
-    each position's cache entry if ``collect``: its (k, v) of its KV
-    heads, or of every KV head under context parallelism, and for the
-    hybrid family its SSM heads' final state after them; each position's
-    load-balancing loss of the layer, or None without experts)."""
+           collect: bool, causal: bool = True, enc=None):
+    """One layer at every position: a decoder layer (``causal``; with
+    ``enc``, each position's encoder output, Whisper's cross-attention
+    after the self-attention), an encoder layer (not ``causal``) or an
+    RWKV-6 layer (`_rwkv_block`). Returns (the layers' outputs, each
+    position's cache entry if ``collect``: its (k, v) of its KV heads, or
+    of every KV head under context parallelism, and for the hybrid family
+    its SSM heads' final state after them; each position's load-balancing
+    loss of the layer, or None without experts)."""
     dt = xs[0].dtype
     w = lay.layer_views(lsrc, dt, ctx.splits)
+    if cfg.attn_free:
+        return _rwkv_block(cfg, lay, w, xs, ctx, collect)
     hybrid = cfg.family == "hybrid"
     nxs = None
     if ctx.cp:
         attn, kvs = _cp_attention(cfg, lay, w, xs, positions, ctx.spec0,
-                                  is_global, collect)
+                                  is_global, collect, causal)
         pairs = [[] for _ in xs]
     else:
         nxs = [rms_norm(x, w[i]["norm1"], cfg.norm_eps)
                for i, x in enumerate(xs)]
-        os, kvs = _tp_attention(cfg, w, nxs, positions, is_global, collect)
+        os, kvs = _tp_attention(cfg, w, nxs, positions, is_global, collect,
+                                causal)
         pairs = [[(o, w[i]["attn"]["wo"])] for i, o in enumerate(os)]
     if hybrid:
         if nxs is None:
@@ -483,18 +533,80 @@ def _block(cfg, lay: Layout, lsrc, xs, positions, ctx: _Ctx, is_global,
               for i, (x, o) in enumerate(zip(xs, outs))]
     else:
         xs = [x + o[0] for x, o in zip(xs, outs)]
+    if enc is not None:
+        xs = _cross_attention(cfg, lay, w, xs, enc, ctx.spec0, dt)
     outs, aux = _ffn_all(cfg, lay, w, xs, ctx, dt)
     return outs, kvs, aux
 
 
-def _tp_attention(cfg, w, nxs, positions, is_global, collect: bool):
+def _cross_attention(cfg, lay: Layout, w, xs, enc, spec0, dt):
+    """Whisper's cross-attention at every position, under every preset as
+    under tp: the shard's query heads over its KV heads of its rows'
+    encoder output ``enc[i]`` (K3, a full mask, Sq < Sk), ``xattn/wo``
+    row-parallel where the heads split. Returns the residual sums."""
+    hd = cfg.resolved_head_dim
+    pairs = []
+    for i, x in enumerate(xs):
+        p = w[i]["xattn"]
+        nx = rms_norm(x, w[i]["norm3"], cfg.norm_eps)
+        B, S, _ = x.shape
+        q = fdot(nx, p["wq"]).reshape(B, S, -1, hd)
+        k = fdot(enc[i], p["wk"]).reshape(B, enc[i].shape[1], -1, hd)
+        v = fdot(enc[i], p["wv"]).reshape(B, enc[i].shape[1], -1, hd)
+        o = attn_lib.attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+        pairs.append([(o.reshape(B, S, -1), p["wo"])])
+    return [x + o[0] for x, o in zip(xs, _row_products(lay, pairs, spec0,
+                                                         dt))]
+
+
+def _rwkv_block(cfg, lay: Layout, w, xs, ctx: _Ctx, collect: bool,
+                carry=None):
+    """One RWKV-6 layer at every position (module docstring): the time
+    mix at the shard's heads (`rwkv.time_mix_heads`), ``w_o`` row-
+    parallel; the channel mix at its ff columns, ``c_wv`` row-parallel and
+    rounded before the gate. ``carry`` holds each position's (state at
+    its heads, x_tm, x_cm) of a decode step (None: a prompt from zeros).
+    Returns (the outputs, each position's [state, last time-mix input,
+    last channel-mix input] if ``collect``, None)."""
+    dt = xs[0].dtype
+    pairs, entries = [], []
+    for i, x in enumerate(xs):
+        p = w[i]["rwkv"]
+        st, x_tm, _ = carry[i] if carry else (None, None, None)
+        nx = rms_norm(x, w[i]["norm1"], cfg.norm_eps)
+        y, st, last = rwkv_lib.time_mix_heads(cfg, p, nx, st, x_tm)
+        pairs.append([(y, p["w_o"])])
+        entries.append([st, last])
+    xs = [x + o[0] for x, o in zip(xs, _row_products(lay, pairs, ctx.spec0,
+                                                     dt))]
+    keys, gates = [], []
+    for i, x in enumerate(xs):
+        p = w[i]["rwkv"]
+        nx = rms_norm(x, w[i]["norm2"], cfg.norm_eps)
+        k, xr = rwkv_lib.channel_mix_keys(cfg, p, nx,
+                                          carry[i][2] if carry else None)
+        keys.append(k)
+        gates.append(torch.sigmoid(xr @ p["c_wr"]))
+        entries[i].append(nx[:, -1])
+    if lay.split_ff:
+        kvs = _row_parallel(lay, [mm_f32(k, w[i]["rwkv"]["c_wv"])
+                                  for i, k in enumerate(keys)], ctx.spec0, dt)
+    else:
+        kvs = [k @ w[i]["rwkv"]["c_wv"] for i, k in enumerate(keys)]
+    out = [x + g * kv for x, g, kv in zip(xs, gates, kvs)]
+    return out, (entries if collect else []), None
+
+
+def _tp_attention(cfg, w, nxs, positions, is_global, collect: bool,
+                  causal: bool = True):
     """Attention at every position on its normed input ``nxs[i]``, each
     shard at its own heads. Returns (each position's output (B, S, h·D)
     of its heads, before ``wo``; each position's (k, v) of its KV heads if
     ``collect``)."""
     kvs, os = [], []
     for i, nx in enumerate(nxs):
-        o, kv = _attn_out(cfg, w[i]["attn"], nx, positions[i], is_global)
+        o, kv = _attn_out(cfg, w[i]["attn"], nx, positions[i], is_global,
+                          causal)
         os.append(o)
         if collect:
             kvs.append(kv)
@@ -502,16 +614,18 @@ def _tp_attention(cfg, w, nxs, positions, is_global, collect: bool):
 
 
 def _cp_attention(cfg, lay: Layout, w, xs, positions, spec0, is_global,
-                  collect: bool):
+                  collect: bool, causal: bool = True):
     """Context-parallel attention at every position (module docstring):
     shard r projects its block of S/m positions with every head, the
     blocks' K and V are all-gathered over "model", K3 takes the block's
-    queries over the keys up to the block's end, and ``wo``'s block
-    outputs are all-gathered over "model". Returns (each position's
-    attention output (B, S, d), after ``wo``; each position's whole (k,
-    v), every KV head, if ``collect``)."""
+    queries over the keys up to the block's end (``causal``; else over
+    every key, a full mask), and ``wo``'s block outputs are all-gathered
+    over "model". Returns (each position's attention output (B, S, d),
+    after ``wo``; each position's whole (k, v), every KV head, if
+    ``collect``)."""
     hd = cfg.resolved_head_dim
-    blk = xs[0].shape[1] // lay.m
+    S = xs[0].shape[1]
+    blk = S // lay.m
     qs, ks, vs = [], [], []
     for i, x in enumerate(xs):
         lo = lay.r(i) * blk
@@ -532,11 +646,11 @@ def _cp_attention(cfg, lay: Layout, w, xs, positions, spec0, is_global,
     k_all, v_all = gathered(ks), gathered(vs)
     blocks = []
     for i, q in enumerate(qs):
-        hi = (lay.r(i) + 1) * blk
+        hi = (lay.r(i) + 1) * blk if causal else S
         o = attn_lib.attention(q, k_all[i][:, :hi], v_all[i][:, :hi],
-                               causal=True, window=cfg.swa_window,
-                               q_offset=hi - blk, chunk=cfg.attn_chunk,
-                               is_global=is_global)
+                               causal=causal, window=cfg.swa_window,
+                               q_offset=hi - blk if causal else 0,
+                               chunk=cfg.attn_chunk, is_global=is_global)
         blocks.append(fdot(o.reshape(q.shape[0], blk, -1),
                            w[i]["attn"]["wo"]))
     return gathered(blocks), (list(zip(k_all, v_all)) if collect else [])
@@ -630,40 +744,38 @@ def _mlp_all(cfg, lay: Layout, w, xs, spec0, dt):
 
 def run_blocks(cfg: ArchConfig, lay: Layout, src, batch,
                remat: bool = False, collect: bool = False):
-    """Embed, every layer and the final norm at every position. ``src``
-    is the placed parameter tree (any placement, any type: `Layout.view`
-    casts to the compute type); ``batch`` the placed tokens (B, S), or a
-    dict of the placed inputs ("tokens"; the VLM's "vision_embeds" (B,
-    n_vision, d), spliced in place of the first positions, and
-    "positions" (B, S, 3), else 0..S-1), rows over the batch axes.
-    Returns (each position's hidden (B_i, S, d), each layer's
-    per-position cache entries if ``collect``, each position's
-    load-balancing loss summed over the layers or None without
-    experts)."""
+    """Embed, the encoder (Whisper), every layer and the final norm at
+    every position. ``src`` is the placed parameter tree (any placement,
+    any type: `Layout.view` casts to the compute type); ``batch`` the
+    placed tokens (B, S), or a dict of the placed inputs ("tokens"; the
+    VLM's "vision_embeds" (B, n_vision, d), spliced in place of the first
+    positions, and "positions" (B, S, 3), else 0..S-1; Whisper's
+    "enc_frames" (B, Se, d)), rows over the batch axes. Returns (each
+    position's hidden (B_i, S, d), each layer's per-position cache
+    entries if ``collect``, each position's load-balancing loss summed
+    over the layers or None without experts, each position's encoder
+    output (B_i, Se, d) or None)."""
     if M.is_placed(batch):
         batch = {"tokens": batch}
     tokens = batch["tokens"]
     dt = getattr(torch, cfg.dtype)
     ctx = lay.ctx(tokens)
     tables = lay.view(src["embed"]["tokens"], dt)
-    vision = batch.get("vision_embeds") if cfg.n_vision_tokens else None
-    given = batch.get("positions")
     xs, positions = [], []
     for i, tok in enumerate(tokens.pieces):
-        x = tables[i][tok.long()]
-        if vision is not None:
-            ve = vision.pieces[i]
-            x[:, :ve.shape[1]] = ve.to(x.dtype)
+        mine = {k: v.pieces[i] for k, v in batch.items()
+                if k in ("tokens", "vision_embeds", "positions")}
+        x, pos = transformer.embed_inputs(cfg, {"embed": {"tokens":
+                                                          tables[i]}}, mine)
         xs.append(x)
-        B, S = tok.shape
-        positions.append(given.pieces[i] if given is not None else
-                         torch.arange(S, dtype=torch.int32,
-                                      device=tok.device).expand(B, S))
+        positions.append(pos)
+    enc = (_encode(cfg, lay, src, batch["enc_frames"], remat)
+           if cfg.enc_dec else None)
     kv_layers, aux = [], None
     for li, lsrc in enumerate(layer_sources(src["blocks"])):
         xs, kvs, layer_aux = transformer._remat(
             _block, remat, cfg, lay, lsrc, xs, positions, ctx,
-            transformer.is_global_layer(cfg, li), collect)
+            transformer.is_global_layer(cfg, li), collect, True, enc)
         if layer_aux is not None:
             aux = layer_aux if aux is None else [
                 a + b for a, b in zip(aux, layer_aux)]
@@ -671,7 +783,31 @@ def run_blocks(cfg: ArchConfig, lay: Layout, src, batch,
             kv_layers.append(kvs)
     norms = lay.view(src["final_norm"], dt)
     xs = [rms_norm(x, g, cfg.norm_eps) for x, g in zip(xs, norms)]
-    return xs, kv_layers, aux
+    return xs, kv_layers, aux, enc
+
+
+def _encode(cfg: ArchConfig, lay: Layout, src, frames: M.ShardedTensor,
+            remat: bool) -> List[torch.Tensor]:
+    """Whisper's encoder at every position (`transformer.encode` on its
+    rows of the placed ``frames``): the interleaved sinusoidal table
+    added, every encoder layer (`_block`, a full mask; context-parallel
+    under cp where the model axis divides Se), ``enc_final_norm``.
+    Returns each position's output (B_i, Se, d), whole over "model"."""
+    dt = getattr(torch, cfg.dtype)
+    ctx = lay.ctx(frames)
+    xs, positions = [], []
+    for piece in frames.pieces:
+        x = piece.to(dt)
+        B, T, _ = x.shape
+        xs.append(x + sinusoidal_positions(T, cfg.d_model, dt,
+                                           x.device)[None])
+        positions.append(torch.arange(T, dtype=torch.int32,
+                                      device=x.device).expand(B, T))
+    for lsrc in layer_sources(src["enc_blocks"]):
+        xs, _, _ = transformer._remat(_block, remat, cfg, lay, lsrc, xs,
+                                      positions, ctx, None, False, False)
+    norms = lay.view(src["enc_final_norm"], dt)
+    return [rms_norm(x, g, cfg.norm_eps) for x, g in zip(xs, norms)]
 
 
 def _head(cfg, lay: Layout, src, dt) -> List[torch.Tensor]:
@@ -710,13 +846,13 @@ def loss_fn(cfg: ArchConfig, mesh: M.Mesh, src, batch: Dict[str, Any],
                 raise ValueError(
                     f"a training batch of {tokens.shape[0]} rows does not "
                     f"split over the mesh's {c!r} axis ({mesh.shape[c]})")
-    hidden, _, aux = run_blocks(cfg, lay, src, batch,
-                                remat=cfg.remat and torch.is_grad_enabled())
+    hidden, _, aux, _ = run_blocks(
+        cfg, lay, src, batch, remat=cfg.remat and torch.is_grad_enabled())
     dt = hidden[0].dtype
     heads = _head(cfg, lay, src, dt)
     tots, cnts = [], []
     for i, (h, lab) in enumerate(zip(hidden, labels.pieces)):
-        head = heads[i].to(dt).float()
+        head = wide(heads[i].to(dt))
         S = h.shape[1]
         lo, hi = _seq_block(lay, i, S)
         tot = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -774,8 +910,8 @@ def prefill(cfg: ArchConfig, mesh: M.Mesh, src, batch, max_len: int = 0,
     tokens = batch["tokens"]
     lay = Layout(cfg, mesh, cp)
     with torch.no_grad():
-        hidden, kv_layers, _ = run_blocks(cfg, lay, src, batch,
-                                          collect=True)
+        hidden, kv_layers, _, enc = run_blocks(cfg, lay, src, batch,
+                                               collect=True)
         dt = hidden[0].dtype
         heads = _head(cfg, lay, src, dt)
         logits = [fdot(h[:, -1], w.to(dt)) for h, w in zip(hidden, heads)]
@@ -787,15 +923,29 @@ def prefill(cfg: ArchConfig, mesh: M.Mesh, src, batch, max_len: int = 0,
     spec = decoding.cache_spec(cfg, ShapeConfig("prefill", max_len, B,
                                                 "prefill"))
     pls = M.cache_shardings(mesh, meta_tree(spec))
-    if cfg.family == "hybrid":
+    rows = tokens.spec[0] if len(tokens.spec) else None
+    heads_spec = _state_placement(lay, rows).spec
+    if cfg.attn_free:
+        cache = {"state": _layer_stack(
+            lay, [[e[0] for e in kvs] for kvs in kv_layers], heads_spec,
+            spec["state"][0], pls["state"])}
+        for j, name in ((1, "x_tm"), (2, "x_cm")):
+            cache[name] = _layer_stack(
+                lay, [[e[j] for e in kvs] for kvs in kv_layers], M.P(rows),
+                spec[name][0], pls[name], torch.bfloat16)
+    elif cfg.family == "hybrid":
         layers = [_ring(lay, tokens, [kvs], lspec, lpls, kv_ranges)
                   for kvs, lspec, lpls in zip(kv_layers, spec["layers"],
                                               pls["layers"])]
-        cache = {"layers": layers,
-                 "ssm": _ssm_states(lay, tokens, kv_layers, spec["ssm"][0],
-                                    pls["ssm"])}
+        cache = {"layers": layers, "ssm": _layer_stack(
+            lay, [[e[-1] for e in kvs] for kvs in kv_layers], heads_spec,
+            spec["ssm"][0], pls["ssm"])}
     else:
         cache = _ring(lay, tokens, kv_layers, spec, pls, kv_ranges)
+    if cfg.enc_dec:
+        with torch.no_grad():
+            cache.update(_cross_cache(cfg, lay, src, enc, tokens,
+                                      spec["xk"][0], pls["xk"]))
     lpl = M.data_sharding(mesh, B, 2)
     out = _by_rows(lay, logits, tokens, lpl, (B, logits[0].shape[-1]))
     return out, cache
@@ -839,26 +989,60 @@ def _ring(lay: Layout, tokens: M.ShardedTensor, kv_layers, spec, pls,
 
 
 def _state_placement(lay: Layout, rows) -> M.Placement:
-    """The placement of one layer's SSM states (B, H, Dh, N) as the shards
-    compute them: rows by ``rows`` (a batch dim's spec entry), heads
-    over "model" where they split (`Layout.heads`), else whole."""
+    """The placement of one layer's recurrent states (B, H, ...) as the
+    shards compute them: rows by ``rows`` (a batch dim's spec entry),
+    heads over "model" where they split (`Layout.heads`), else whole."""
     return M.Placement(lay.mesh, M.P(rows,
                                      "model" if lay.split_heads else None))
 
 
-def _ssm_states(lay: Layout, tokens: M.ShardedTensor, kv_layers, shape,
-                pl: M.Placement) -> M.ShardedTensor:
-    """The prefill's SSM state (L, B, H, Dh, N) placed by ``pl``: each
-    layer's final states of the shards' heads (the last of each cache
-    entry) resharded onto the cache's placement of that layer."""
-    rows = tokens.spec[0] if len(tokens.spec) else None
+def _layer_stack(lay: Layout, per_layer, src_spec, shape,
+                 pl: M.Placement, dtype: Optional[torch.dtype] = None
+                 ) -> M.ShardedTensor:
+    """A stacked cache leaf of ``shape`` (L, ...) placed by ``pl``: layer
+    l's per-position pieces ``per_layer[l]``, placed by ``src_spec`` (a
+    layer's dims: the SSM or RWKV states by `_state_placement`, the token
+    shifts by rows), resharded onto ``pl``'s placement of a layer, cast
+    to ``dtype``, and stacked."""
+    src = M.Placement(lay.mesh, src_spec)
     want = M.Placement(lay.mesh, M.P(*list(pl.spec)[1:]))
-    per_layer = [M.reshard(M.ShardedTensor(
-        _state_placement(lay, rows), shape[1:], [e[-1] for e in kvs]),
-        want).pieces for kvs in kv_layers]
+    layers = [M.reshard(M.ShardedTensor(src, shape[1:], pieces), want,
+                        dtype).pieces for pieces in per_layer]
     return M.ShardedTensor(pl, shape, [
-        torch.stack([pieces[i] for pieces in per_layer]).contiguous()
+        torch.stack([pieces[i] for pieces in layers]).contiguous()
         for i in range(lay.n)])
+
+
+def _cross_cache(cfg, lay: Layout, src, enc, tokens: M.ShardedTensor,
+                 shape, pl: M.Placement) -> Dict[str, M.ShardedTensor]:
+    """Whisper's cross keys and values {"xk", "xv"} (L, B, Se, KV, D)
+    bf16 placed by ``pl``: each layer's computed by every shard at its KV
+    heads from its rows' encoder output ``enc[i]`` (a second time after
+    the forward, as the reference computes them); each position takes its
+    rows and Se block of every KV head from the first shard (mesh order)
+    that computed it (`_whole_kv`)."""
+    dt = enc[0].dtype
+    hd = cfg.resolved_head_dim
+    blks = [M.block_of(lay.mesh, pl.spec, shape, c) for c in lay.coords]
+    out: Dict[str, List[List[torch.Tensor]]] = {
+        "xk": [[] for _ in range(lay.n)], "xv": [[] for _ in range(lay.n)]}
+    for lsrc in layer_sources(src["blocks"]):
+        wk, wv = (lay.view(lsrc[k], dt, _SPLIT[k])
+                  for k in ("xattn/wk", "xattn/wv"))
+        kvs = [(fdot(e, a).reshape(*e.shape[:2], -1, hd),
+                fdot(e, b).reshape(*e.shape[:2], -1, hd))
+               for e, a, b in zip(enc, wk, wv)]
+        for i in range(lay.n):
+            (b0, b1), (s0, s1) = blks[i][1], blks[i][2]
+            k, v = _whole_kv(lay, [(a[:, s0:s1], b[:, s0:s1])
+                                   for a, b in kvs],
+                             _row_owner(lay, tokens, i, b0, b1),
+                             lay.devs[i], lay.kv_heads)
+            out["xk"][i].append(k.to(torch.bfloat16))
+            out["xv"][i].append(v.to(torch.bfloat16))
+    return {name: M.ShardedTensor(pl, shape, [torch.stack(p).contiguous()
+                                              for p in pieces])
+            for name, pieces in out.items()}
 
 
 def quantize_cache(cfg: ArchConfig, cache: Dict[str, M.ShardedTensor]
@@ -967,9 +1151,10 @@ def decode_step(cfg: ArchConfig, mesh: M.Mesh, src, cache: Dict[str, Any],
                 tokens: M.ShardedTensor, step: int):
     """`models.decoding.decode_step` over ``mesh``: ``cache`` placed by
     `meshes.cache_shardings` (bf16, or int8 with its scales; the hybrid
-    family's per-layer rings and SSM state) is updated in place; returns
-    (logits (B, 1, V) placed with their rows over the batch axes, the
-    cache).
+    family's per-layer rings and SSM state; Whisper's cross keys and
+    values beside the ring; RWKV-6's state and token shifts) is updated in
+    place; returns (logits (B, 1, V) placed with their rows over the batch
+    axes, the cache).
 
     Each model shard projects its own query heads and their KV heads, as
     training does. The queries are gathered whole across "model" (every
@@ -978,9 +1163,11 @@ def decode_step(cfg: ArchConfig, mesh: M.Mesh, src, cache: Dict[str, Any],
     the hybrid cache, whose W_i differ). The merged attention's own heads
     go through the shard's rows of ``wo`` (row-parallel, float32 partials
     summed across "model"), and the hybrid family's SSM heads one step
-    through ``out_proj`` beside it (`_row_products`). A decode step never
-    runs context-parallel; the experts run as in `_moe_all`, over the
-    batch's B tokens."""
+    through ``out_proj`` beside it (`_row_products`). Whisper's cross-
+    attention follows the self-attention (`_cross_decode`); an RWKV-6
+    layer steps each shard's heads from the cache (`_rwkv_decode`). A
+    decode step never runs context-parallel; the experts run as in
+    `_moe_all`, over the batch's B tokens."""
     check_supported(cfg, mesh)
     lay = Layout(cfg, mesh)
     ctx = lay.ctx(tokens)
@@ -990,9 +1177,14 @@ def decode_step(cfg: ArchConfig, mesh: M.Mesh, src, cache: Dict[str, Any],
     hybrid = cfg.family == "hybrid"
     with torch.no_grad():
         tables = lay.view(src["embed"]["tokens"], dt)
-        xs = [tables[i][tok.long()] for i, tok in enumerate(tokens.pieces)]
+        xs = [decoding._embed_decode(cfg, {"embed": {"tokens": tables[i]}},
+                                     tok, step)
+              for i, tok in enumerate(tokens.pieces)]
         for li, lsrc in enumerate(layer_sources(src["blocks"])):
             w = lay.layer_views(lsrc, dt)
+            if cfg.attn_free:
+                xs = _rwkv_decode(cfg, lay, w, xs, ctx, cache, li)
+                continue
             nxs, qs, ks, vs = [], [], [], []
             for i, x in enumerate(xs):
                 nx = rms_norm(x, w[i]["norm1"], cfg.norm_eps)
@@ -1034,6 +1226,9 @@ def decode_step(cfg: ArchConfig, mesh: M.Mesh, src, cache: Dict[str, Any],
                        for i, (x, o) in enumerate(zip(xs, outs))]
             else:
                 new = [x + o[0] for x, o in zip(xs, outs)]
+            if cfg.enc_dec:
+                new = _cross_decode(cfg, lay, w, new, cache, li, ctx.spec0,
+                                    dt)
             xs, _ = _ffn_all(cfg, lay, w, new, ctx, dt)
         norms = lay.view(src["final_norm"], dt)
         heads = _head(cfg, lay, src, dt)
@@ -1043,6 +1238,82 @@ def decode_step(cfg: ArchConfig, mesh: M.Mesh, src, cache: Dict[str, Any],
     lpl = M.data_sharding(mesh, B, 3)
     return _by_rows(lay, logits, tokens, lpl,
                     (B, 1, logits[0].shape[-1])), cache
+
+
+def _cross_decode(cfg, lay: Layout, w, xs, cache, li: int, spec0, dt):
+    """Whisper's cross-attention of a decode step at every position over
+    layer ``li`` of the placed ``xk``/``xv``: the shard's query heads,
+    gathered whole across "model"; each shard attends over its Se block
+    with every head and no mask (`_partial_attention`), the blocks merged
+    across "model" by log-sum-exp where Se is cut (`_merge`); ``xattn/wo``
+    row-parallel on the shard's heads. Returns the residual sums."""
+    hd = cfg.resolved_head_dim
+    xk, xv = cache["xk"], cache["xv"]
+    spec = list(xk.spec) + [None] * (xk.ndim - len(xk.spec))
+    qs = [fdot(rms_norm(x, w[i]["norm3"], cfg.norm_eps),
+               w[i]["xattn"]["wq"]).reshape(x.shape[0], 1, -1, hd)
+          for i, x in enumerate(xs)]
+    outs, ms, ls = [], [], []
+    for i in range(lay.n):
+        q = qs[i]
+        if lay.split_heads:
+            q = _heads_whole(lay, qs, lay.heads, lay.group[i], lay.devs[i])
+        s0, s1 = M.block_of(lay.mesh, xk.spec, tuple(xk.shape),
+                            lay.coords[i])[2]
+        ck = xk.pieces[i][li]
+        cpos = torch.arange(s0, s1, dtype=torch.int32,
+                            device=ck.device).expand(ck.shape[0], s1 - s0)
+        o, mx, sm = _partial_attention(q, ck, xv.pieces[i][li], cpos, 0, 0)
+        outs.append(o)
+        ms.append(mx)
+        ls.append(sm)
+    merged = _merge(lay, spec[2] == "model", outs, ms, ls)
+    pairs = []
+    for i, x in enumerate(xs):
+        lo, hi = lay.heads(i)
+        o = merged[i][:, lo:hi].to(dt).reshape(x.shape[0], 1, -1)
+        pairs.append([(o, w[i]["xattn"]["wo"])])
+    return [x + o[0] for x, o in zip(xs, _row_products(lay, pairs, spec0,
+                                                         dt))]
+
+
+def _layer_states(lay: Layout, x: M.ShardedTensor, li: int):
+    """Layer ``li`` of a placed recurrent state (L, B, H, ...): (the
+    layer as a placed tensor whose pieces are views of ``x``'s, each
+    position's state at its shard's heads, resharded where the cache's
+    heads are not the shard's)."""
+    spec = list(x.spec) + [None] * (x.ndim - len(x.spec))
+    stored = M.Placement(lay.mesh, M.P(*spec[1:]))
+    layer = M.ShardedTensor(stored, x.shape[1:], [p[li] for p in x.pieces])
+    return layer, M.reshard(layer, _state_placement(lay, spec[1])).pieces
+
+
+def _write_states(lay: Layout, layer: M.ShardedTensor, states) -> None:
+    """Each position's new state at its shard's heads ``states[i]``
+    written, in place, into its block of ``layer`` (`_layer_states`)."""
+    for i, st in enumerate(states):
+        h0, h1 = M.block_of(lay.mesh, layer.spec, tuple(layer.shape),
+                            lay.coords[i])[1]
+        c0 = lay.heads(i)[0]
+        layer.pieces[i].copy_(st[:, h0 - c0:h1 - c0])
+
+
+def _rwkv_decode(cfg, lay: Layout, w, xs, ctx: _Ctx, cache, li: int):
+    """One step of every position's RWKV-6 layer ``li`` (`_rwkv_block`)
+    from the placed cache: the state at the shard's heads
+    (`_layer_states`), the token shifts of its rows; the new state written
+    back into each position's block and the token shifts into every
+    position's piece, in place. Returns the layer's outputs."""
+    layer, states = _layer_states(lay, cache["state"], li)
+    dt = xs[0].dtype
+    carry = [(states[i], cache["x_tm"].pieces[i][li].to(dt),
+              cache["x_cm"].pieces[i][li].to(dt)) for i in range(lay.n)]
+    xs, entries, _ = _rwkv_block(cfg, lay, w, xs, ctx, True, carry)
+    _write_states(lay, layer, [e[0] for e in entries])
+    for i, (_st, tm, cm) in enumerate(entries):
+        cache["x_tm"].pieces[i][li].copy_(tm)
+        cache["x_cm"].pieces[i][li].copy_(cm)
+    return xs
 
 
 class _LayerRing(NamedTuple):
@@ -1128,23 +1399,16 @@ def _ssm_decode(cfg, lay: Layout, w, nxs, ssm: M.ShardedTensor,
                 li: int) -> List[torch.Tensor]:
     """One step of every position's SSM heads (`Layout.heads`) on its
     normed input ``nxs[i]``: layer ``li``'s state read from the placed
-    cache ``ssm`` (L, B, H, Dh, N), resharded where the cache's heads are
-    not the shard's (every head computed, the cache cut by H), and the
-    new state written back into each position's block in place. Returns
-    each position's gated y (B_i, 1, h·Dh)."""
-    spec = list(ssm.spec) + [None] * (ssm.ndim - len(ssm.spec))
-    stored = M.Placement(lay.mesh, M.P(*spec[1:]))
-    layer = M.ShardedTensor(stored, ssm.shape[1:],
-                            [p[li] for p in ssm.pieces])
-    states = M.reshard(layer, _state_placement(lay, spec[1])).pieces
-    ys = []
+    cache ``ssm`` (L, B, H, Dh, N) at the shard's heads
+    (`_layer_states`), and the new state written back (`_write_states`).
+    Returns each position's gated y (B_i, 1, h·Dh)."""
+    layer, states = _layer_states(lay, ssm, li)
+    ys, sts = [], []
     for i, nx in enumerate(nxs):
         y, st = ssm_lib.ssm_decode_heads(cfg, w[i]["ssm"], nx, states[i])
         ys.append(y)
-        h0, h1 = M.block_of(lay.mesh, stored.spec, tuple(layer.shape),
-                            lay.coords[i])[1]
-        c0 = lay.heads(i)[0]
-        layer.pieces[i].copy_(st[:, h0 - c0:h1 - c0])
+        sts.append(st)
+    _write_states(lay, layer, sts)
     return ys
 
 

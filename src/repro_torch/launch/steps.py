@@ -8,10 +8,8 @@ live (one card, or the CPU). `plan` returns the reference's
 mesh: its placements are the reference's `PartitionSpec`s
 (`distributed.meshes.param_shardings`, `cache_shardings`,
 `data_sharding`) and its steps take and return `ShardedTensor`s placed
-by them, run over the mesh by `distributed.spmd` (the dense, mixture-
-of-experts, hybrid and VLM families, under every preset, the
-context-parallel one included; RWKV-6 and Whisper raise on a mesh of
-more than one position and run unchanged on a mesh of one).
+by them, run over the mesh by `distributed.spmd` (every family, under
+every preset, the context-parallel one included).
 """
 from __future__ import annotations
 
@@ -223,7 +221,6 @@ def _mesh_train_step(cfg, shape, lr_fn, accum, psh, csh, cp):
             st.pieces[0] = o1.step
             return params, adamw.AdamWState(st, opt_state.m,
                                             opt_state.v), metrics
-        spmd.check_supported(cfg, mesh, {"context_parallel": cp})
         batch = place_batch(mesh, cfg, shape, batch)
         rows = batch["tokens"]
         n_rows = rows.pieces[0].shape[0]
@@ -311,22 +308,6 @@ def serve_param_specs(cfg: ArchConfig):
     return table, table.shapes(torch.bfloat16)
 
 
-def _placed_step(cfg, mesh: M.Mesh, fn_mesh, fn_one, out_pl, cp: bool):
-    """A serving step over ``mesh``: `spmd`'s for the families it runs
-    (`spmd.supports`); on a mesh of one position, any other family's
-    one-card step on the pieces, its outputs placed by ``out_pl``."""
-    if mesh.size == 1 and not spmd.supports(cfg):
-        def one(*args):
-            out = fn_one(*_unwrap(args))
-            return M.place_tree(out, out_pl)
-        return one
-
-    def run(*args):
-        spmd.check_supported(cfg, mesh, {"context_parallel": cp})
-        return fn_mesh(*args)
-    return run
-
-
 def plan(cfg: ArchConfig, shape: ShapeConfig, mesh: M.Mesh,
          rules: Optional[Dict[str, Any]] = None):
     """Returns (step_fn, arg_specs, in_placements, out_placements,
@@ -388,11 +369,8 @@ def plan(cfg: ArchConfig, shape: ShapeConfig, mesh: M.Mesh,
             batch = place_batch(mesh, cfg, shape, batch)
             return spmd.prefill(cfg, mesh, params, batch, cp=cp)
 
-        def prefill_one(params, batch):
-            return decoding.prefill(cfg, params, batch)
-        step_fn = _placed_step(cfg, mesh, prefill_mesh, prefill_one,
-                               (logits_sh, csh), cp)
-        return (step_fn, (pshapes, specs), (psh, bsh), (logits_sh, csh), ())
+        return (prefill_mesh, (pshapes, specs), (psh, bsh), (logits_sh, csh),
+                ())
 
     cspec = spmd.meta_tree(decoding.cache_spec(cfg, shape, kv_int8=int8))
     csh = M.cache_shardings(mesh, cspec)
@@ -407,9 +385,5 @@ def plan(cfg: ArchConfig, shape: ShapeConfig, mesh: M.Mesh,
                              tok_sh)
         return spmd.decode_step(cfg, mesh, params, cache, tokens, int(step))
 
-    def decode_one(params, cache, tokens, step):
-        return decoding.decode_step(cfg, params, cache, tokens, int(step))
-    step_fn = _placed_step(cfg, mesh, decode_mesh, decode_one,
-                           (logits_sh, csh), cp)
-    return (step_fn, (pshapes, cspec, tok, step_scalar),
+    return (decode_mesh, (pshapes, cspec, tok, step_scalar),
             (psh, csh, tok_sh, rep), (logits_sh, csh), (1,))

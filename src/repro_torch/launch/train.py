@@ -62,9 +62,9 @@ def state_shardings(cfg, mesh: M.Mesh, rules=None):
 def default_mesh(cfg, device: DeviceLike = None) -> M.Mesh:
     """The mesh `train` runs on when it is given none: `make_mesh_for`
     over every local device of ``device``'s type where `distributed.spmd`
-    runs ``cfg`` over a mesh (`spmd.supports`: the dense, mixture-of-
-    experts, hybrid and VLM families); else, and whenever ``device`` names one device by
-    its index (``cuda:3``), a mesh of one position on ``device``."""
+    runs ``cfg`` over a mesh (`spmd.supports`: every family of
+    `configs`); else, and whenever ``device`` names one device by its
+    index (``cuda:3``), a mesh of one position on ``device``."""
     dev = device_lib.resolve(device)
     local = device_lib.local_devices(dev.type)
     named = device is not None and torch.device(device).index is not None

@@ -187,12 +187,19 @@ def fdot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.to(x.dtype)).to(x.dtype)
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in its own type where that is wider (a
+    float64 run keeps float64 through the steps that compute in float32
+    for narrower types)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
              ) -> torch.Tensor:
     dt = x.dtype
-    x = x.float()
+    x = wide(x)
     var = x.square().mean(-1, keepdim=True)
-    return (x * torch.rsqrt(var + eps) * gamma.float()).to(dt)
+    return (x * torch.rsqrt(var + eps) * gamma.to(x.dtype)).to(dt)
 
 
 def activation(name: str):

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import ParamTable, head_axis
+from repro_torch.models.layers import ParamTable, head_axis, wide
 
 LORA_R = 64
 
@@ -64,8 +64,11 @@ def _mix(x, xs, mu):
 
 
 def _time_mix_inputs(cfg, p, x, x_prev):
+    """r, k, v, g, w of the heads whose columns ``p`` holds (H read from
+    ``w_r``'s width)."""
     B, S, _d = x.shape
-    H, Dh = cfg.n_heads, cfg.resolved_head_dim
+    Dh = cfg.resolved_head_dim
+    H = p["w_r"].shape[-1] // Dh
     xs = _shift(x, x_prev)
     r = (_mix(x, xs, p["mix_r"]) @ p["w_r"]).reshape(B, S, H, Dh)
     k = (_mix(x, xs, p["mix_k"]) @ p["w_k"]).reshape(B, S, H, Dh)
@@ -73,31 +76,32 @@ def _time_mix_inputs(cfg, p, x, x_prev):
     g = F.silu(_mix(x, xs, p["mix_g"]) @ p["w_g"])
     xw = _mix(x, xs, p["mix_w"])
     w_raw = p["w0"] + torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
-    w = torch.exp(-torch.exp(w_raw.float())).reshape(B, S, H, Dh)
+    w = torch.exp(-torch.exp(wide(w_raw))).reshape(B, S, H, Dh)
     return r, k, v, g, w
 
 
 def _group_norm(y, ln_g, H, Dh, eps=1e-5):
     """Per-head normalization over Dh (population variance, as
-    ``jnp.var``), float32."""
+    ``jnp.var``), float32 (`layers.wide`)."""
     B, S = y.shape[:2]
-    yh = y.reshape(B, S, H, Dh).float()
+    yh = wide(y.reshape(B, S, H, Dh))
     mean = yh.mean(-1, keepdim=True)
     var = yh.var(-1, keepdim=True, unbiased=False)
     yh = (yh - mean) * torch.rsqrt(var + eps)
-    return yh.reshape(B, S, H * Dh) * ln_g.float()
+    return yh.reshape(B, S, H * Dh) * ln_g.to(yh.dtype)
 
 
 def wkv(r, k, v, w, u, state: Optional[torch.Tensor] = None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The recurrence over time. r, k, v, w: (B,S,H,Dh) (w float32), u:
-    (H,Dh); state: (B,H,Dk,Dv) float32 or None (zeros); the state given
-    is not written. Returns (y (B,S,H,Dv) float32, final state)."""
-    r, k, v = r.float(), k.float(), v.float()
+    """The recurrence over time, in float32 (float64 for float64 inputs,
+    `layers.wide`). r, k, v, w: (B,S,H,Dh) (w in that type), u: (H,Dh);
+    state: (B,H,Dk,Dv) or None (zeros); the state given is not written.
+    Returns (y (B,S,H,Dv) in that type, final state)."""
+    r, k, v = wide(r), wide(k), wide(v)
     B, S, H, Dh = r.shape
-    S_t = (torch.zeros(B, H, Dh, Dh, dtype=torch.float32, device=r.device)
-           if state is None else state.float().clone())
-    bonus = (r * u.float() * k).sum(-1, keepdim=True) * v    # (B,S,H,Dv)
+    S_t = (torch.zeros(B, H, Dh, Dh, dtype=r.dtype, device=r.device)
+           if state is None else state.to(r.dtype).clone())
+    bonus = (r * u.to(r.dtype) * k).sum(-1, keepdim=True) * v  # (B,S,H,Dv)
     # time-major copies: each step reads contiguous (B,H,Dh) slices
     rt, kt, vt, wt = (a.transpose(0, 1).contiguous() for a in (r, k, v, w))
     if torch.is_grad_enabled() and (S_t.requires_grad or any(
@@ -119,25 +123,46 @@ def wkv(r, k, v, w, u, state: Optional[torch.Tensor] = None
     return ys[:, :, :, 0].transpose(0, 1) + bonus, S_t
 
 
+def time_mix_heads(cfg: ArchConfig, p: Dict[str, torch.Tensor],
+                   x: torch.Tensor, state: Optional[torch.Tensor] = None,
+                   x_prev: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The time mix's head bank before ``w_o``, for the heads whose
+    weights ``p`` holds (``w_r``/``w_k``/``w_v``/``w_g``/``w_lora_b``
+    columns, ``w0``/``ln_g`` entries and ``u_bonus`` rows of H_r heads):
+    x (B,S,d) -> (the gated, group-normed y (B,S,H_r·Dh) in x's type,
+    final state (B,H_r,Dk,Dv) float32, x_last (B,d)). Each head's state
+    is its own, so a block of heads needs nothing of the others."""
+    B, S, _d = x.shape
+    r, k, v, g, w = _time_mix_inputs(cfg, p, x, x_prev)
+    H, Dh = r.shape[2], r.shape[3]
+    y, state = wkv(r, k, v, w, p["u_bonus"], state)
+    y = _group_norm(y.reshape(B, S, H * Dh), p["ln_g"], H, Dh)
+    return y.to(x.dtype) * g, state, x[:, -1]
+
+
 def time_mix(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
              state: Optional[torch.Tensor] = None,
              x_prev: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B,S,d) -> (out, final state (B,H,Dk,Dv) float32, x_last (B,d))."""
-    B, S, _d = x.shape
-    H, Dh = cfg.n_heads, cfg.resolved_head_dim
-    r, k, v, g, w = _time_mix_inputs(cfg, p, x, x_prev)
-    y, state = wkv(r, k, v, w, p["u_bonus"], state)
-    y = _group_norm(y.reshape(B, S, H * Dh), p["ln_g"], H, Dh)
-    y = y.to(x.dtype) * g
-    return y @ p["w_o"], state, x[:, -1]
+    y, state, x_last = time_mix_heads(cfg, p, x, state, x_prev)
+    return y @ p["w_o"], state, x_last
+
+
+def channel_mix_keys(cfg: ArchConfig, p: Dict[str, torch.Tensor],
+                     x: torch.Tensor, x_prev: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The channel mix before ``c_wv``: (relu(xk @ c_wk)^2 for the ff
+    columns of the ``c_wk`` given, the gate's input xr (B,S,d))."""
+    xs = _shift(x, x_prev)
+    xk = _mix(x, xs, p["cmix_k"])
+    xr = _mix(x, xs, p["cmix_r"])
+    return torch.square(F.relu(xk @ p["c_wk"])), xr
 
 
 def channel_mix(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
                 x_prev: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    xs = _shift(x, x_prev)
-    xk = _mix(x, xs, p["cmix_k"])
-    xr = _mix(x, xs, p["cmix_r"])
-    k = torch.square(F.relu(xk @ p["c_wk"]))
+    k, xr = channel_mix_keys(cfg, p, x, x_prev)
     return torch.sigmoid(xr @ p["c_wr"]) * (k @ p["c_wv"]), x[:, -1]

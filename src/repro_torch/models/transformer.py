@@ -40,7 +40,7 @@ from repro_torch.models.layers import (ParamTable, activation, apply_rope,
                                        fdot, head_axis, kv_axis, rms_norm,
                                        rope_angles,
                                        sinusoidal_at, sinusoidal_positions,
-                                       tree_map)
+                                       tree_map, wide)
 
 MOE_AUX_WEIGHT = 0.01
 LOSS_CHUNK = 512
@@ -346,9 +346,9 @@ def forward(cfg: ArchConfig, params, batch, kind: str = "train"):
 def _chunk_nll(h: torch.Tensor, labels: torch.Tensor, head: torch.Tensor):
     """Summed NLL of one chunk and its count of labels >= 0. The logits
     are the float32 products of the compute-type values (``head`` is
-    their float32 copy), as the reference's
-    ``preferred_element_type=float32`` gives them."""
-    logits = torch.matmul(h.float(), head)
+    their float32 copy; float64 in a float64 run, `layers.wide`), as the
+    reference's ``preferred_element_type=float32`` gives them."""
+    logits = torch.matmul(h.to(head.dtype), head)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
@@ -364,7 +364,7 @@ def loss_fn(cfg: ArchConfig, params, batch) -> Tuple[torch.Tensor, Dict]:
     logits at a time."""
     hidden, aux, _ = forward(cfg, params, batch, kind="hidden")
     labels = batch["labels"]
-    head = head_weight(cfg, params).to(hidden.dtype).float()
+    head = wide(head_weight(cfg, params).to(hidden.dtype))
     S = hidden.shape[1]
     c = min(LOSS_CHUNK, S)
     if S % c:

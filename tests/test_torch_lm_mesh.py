@@ -1,6 +1,6 @@
 """The LM over a (data, model) mesh, part 1: the logical axes, the plans'
 placements, placed tensors and their collectives, `ef_allreduce` over a
-mesh axis, and the refusals (`repro_torch.models.layers`,
+mesh axis, and every family on a mesh (`repro_torch.models.layers`,
 `distributed.meshes`, `launch.steps.plan`, `distributed.compression`,
 `distributed.spmd`) against the JAX package on the CPU.
 
@@ -32,7 +32,7 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import transformer as ttr
-from repro_torch.models.layers import PROD_MODEL_AXIS, head_axis
+from repro_torch.models.layers import PROD_MODEL_AXIS, head_axis, tree_leaves
 
 CPU = torch.device("cpu")
 PRESETS = ["baseline", "tp", "kv8", "serve8", "cp"]
@@ -378,75 +378,98 @@ def test_ef_allreduce_over_data_matches_shard_map(reference):
 # refusals
 # --------------------------------------------------------------------------
 
+@pytest.fixture
+def one_thread():
+    """torch's CPU ops on one thread for the test (restored after it): a
+    mesh's many small ops otherwise spin for the cores against the other
+    test workers' threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("name", ["rwkv6-3b", "whisper-large-v3"])
-def test_non_dense_family_on_a_mesh_raises(name):
-    """A step of a family the mesh layer does not run (RWKV-6, Whisper;
-    the dense, mixture-of-experts, hybrid and VLM families run,
-    `tests/test_torch_lm_mesh_families.py`) on a mesh of more than one
-    position raises NotImplementedError naming ROADMAP.md; nothing falls
-    back to one device. On a mesh of one position it runs."""
+def test_non_dense_family_on_a_mesh_raises(name, one_thread):
+    """RWKV-6 and Whisper, the last families the mesh layer took on
+    (`tests/test_torch_lm_mesh_whisper_rwkv.py` holds their results),
+    run every kind of `plan`'s step on (2, 2) under every preset to
+    finite outputs of the planned placements: the training step, a
+    prefill and a decode step from its cache (int8 where the preset and
+    the family have it), 8 rows of 16 positions; and
+    `launch.train.train(..., mesh=)`. Nothing raises and nothing falls
+    back to one device."""
+    from repro_torch.models import decoding
     cfg = T_ARCHS[name]
     mesh = _mesh((2, 2))
-    fn, specs, ins, _o, _d = tsteps.plan(cfg, SHAPES["train"], mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        fn(None, None, None)
-    for kind in ("prefill", "decode"):
-        fn, *_ = tsteps.plan(cfg, SHAPES[kind], mesh)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn(None, None, None, 0) if kind == "decode" else fn(None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttrain.train(cfg, ShapeConfig("t", 8, 4, "train"), 1, None,
-                     mesh=mesh)
-    one = _mesh((1, 1))
-    shape = ShapeConfig("t", 8, 2, "train")
-    fn, specs, ins, _o, _d = tsteps.plan(cfg, shape, one)
-    params, opt = ttrain.build_state(cfg, "cpu")
-    P = M.place_tree(params, ins[0])
-    O = M.place_tree(opt, ins[1])
-    batch = {k: torch.zeros(s, dtype=dt) for k, (s, dt) in specs[2].items()}
-    _, O, m = fn(P, O, batch)
-    assert np.isfinite(float(m["loss"])) and int(O.step.pieces[0]) == 1
+    params, _ = ttrain.build_state(cfg, "cpu")
+    rng = np.random.default_rng(0)
+    shapes = {"train": ShapeConfig("t", 16, 8, "train", grad_accum=2),
+              "prefill": ShapeConfig("p", 16, 8, "prefill"),
+              "decode": ShapeConfig("d", 16, 8, "decode")}
+
+    def batch_of(specs):
+        return {k: (rng.integers(0, cfg.vocab_size, s).astype(np.int32)
+                    if dt == torch.int32 else
+                    (rng.standard_normal(s) * .02).astype(np.float32))
+                for k, (s, dt) in specs.items()}
+    for preset in PRESETS:
+        rules = tsteps.resolve_rules(preset)
+        fn, specs, ins, outs, _d = tsteps.plan(cfg, shapes["train"], mesh,
+                                               rules)
+        P = M.place_tree(params, ins[0])
+        P, O, m = fn(P, tsteps.init_opt(P), batch_of(specs[2]))
+        assert np.isfinite(float(m["loss"])) and int(O.step.pieces[0]) == 1
+        pfn, pspecs, pins, pouts, _d = tsteps.plan(cfg, shapes["prefill"],
+                                                   mesh, rules)
+        lg, cache = pfn(M.place_tree(params, pins[0]), batch_of(pspecs[1]))
+        assert lg.spec == pouts[0].spec and torch.isfinite(lg.gather()).all()
+        # the prefill's cache of S slots, a ring the step at S wraps
+        dfn, _s, dins, douts, _d = tsteps.plan(cfg, shapes["decode"], mesh,
+                                               rules)
+        if rules.get("kv_int8") and decoding.has_int8_cache(cfg):
+            cache = spmd.quantize_cache(cfg, cache)
+        tok = torch.zeros((8, 1), dtype=torch.int32)
+        lg, cache = dfn(M.place_tree(params, dins[0]), cache, tok,
+                        shapes["prefill"].seq_len)
+        assert lg.spec == douts[0].spec and torch.isfinite(lg.gather()).all()
+        for leaf, pl in zip(tree_leaves(cache), tree_leaves(dins[1])):
+            assert leaf.spec == pl.spec
+    out = ttrain.train(cfg, ShapeConfig("t", 8, 4, "train"), 1, None,
+                       mesh=mesh, log_every=0)
+    assert out["mesh"] == (("data", 2), ("model", 2))
+    assert np.isfinite(out["losses"]).all()
 
 
 def test_cp_preset_on_a_mesh_raises():
-    """The context-parallel preset raises for a family the mesh layer does
-    not run (RWKV-6), in every kind of step, and passes the dense,
-    mixture-of-experts, hybrid and VLM families
-    (`tests/test_torch_lm_mesh_cp.py` and
-    `tests/test_torch_lm_mesh_families.py` run them)."""
-    cfg = T_ARCHS["rwkv6-3b"]
+    """No config raises any more (the name is the refusal test's this
+    replaced): every config under `configs/`, full and reduced, is
+    supported (`spmd.supports`), passes `spmd.check_supported` on (2, 2)
+    and gets `plan`'s training step there under every preset, cp
+    included."""
     mesh = _mesh((2, 2))
-    for kind in KINDS:
-        fn, *_ = tsteps.plan(cfg, SHAPES[kind], mesh,
-                             tsteps.resolve_rules("cp"))
-        args = {"train": (None, None, None), "prefill": (None, None),
-                "decode": (None, None, None, 0)}[kind]
-        with pytest.raises(NotImplementedError, match="context-parallel"):
-            fn(*args)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        spmd.check_supported(cfg, mesh, tsteps.resolve_rules("cp"))
-    for name in ("granite-3-2b", "mixtral-8x7b", "hymba-1.5b",
-                 "qwen2-vl-7b"):
-        spmd.check_supported(T_ARCHS[name], mesh, tsteps.resolve_rules("cp"))
+    shape = ShapeConfig("t", 16, 8, "train", grad_accum=2)
+    for archs in (T_FULL, T_ARCHS):
+        for cfg in archs.values():
+            assert spmd.supports(cfg)
+            spmd.check_supported(cfg, mesh)
+            for preset in PRESETS:
+                tsteps.plan(cfg, shape, mesh, tsteps.resolve_rules(preset))
 
 
-def test_default_mesh_keeps_other_families_on_one_device(monkeypatch):
-    """With ``mesh=None`` and two local devices, `train` spreads the dense,
-    mixture-of-experts, hybrid and VLM families over both and keeps a
-    family that runs on no mesh (RWKV-6) on one, which still trains; a
+def test_default_mesh_keeps_other_families_on_one_device(monkeypatch,
+                                                        one_thread):
+    """With ``mesh=None`` and two local devices, `train` spreads every
+    family over both (Whisper and RWKV-6 too, which trains there); a
     device named by its index gets a mesh of one position."""
     from repro_torch import device as device_lib
     monkeypatch.setattr(device_lib, "local_devices", lambda kind=None:
                         [CPU, CPU])
-    dense = T_ARCHS["granite-3-2b"]
-    assert ttrain.default_mesh(dense, "cpu").size == 2
-    assert ttrain.default_mesh(dense, "cpu:0").size == 1
-    for name in ("mixtral-8x7b", "moonshot-v1-16b-a3b", "hymba-1.5b",
-                 "qwen2-vl-7b"):
-        assert ttrain.default_mesh(T_ARCHS[name], "cpu").size == 2
+    for cfg in T_ARCHS.values():
+        assert ttrain.default_mesh(cfg, "cpu").size == 2, cfg.name
+        assert ttrain.default_mesh(cfg, "cpu:0").size == 1, cfg.name
     cfg = T_ARCHS["rwkv6-3b"]
-    assert ttrain.default_mesh(cfg, "cpu").size == 1
     out = ttrain.train(cfg, ShapeConfig("t", 8, 2, "train"), 2, None,
                        log_every=0, device="cpu")
-    assert out["mesh"] == (("data", 1), ("model", 1))
+    assert out["mesh"] == (("data", 1), ("model", 2))
     assert out["final_step"] == 2 and all(map(np.isfinite, out["losses"]))

@@ -309,13 +309,22 @@ def test_attention_at_an_offset_with_a_window_stays_plain_and_right():
 
 
 def test_cp_refuses_only_the_families_the_mesh_does_not_run():
-    """`spmd.check_supported` under the cp preset: the dense, MoE, hybrid
-    and VLM families pass; RWKV-6 and Whisper raise."""
-    mesh = _mesh((2, 2))
-    rules = tsteps.resolve_rules("cp")
-    for name in ("granite-3-2b", "mixtral-8x7b", "moonshot-v1-16b-a3b",
-                 "hymba-1.5b", "qwen2-vl-7b"):
-        spmd.check_supported(T_ARCHS[name], mesh, rules)
-    for name in ("rwkv6-3b", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            spmd.check_supported(T_ARCHS[name], mesh, rules)
+    """The cp preset refuses no family (the mesh layer runs them all), and
+    it acts only where there is attention: on (2, 2) and (1, 4), every
+    reduced config passes `spmd.check_supported`, its `spmd.Layout` is
+    context-parallel exactly when the family has attention (RWKV-6's cp
+    is tp), and `plan`'s cp training step takes and returns the
+    parameters, moments and batch placed as the tp step's (cp changes
+    only the activations inside the step)."""
+    shape = ShapeConfig("t", 16, 8, "train", grad_accum=2)
+    for mshape in ((2, 2), (1, 4)):
+        mesh = _mesh(mshape)
+        for cfg in T_ARCHS.values():
+            spmd.check_supported(cfg, mesh)
+            assert spmd.Layout(cfg, mesh, cp=True).cp == (not cfg.attn_free)
+            _f, _s, ins, outs, _d = tsteps.plan(
+                cfg, shape, mesh, tsteps.resolve_rules("cp"))
+            _f, _s, tins, touts, _d = tsteps.plan(
+                cfg, shape, mesh, tsteps.resolve_rules("tp"))
+            assert ([x.spec for x in tree_leaves((ins, outs))]
+                    == [x.spec for x in tree_leaves((tins, touts))]), cfg.name
