@@ -3136,40 +3136,141 @@ def dse_run(arch: str, shape: str) -> dict:
             "wall_s": wall, "engine": out["engine"]}
 
 
-def counted_bounds(paths) -> list:
-    """Each LM path's step counted by `dryrun.run_cell` (`op_profile` on
-    meta tensors) at the batch and length its phase timed, its roofline
-    terms at the H100's constants beside the ms the phase measured."""
+def counted_paths() -> list:
+    """The LM paths whose steps the bridge slice holds against their
+    measured ms: (label, arch, kind, seq, batch, grad_accum, max_len,
+    mesh), at the batch and length each phase times. ``mesh`` (None on
+    one card) gives the mesh, the preset and the phase's depth of the
+    mesh phase's Granite tp step and serve8 decode step on (2, 2); the
+    decode is counted at the last of its cache's slots."""
+    on_mesh = {"mesh": "x".join(map(str, MESH_SHAPE)),
+               "layers": SMOKE_MESH_LAYERS}
+    paths = [("hymba_prefill", LM_ARCH, "prefill", LM_PROMPT, LM_BATCH, 1,
+              LM_MAX_LEN, None),
+             ("moonlight_prefill", MOE_ARCH, "prefill", LM_PROMPT, LM_BATCH,
+              1, LM_MAX_LEN, None)]
+    paths += [(f"{name}_prefill", name, "prefill", prompt_len, LM_BATCH, 1,
+               max_len, None) for name, prompt_len, max_len in FAMILIES]
+    return paths + [
+        ("hymba_train_step", LM_ARCH, "train", TRAIN_SEQ, TRAIN_BATCH,
+         TRAIN_ACCUM, 0, None),
+        ("granite_tp_step_mesh", MESH_ARCH, "train", MESH_SEQ, MESH_BATCH,
+         MESH_ACCUM, 0, dict(on_mesh, rules="tp")),
+        ("granite_serve8_decode_mesh", MESH_ARCH, "decode",
+         MESH_PROMPT + SMOKE_MESH_NEW, MESH_BATCH, 1, 0,
+         dict(on_mesh, rules="serve8"))]
+
+
+def count_paths(paths) -> list:
+    """Each path's step counted by `dryrun.run_cell` (`op_profile` on meta
+    tensors; a mesh path per position, `op_profile.profile_mesh`)."""
+    import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import dryrun
+    out = []
+    for label, arch, kind, seq, batch, accum, max_len, mesh in paths:
+        cfg = get_arch(arch)
+        if mesh:
+            cfg = dataclasses.replace(cfg, n_layers=mesh["layers"])
+        out.append(dryrun.run_cell(
+            cfg, ShapeConfig(label, seq, batch, kind, grad_accum=accum),
+            max_len=max_len, verbose=False,
+            **({"mesh": mesh["mesh"], "rules_name": mesh["rules"]}
+               if mesh else {})))
+    return out
+
+
+def _count_child(conn, paths) -> None:
+    import traceback
+    try:
+        conn.send(("ok", count_paths(paths)))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+class BackgroundCount:
+    """`count_paths` in a spawned process of its own (meta tensors only:
+    it touches no card), started at the script's start so that the count
+    runs beside the card's phases; `result` waits for it."""
+
+    def __init__(self, paths):
+        import multiprocessing
+        ctx = multiprocessing.get_context("spawn")
+        self.t0 = time.perf_counter()
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_count_child, args=(child, paths),
+                                daemon=True)
+        self.proc.start()
+        child.close()
+
+    def result(self) -> list:
+        status, out = self.conn.recv()
+        self.proc.join()
+        self.wall_s = time.perf_counter() - self.t0
+        if status != "ok":
+            raise RuntimeError(f"the background count failed:\n{out}")
+        return out
+
+    def stop(self) -> None:
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join()
+
+
+def counted_bounds(paths, records, measured: dict) -> list:
+    """Each LM path's counted step (`count_paths`' ``records``), its
+    roofline terms at the H100's constants beside the ms its phase
+    measured (``measured``, by label). A mesh path's positions all run
+    on card 0, so the card's terms are the positions' compute terms
+    summed and their memory terms summed."""
+    from repro_torch.launch import roofline
     rows = []
-    for label, arch, kind, seq, batch, accum, max_len, measured in paths:
-        shape = ShapeConfig(label, seq, batch, kind, grad_accum=accum)
-        rec = dryrun.run_cell(get_arch(arch), shape, max_len=max_len,
-                              verbose=False)
+    for path, rec in zip(paths, records):
+        label, arch, kind, seq, batch, accum, _max_len, mesh = path
         check(rec["status"] == "ok", f"counting {label}: {rec.get('error')}")
         if rec["status"] != "ok":
             continue
-        compute = rec["flops"] / roofline.PEAK_FLOPS * 1e3
-        memory = roofline.memory_bytes(rec) / roofline.HBM_BW * 1e3
-        fraction = max(compute, memory) / measured
+        classes = rec.get("classes") or [dict(rec, positions=[0])]
+        compute = sum(len(c["positions"]) * c["flops"]
+                      for c in classes) / roofline.PEAK_FLOPS * 1e3
+        memory = sum(len(c["positions"]) * roofline.memory_bytes(c)
+                     for c in classes) / roofline.HBM_BW * 1e3
+        fraction = max(compute, memory) / measured[label]
         check(fraction <= 1.0, f"{label}: counted bound {max(compute, memory)}"
-              f" ms over the measured {measured} ms: the count is wrong")
-        rows.append({"path": label, "arch": arch, "kind": kind,
-                     "batch": batch, "seq": seq, "grad_accum": accum,
-                     "flops": rec["flops"], "hbm_bytes": rec["hbm_bytes"],
-                     "memory": rec["memory"], "peak_bytes": rec["peak_bytes"],
-                     "compute_ms": compute, "memory_ms": memory,
-                     "op_level_hbm_ms": rec["hbm_bytes"] / roofline.HBM_BW
-                     * 1e3, "measured_ms": measured, "fraction": fraction,
-                     "bound_by": "compute" if compute >= memory
-                     else "memory", "n_ops": rec["n_ops"],
-                     "count_s": rec["count_s"]})
+              f" ms over the measured {measured[label]} ms: the count is "
+              f"wrong")
+        row = {"path": label, "arch": arch, "kind": kind,
+               "batch": batch, "seq": seq, "grad_accum": accum,
+               "flops": rec["flops"], "hbm_bytes": rec["hbm_bytes"],
+               "memory": rec["memory"], "peak_bytes": rec["peak_bytes"],
+               "compute_ms": compute, "memory_ms": memory,
+               "op_level_hbm_ms": sum(
+                   len(c["positions"]) * c["hbm_bytes"] for c in classes)
+               / roofline.HBM_BW * 1e3, "measured_ms": measured[label],
+               "fraction": fraction,
+               "bound_by": "compute" if compute >= memory else "memory",
+               "n_ops": rec["n_ops"], "count_s": rec["count_s"]}
+        if mesh:
+            row.update(mesh=rec["mesh"], rules=rec["rules"],
+                       n_layers=mesh["layers"], classes=[
+                           {"positions": c["positions"], "flops": c["flops"],
+                            "memory": c["memory"],
+                            "collective_bytes": c["collective_bytes"],
+                            "count_s": c["count_s"]} for c in classes],
+                       collective_bytes=rec["collective_bytes"],
+                       collective_wire_bytes=rec["collective_wire_bytes"])
+        print(f"counted bound {label}: {max(compute, memory):.3f} ms "
+              f"against the measured {measured[label]:.3f} ms (count "
+              f"{rec['count_s']} s)", flush=True)
+        rows.append(row)
     return rows
 
 
-def bridge_slice_phase(card: str, dev, paths):
+def bridge_slice_phase(card: str, dev, counting: BackgroundCount,
+                       measured: dict):
     """ApproxPilot-LM on ``dev``: the surrogate (alone, then an ensemble)
     trained and queried through its engine (`gnn_mp` in every gsae
     layer), the search on two cells at the H100's constants and again at
@@ -3208,8 +3309,12 @@ def bridge_slice_phase(card: str, dev, paths):
         k: {"identical": same[k], "front": len(here[k])} for k in here}
 
     t = time.perf_counter()
-    report["counted_bounds"] = counted_bounds(paths)
-    report["count_s"] = time.perf_counter() - t
+    paths = counted_paths()
+    report["counted_bounds"] = counted_bounds(paths, counting.result(),
+                                              measured)
+    report["count_wait_s"] = time.perf_counter() - t
+    report["count_s"] = sum(r["count_s"] for r in report["counted_bounds"])
+    report["count_wall_s"] = counting.wall_s
     report["wall_s"] = time.perf_counter() - t0
     return report, launches
 
@@ -5617,6 +5722,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     FAILURES.clear()
+    # the LM paths' counts (meta tensors, the host's CPU) run beside the
+    # card's phases; the bridge slice reads them
+    import atexit
+    counting = BackgroundCount(counted_paths())
+    atexit.register(counting.stop)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # bf16 products accumulate in float32 (models.layers.fdot)
@@ -5728,19 +5838,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fams = fam_report["models"]
-    # (label, arch, kind, seq, batch, grad_accum, max_len, measured ms)
-    paths = [
-        ("hymba_prefill", LM_ARCH, "prefill", LM_PROMPT, LM_BATCH, 1,
-         LM_MAX_LEN, lm_report["prefill_warm_ms"]),
-        ("moonlight_prefill", MOE_ARCH, "prefill", LM_PROMPT, LM_BATCH, 1,
-         LM_MAX_LEN, moe_report["prefill_warm_ms"])]
-    for name, prompt_len, max_len in FAMILIES:
-        paths.append((f"{name}_prefill", name, "prefill", prompt_len,
-                      LM_BATCH, 1, max_len, fams[name]["prefill_warm_ms"]))
-    paths.append(("hymba_train_step", LM_ARCH, "train", TRAIN_SEQ,
-                  TRAIN_BATCH, TRAIN_ACCUM, 0, train_lm_report["ms_per_step"]))
+    # the ms each counted path's phase measured (`counted_paths`)
+    measured = {"hymba_prefill": lm_report["prefill_warm_ms"],
+                "moonlight_prefill": moe_report["prefill_warm_ms"],
+                "hymba_train_step": train_lm_report["ms_per_step"],
+                "granite_tp_step_mesh":
+                    mesh_report["train"]["sharded"]["ms_per_step"],
+                "granite_serve8_decode_mesh":
+                    mesh_report["serve"]["sharded"]["decode_ms_per_step"]}
+    measured.update({f"{name}_prefill": fams[name]["prefill_warm_ms"]
+                     for name, _p, _m in FAMILIES})
     bridge_report, bridge_launches = bridge_slice_phase(
-        card, torch.device("cuda"), paths)
+        card, torch.device("cuda"), counting, measured)
     print("bridge_slice " + json.dumps(bridge_report), flush=True)
 
     g = gnn_rows[1]            # 512 x 32 x 300 -> 300: 8 of the 10 layers

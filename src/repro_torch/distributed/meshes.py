@@ -26,14 +26,15 @@ The LM over a mesh (`distributed.spmd`) holds its tensors placed:
 `ShardedTensor` (a piece per mesh position, `place`, `gather`,
 `map_placed`), the collectives over a named axis (`all_gather`,
 `reduce_scatter`, `all_reduce`, `reshard`) and `sync_replicas`; notes
-before `ShardedTensor`.
+before `ShardedTensor`. Under a count (`COUNT`, `Count`) only the
+counted positions hold pieces and the collectives record themselves.
 """
 from __future__ import annotations
 
 import functools
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -419,8 +420,9 @@ def _overlap(a, b):
 
 class ShardedTensor:
     """A tensor placed on a mesh (module notes above): ``pieces[i]`` is
-    mesh position i's block, on that position's device. ``partial``
-    names the axes over which the pieces are unreduced summands."""
+    mesh position i's block, on that position's device (None at a
+    position a count leaves out, `Count`). ``partial`` names the axes
+    over which the pieces are unreduced summands."""
 
     def __init__(self, placement: Placement, shape: Sequence[int],
                  pieces: Sequence[torch.Tensor],
@@ -436,7 +438,7 @@ class ShardedTensor:
         """The placed tensor whose pieces are ``pieces``; its logical shape
         is the first piece's times the split of each dim."""
         mesh, spec = placement.mesh, placement.spec
-        shp = list(pieces[0].shape)
+        shp = list(next(p for p in pieces if p is not None).shape)
         for k in range(len(shp)):
             if k < len(spec):
                 shp[k] *= axis_size(mesh, spec[k])
@@ -451,8 +453,13 @@ class ShardedTensor:
         return self.placement.spec
 
     @property
+    def first(self) -> torch.Tensor:
+        """The first piece held (mesh order)."""
+        return next(p for p in self.pieces if p is not None)
+
+    @property
     def dtype(self) -> torch.dtype:
-        return self.pieces[0].dtype
+        return self.first.dtype
 
     @property
     def ndim(self) -> int:
@@ -492,12 +499,13 @@ def place(tensor: torch.Tensor, placement: Placement,
     device is named several times)."""
     mesh = placement.mesh
     shape = tuple(tensor.shape)
-    pieces = []
-    for dev, c in zip(mesh.device_list(), positions(mesh)):
-        blk = block_of(mesh, placement.spec, shape, c)
+    devs, coords = mesh.device_list(), _positions(mesh)
+    pieces: List[Optional[torch.Tensor]] = [None] * mesh.size
+    for i in active(mesh):
+        blk = block_of(mesh, placement.spec, shape, coords[i])
         piece = tensor[tuple(slice(lo, hi) for lo, hi in blk)]
-        pieces.append(piece.to(dev, dtype=dtype or tensor.dtype,
-                               copy=True).contiguous())
+        pieces[i] = piece.to(devs[i], dtype=dtype or tensor.dtype,
+                             copy=True).contiguous()
     return ShardedTensor(placement, shape, pieces)
 
 
@@ -507,7 +515,8 @@ def map_placed(fn, *xs: ShardedTensor, placement: Optional[Placement] = None,
     one mesh); the result keeps the first's placement and partial axes
     unless given."""
     x0 = xs[0]
-    pieces = [fn(*ps) for ps in zip(*(x.pieces for x in xs))]
+    pieces = [None if ps[0] is None else fn(*ps)
+              for ps in zip(*(x.pieces for x in xs))]
     return ShardedTensor.from_pieces(
         placement or x0.placement, pieces,
         x0.partial if partial is None else partial)
@@ -540,7 +549,8 @@ def nbytes_per_position(tree) -> List[int]:
     for x in pytree.tree_leaves(tree, is_leaf=is_placed):
         if not is_placed(x):
             continue
-        b = [p.numel() * p.element_size() for p in x.pieces]
+        b = [0 if p is None else p.numel() * p.element_size()
+             for p in x.pieces]
         out = b if out is None else [u + v for u, v in zip(out, b)]
     return out or []
 
@@ -553,6 +563,8 @@ def nbytes_per_device(tree) -> Dict[str, int]:
         if not is_placed(x):
             continue
         for dev, p in zip(x.mesh.device_list(), x.pieces):
+            if p is None:
+                continue
             out[str(dev)] = out.get(str(dev), 0) + p.numel() * \
                 p.element_size()
     return out
@@ -698,6 +710,12 @@ def sync_replicas(x: ShardedTensor) -> ShardedTensor:
     """Sum, in place, the pieces that hold the same block (float32, mesh
     order) and give each copy the sum: the all-reduce of a replicated
     parameter's gradients over its copies."""
+    if counting(x.mesh):
+        holders = x.mesh.size // _n_blocks(x.mesh, x.spec)
+        if holders > 1:
+            for i in COUNT.active:
+                COUNT.record(i, "all-reduce", holders, _nbytes(x.pieces[i]))
+        return x
     with torch.no_grad():
         holders: Dict[tuple, List[int]] = {}
         for j, b in enumerate(x.blocks()):
@@ -720,8 +738,22 @@ def global_norm(xs: Sequence[ShardedTensor]) -> torch.Tensor:
     logical element once: a leaf's squared sum over one piece of each
     distinct block (mesh order), the leaves' sums added in their order on
     the mesh's first device. `optim.adamw.global_norm` of the gathered
-    leaves, without a replicated block counted once per copy."""
-    dev = xs[0].mesh.device_list()[0]
+    leaves, without a replicated block counted once per copy. Under a
+    count each counted position squares and sums its own pieces and the
+    sums are all-reduced over the mesh (a scalar)."""
+    mesh = xs[0].mesh
+    if counting(mesh):
+        norms = []
+        with torch.no_grad():
+            for i in COUNT.active:
+                total = torch.zeros((), dtype=torch.float32,
+                                    device=xs[0].pieces[i].device)
+                for x in xs:
+                    total = total + x.pieces[i].float().square().sum()
+                COUNT.record(i, "all-reduce", mesh.size, 4)
+                norms.append(torch.sqrt(total))
+        return norms[0]
+    dev = mesh.device_list()[0]
     total = torch.zeros((), dtype=torch.float32, device=dev)
     with torch.no_grad():
         for x in xs:
@@ -745,8 +777,7 @@ def reshard(x: ShardedTensor, placement: Placement,
             == _padded(x.spec, x.ndim) and placement.mesh is x.mesh
             and (dtype is None or dtype == x.dtype)):
         return x
-    pieces = _Exchange.apply((x.placement, tuple(x.shape), x.partial),
-                             placement, dtype, *x.pieces)
+    pieces = _exchange(x, x.partial, placement, dtype)
     return ShardedTensor(placement, x.shape, pieces)
 
 
@@ -780,8 +811,7 @@ def reduce_scatter(x: ShardedTensor, axis: str, dim: int,
     parts = list(x.spec) + [None] * (dim + 1 - len(x.spec))
     parts[dim] = _axes_of(parts[dim]) + (axis,)
     dst = Placement(x.mesh, P(*parts))
-    pieces = _Exchange.apply((x.placement, tuple(x.shape), (axis,)), dst,
-                             dtype or torch.float32, *x.pieces)
+    pieces = _exchange(x, (axis,), dst, dtype or torch.float32)
     return ShardedTensor(dst, x.shape, pieces,
                          tuple(a for a in x.partial if a != axis))
 
@@ -795,7 +825,177 @@ def all_reduce(x: ShardedTensor, axis, dtype: Optional[torch.dtype] = None
     axes = _axes_of(axis)
     if not set(axes) <= set(x.partial):
         raise ValueError(f"{x} is not partial over {axes}")
-    pieces = _Exchange.apply((x.placement, tuple(x.shape), axes),
-                             x.placement, dtype or torch.float32, *x.pieces)
+    pieces = _exchange(x, axes, x.placement, dtype or torch.float32)
     return ShardedTensor(x.placement, x.shape, pieces,
                          tuple(a for a in x.partial if a not in axes))
+
+
+def _exchange(x: ShardedTensor, partial: Tuple[str, ...], dst: Placement,
+              dtype: Optional[torch.dtype]) -> List[Optional[torch.Tensor]]:
+    """The destination pieces of ``x`` (summed over ``partial``) on
+    ``dst``: `_Exchange`, or under a count `_CountedExchange` at the
+    counted positions."""
+    meta = (x.placement, tuple(x.shape), tuple(partial))
+    if not counting(x.mesh):
+        return list(_Exchange.apply(meta, dst, dtype, *x.pieces))
+    idx = COUNT.active
+    outs = _CountedExchange.apply(meta, dst, dtype, idx,
+                                  *[x.pieces[i] for i in idx])
+    pieces: List[Optional[torch.Tensor]] = [None] * x.mesh.size
+    for i, out in zip(idx, outs):
+        pieces[i] = out
+    return pieces
+
+
+# --------------------------------------------------------------------------
+# the count of a step over a mesh
+# --------------------------------------------------------------------------
+#
+# `launch.op_profile.profile_mesh` counts a step over a mesh one position
+# at a time: it sets `COUNT` to a `Count` of the mesh and the counted
+# positions, places the step's arguments (`place` makes the counted
+# positions' pieces only; every other piece is None) and runs the step on
+# meta tensors. `distributed.spmd`'s per-position loops run the counted
+# positions only (`active`). A collective does not copy or sum: at each
+# counted destination it makes a piece of its block's shape, reading no
+# other position, and records its kind, group size and result bytes
+# (`Count.record`); its backward records the transpose. Where a
+# destination's block lies inside its own source piece and nothing is
+# summed, the exchange is local and its copy runs as an op, as outside
+# the count. The kinds are the reference's HLO collectives
+# (`hlo_profile`): all-gather (the block holds the own piece and g - 1
+# others), reduce-scatter and all-reduce (a partial source, the block a
+# 1/g part of the source piece or all of it), collective-permute (one
+# other holder) and all-to-all (several). The group size g comes from the
+# mesh axes the collective spans.
+
+class Count:
+    """A count of a step over ``mesh``: the positions ``active`` hold
+    pieces; ``record(position, kind, group size, result bytes)`` takes
+    each collective at a counted destination."""
+
+    def __init__(self, mesh: Mesh, active: Sequence[int],
+                 record: Optional[Callable] = None):
+        self.mesh = mesh
+        self.active = tuple(sorted(active))
+        self.record = record or (lambda *a: None)
+
+
+COUNT: Optional[Count] = None
+
+# the collective whose work is the transpose of each kind's
+TRANSPOSE = {"all-gather": "reduce-scatter", "reduce-scatter": "all-gather",
+             "all-reduce": "all-reduce", "all-to-all": "all-to-all",
+             "collective-permute": "collective-permute"}
+
+
+def counting(mesh: Mesh) -> bool:
+    """Whether a count of a step over ``mesh`` is open (`COUNT`)."""
+    return COUNT is not None and COUNT.mesh is mesh
+
+
+def active(mesh: Mesh) -> Sequence[int]:
+    """The positions that hold pieces: every position, or those a count
+    over ``mesh`` counts."""
+    return COUNT.active if counting(mesh) else range(mesh.size)
+
+
+def record(mesh: Mesh, i: int, kind: str, group: int,
+           result: torch.Tensor) -> torch.Tensor:
+    """Record, under a count over ``mesh``, a collective of ``kind`` over
+    ``group`` positions whose result at position ``i`` is ``result`` (a
+    piece made without reading another position); returns it."""
+    if group > 1:
+        COUNT.record(i, kind, group, _nbytes(result))
+    return result
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _sizes(block) -> List[int]:
+    return [hi - lo for lo, hi in block]
+
+
+def _inside(a, b) -> bool:
+    return all(b0 <= a0 and a1 <= b1 for (a0, a1), (b0, b1) in zip(a, b))
+
+
+def _n_blocks(mesh: Mesh, spec: PartitionSpec) -> int:
+    """How many distinct blocks ``spec`` cuts a tensor into."""
+    return int(np.prod([axis_size(mesh, e) for e in spec] or [1]))
+
+
+@functools.lru_cache(maxsize=65536)
+def _route(mesh: Mesh, src_spec: PartitionSpec, dst_spec: PartitionSpec,
+           shape: Tuple[int, ...], partial: Tuple[str, ...], i: int
+           ) -> Tuple[str, int]:
+    """How an exchange makes position i's destination block: ("local", 1)
+    when its own source piece holds the block and nothing is summed, else
+    the collective's (kind, group size) (notes above)."""
+    coords = _positions(mesh)
+    src = block_of(mesh, src_spec, shape, coords[i])
+    dst = block_of(mesh, dst_spec, shape, coords[i])
+    ns, nd = int(np.prod(_sizes(src))), int(np.prod(_sizes(dst)))
+    if partial:
+        g = axis_size(mesh, tuple(partial))
+        if g == 1:
+            return "local", 1
+        return ("reduce-scatter", g) if nd < ns else ("all-reduce", g)
+    if _inside(dst, src):
+        return "local", 1
+    if _inside(src, dst) and nd % ns == 0:
+        return "all-gather", nd // ns
+    holders = {block_of(mesh, src_spec, shape, c) for c in coords}
+    reads = [b for b in holders if _overlap(b, dst) is not None]
+    if len(reads) == 1:
+        return "collective-permute", 2
+    return "all-to-all", len(reads)
+
+
+class _CountedExchange(torch.autograd.Function):
+    """`_Exchange` under a count, at the counted positions ``idx`` only:
+    each destination piece is a copy of its own source piece where the
+    exchange is local at it (`_route`), else an empty piece of its block
+    and a recorded collective; backward the same, with the transpose's
+    kind (`TRANSPOSE`) and the gradient's bytes."""
+
+    @staticmethod
+    def forward(ctx, src_meta, dst: Placement, dtype, idx, *pieces):
+        src_pl, shape, partial = src_meta
+        mesh = src_pl.mesh
+        coords = _positions(mesh)
+        outs, routes = [], []
+        for i, piece in zip(idx, pieces):
+            kind, g = _route(mesh, src_pl.spec, dst.spec, shape, partial, i)
+            sblk = block_of(mesh, src_pl.spec, shape, coords[i])
+            dblk = block_of(mesh, dst.spec, shape, coords[i])
+            out = torch.empty(_sizes(dblk), dtype=dtype or piece.dtype,
+                              device=piece.device)
+            if kind == "local":
+                out[_region(dblk, dblk)].copy_(piece[_region(dblk, sblk)])
+            else:
+                COUNT.record(i, kind, g, _nbytes(out))
+            outs.append(out)
+            routes.append((i, kind, g, sblk, dblk, piece.dtype))
+        ctx.routes = routes
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        gin = []
+        for (i, kind, g, sblk, dblk, dt), grad in zip(ctx.routes, grads):
+            if grad is None:
+                gin.append(None)
+            elif kind == "local":
+                acc = torch.zeros(_sizes(sblk), dtype=_sum_type(grad.dtype),
+                                  device=grad.device)
+                acc[_region(dblk, sblk)] += grad.to(acc.dtype)
+                gin.append(acc.to(dt))
+            else:
+                COUNT.record(i, TRANSPOSE[kind], g,
+                             int(np.prod(_sizes(sblk))) * grad.element_size())
+                gin.append(torch.empty(_sizes(sblk), dtype=dt,
+                                       device=grad.device))
+        return (None, None, None, None, *gin)

@@ -313,6 +313,17 @@ class Layout:
                 self.group[i] = grp
         # the groups over the batch axes (the positions of one model shard)
         self.data_groups = M._groups(mesh, M.batch_axes(mesh))
+        # the positions that run: every one, or a count's (`meshes.Count`)
+        self.active = M.active(mesh)
+        self.counting = M.counting(mesh)
+
+    def each(self, fn) -> List[Any]:
+        """``fn(i)`` at every position that runs (mesh order), None at
+        the others."""
+        out: List[Any] = [None] * self.n
+        for i in self.active:
+            out[i] = fn(i)
+        return out
 
     def r(self, i: int) -> int:
         return self.coords[i].get("model", 0)
@@ -390,7 +401,8 @@ class Layout:
         y = M.reshard(x, M.Placement(self.mesh, want), dtype)
         out = []
         for i, piece in enumerate(y.pieces):
-            if split is not None and want[split[0]] is None:
+            if (piece is not None and split is not None
+                    and want[split[0]] is None):
                 rng = self._range(split[1], i)
                 if rng is not None:
                     piece = piece.narrow(split[0], rng[0], rng[1] - rng[0])
@@ -406,6 +418,8 @@ class Layout:
         per: List[Dict[str, Any]] = [dict() for _ in range(self.n)]
         for path, x in lsrc.items():
             for i, t in enumerate(self.view(x, dtype, splits.get(path))):
+                if t is None:
+                    continue
                 node = per[i]
                 *head, last = path.split("/")
                 for h in head:
@@ -429,14 +443,51 @@ def layer_sources(blocks) -> List[Dict[str, M.ShardedTensor]]:
     out: List[Dict[str, M.ShardedTensor]] = []
     for path, x in flat.items():
         assert not len(x.spec) or x.spec[0] is None, (path, x.spec)
-        layers = [p.unbind(0) for p in x.pieces]
+        layers = [None if p is None else p.unbind(0) for p in x.pieces]
         pl = M.Placement(x.mesh, M.P(*list(x.spec)[1:]))
         for li in range(x.shape[0]):
             if len(out) <= li:
                 out.append({})
-            out[li][path] = M.ShardedTensor(pl, x.shape[1:],
-                                            [ls[li] for ls in layers])
+            out[li][path] = M.ShardedTensor(
+                pl, x.shape[1:], [None if ls is None else ls[li]
+                                  for ls in layers])
     return out
+
+
+def classes(cfg: ArchConfig, mesh: M.Mesh, kind: str, seq_len: int,
+            cp: bool = False, cache=None, placements=None, step: int = 0
+            ) -> List[List[int]]:
+    """The positions of ``mesh`` grouped by the work one step of ``kind``
+    ("train", "prefill" or "decode") over ``seq_len`` positions does at
+    each (`launch.op_profile.profile_mesh` counts one of each), in mesh
+    order. Positions along the batch axes do the same work, whatever rows
+    they hold: the cross-position work over rows runs alike at each
+    under a count (`_over_rows`, `_row_owner`). Along "model" the ranks
+    differ where attention runs context-parallel (shard r reads
+    (r + 1)·S/m keys; Whisper's encoder at its length), and in a decode
+    step by which rings of the cache (``cache``, its tree of shaped
+    leaves, placed by ``placements``) hold slot ``step % W`` at the
+    position. (A training step where m does not divide S, whose shard 0
+    alone sums the NLL, `_seq_block`, is not counted: `loss_fn`.)"""
+    lay = Layout(cfg, mesh, cp)
+    rings = []
+    if kind == "decode" and cache is not None and not cfg.attn_free:
+        if "layers" in cache:
+            rings = [(tuple(c["k"].shape), p["k"].spec, 1)
+                     for c, p in zip(cache["layers"], placements["layers"])]
+        else:
+            rings = [(tuple(cache["k"].shape), placements["k"].spec, 2)]
+    keyed: Dict[tuple, List[int]] = {}
+    for i, c in enumerate(lay.coords):
+        if kind == "decode":
+            key = tuple(lo <= step % shp[d] < hi for shp, spec, d in rings
+                        for lo, hi in [M.block_of(mesh, spec, shp, c)[d]])
+        elif lay.cp_on(seq_len) or (cfg.enc_dec and lay.cp_on(cfg.enc_len)):
+            key = (lay.r(i),)
+        else:
+            key = ()
+        keyed.setdefault(key, []).append(i)
+    return list(keyed.values())
 
 
 def _row_parallel(lay: Layout, parts: List[torch.Tensor], spec0,
@@ -481,12 +532,14 @@ def _row_products(lay: Layout, pairs, spec0, dt: torch.dtype
     partials (`mm_f32`), stacked and summed over "model" in one
     `meshes.all_reduce`, each rounded once to ``dt``; else every shard's
     whole product (`fdot`)."""
-    if not lay.split_heads or not pairs[0]:
-        return [[fdot(y, w) for y, w in ps] for ps in pairs]
-    parts = [torch.stack([mm_f32(y, w) for y, w in ps]) for ps in pairs]
+    if not lay.split_heads or not pairs[lay.active[0]]:
+        return lay.each(lambda i: [fdot(y, w) for y, w in pairs[i]])
+    parts = lay.each(lambda i: torch.stack([mm_f32(y, w)
+                                            for y, w in pairs[i]]))
     x = M.ShardedTensor.from_pieces(M.Placement(lay.mesh, M.P(None, spec0)),
                                     parts, ("model",))
-    return [list(p.unbind(0)) for p in M.all_reduce(x, "model", dt).pieces]
+    sums = M.all_reduce(x, "model", dt).pieces
+    return lay.each(lambda i: list(sums[i].unbind(0)))
 
 
 def _block(cfg, lay: Layout, lsrc, xs, positions, ctx: _Ctx, is_global,
@@ -499,7 +552,7 @@ def _block(cfg, lay: Layout, lsrc, xs, positions, ctx: _Ctx, is_global,
     of every KV head under context parallelism, and for the hybrid family
     its SSM heads' final state after them; each position's load-balancing
     loss of the layer, or None without experts)."""
-    dt = xs[0].dtype
+    dt = xs[lay.active[0]].dtype
     w = lay.layer_views(lsrc, dt, ctx.splits)
     if cfg.attn_free:
         return _rwkv_block(cfg, lay, w, xs, ctx, collect)
@@ -508,31 +561,31 @@ def _block(cfg, lay: Layout, lsrc, xs, positions, ctx: _Ctx, is_global,
     if ctx.cp:
         attn, kvs = _cp_attention(cfg, lay, w, xs, positions, ctx.spec0,
                                   is_global, collect, causal)
-        pairs = [[] for _ in xs]
+        pairs = lay.each(lambda i: [])
     else:
-        nxs = [rms_norm(x, w[i]["norm1"], cfg.norm_eps)
-               for i, x in enumerate(xs)]
-        os, kvs = _tp_attention(cfg, w, nxs, positions, is_global, collect,
-                                causal)
-        pairs = [[(o, w[i]["attn"]["wo"])] for i, o in enumerate(os)]
+        nxs = lay.each(lambda i: rms_norm(xs[i], w[i]["norm1"],
+                                          cfg.norm_eps))
+        os, kvs = _tp_attention(cfg, lay, w, nxs, positions, is_global,
+                                collect, causal)
+        pairs = lay.each(lambda i: [(os[i], w[i]["attn"]["wo"])])
     if hybrid:
         if nxs is None:
-            nxs = [rms_norm(x, w[i]["norm1"], cfg.norm_eps)
-                   for i, x in enumerate(xs)]
-        for i, nx in enumerate(nxs):
-            y, state = ssm_lib.ssm_heads(cfg, w[i]["ssm"], nx)
+            nxs = lay.each(lambda i: rms_norm(xs[i], w[i]["norm1"],
+                                              cfg.norm_eps))
+        for i in lay.active:
+            y, state = ssm_lib.ssm_heads(cfg, w[i]["ssm"], nxs[i])
             pairs[i].append((y, w[i]["ssm"]["out_proj"]))
             if collect:
                 kvs[i] = tuple(kvs[i]) + (state,)
     outs = _row_products(lay, pairs, ctx.spec0, dt)
     if ctx.cp:
-        outs = [[a] + o for a, o in zip(attn, outs)]
+        outs = lay.each(lambda i: [attn[i]] + outs[i])
     if hybrid:
-        xs = [x + 0.5 * (w[i]["fuse_scale"][0] * o[0]
-                         + w[i]["fuse_scale"][1] * o[1])
-              for i, (x, o) in enumerate(zip(xs, outs))]
+        xs = lay.each(lambda i: xs[i] + 0.5 * (
+            w[i]["fuse_scale"][0] * outs[i][0]
+            + w[i]["fuse_scale"][1] * outs[i][1]))
     else:
-        xs = [x + o[0] for x, o in zip(xs, outs)]
+        xs = lay.each(lambda i: xs[i] + outs[i][0])
     if enc is not None:
         xs = _cross_attention(cfg, lay, w, xs, enc, ctx.spec0, dt)
     outs, aux = _ffn_all(cfg, lay, w, xs, ctx, dt)
@@ -545,18 +598,18 @@ def _cross_attention(cfg, lay: Layout, w, xs, enc, spec0, dt):
     encoder output ``enc[i]`` (K3, a full mask, Sq < Sk), ``xattn/wo``
     row-parallel where the heads split. Returns the residual sums."""
     hd = cfg.resolved_head_dim
-    pairs = []
-    for i, x in enumerate(xs):
-        p = w[i]["xattn"]
+
+    def pair(i):
+        x, p = xs[i], w[i]["xattn"]
         nx = rms_norm(x, w[i]["norm3"], cfg.norm_eps)
         B, S, _ = x.shape
         q = fdot(nx, p["wq"]).reshape(B, S, -1, hd)
         k = fdot(enc[i], p["wk"]).reshape(B, enc[i].shape[1], -1, hd)
         v = fdot(enc[i], p["wv"]).reshape(B, enc[i].shape[1], -1, hd)
         o = attn_lib.attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-        pairs.append([(o.reshape(B, S, -1), p["wo"])])
-    return [x + o[0] for x, o in zip(xs, _row_products(lay, pairs, spec0,
-                                                         dt))]
+        return [(o.reshape(B, S, -1), p["wo"])]
+    outs = _row_products(lay, lay.each(pair), spec0, dt)
+    return lay.each(lambda i: xs[i] + outs[i][0])
 
 
 def _rwkv_block(cfg, lay: Layout, w, xs, ctx: _Ctx, collect: bool,
@@ -568,49 +621,43 @@ def _rwkv_block(cfg, lay: Layout, w, xs, ctx: _Ctx, collect: bool,
     its heads, x_tm, x_cm) of a decode step (None: a prompt from zeros).
     Returns (the outputs, each position's [state, last time-mix input,
     last channel-mix input] if ``collect``, None)."""
-    dt = xs[0].dtype
-    pairs, entries = [], []
-    for i, x in enumerate(xs):
+    dt = xs[lay.active[0]].dtype
+    pairs, entries = [None] * lay.n, [None] * lay.n
+    for i in lay.active:
         p = w[i]["rwkv"]
         st, x_tm, _ = carry[i] if carry else (None, None, None)
-        nx = rms_norm(x, w[i]["norm1"], cfg.norm_eps)
+        nx = rms_norm(xs[i], w[i]["norm1"], cfg.norm_eps)
         y, st, last = rwkv_lib.time_mix_heads(cfg, p, nx, st, x_tm)
-        pairs.append([(y, p["w_o"])])
-        entries.append([st, last])
-    xs = [x + o[0] for x, o in zip(xs, _row_products(lay, pairs, ctx.spec0,
-                                                     dt))]
-    keys, gates = [], []
-    for i, x in enumerate(xs):
+        pairs[i] = [(y, p["w_o"])]
+        entries[i] = [st, last]
+    outs = _row_products(lay, pairs, ctx.spec0, dt)
+    xs = lay.each(lambda i: xs[i] + outs[i][0])
+    keys, gates = [None] * lay.n, [None] * lay.n
+    for i in lay.active:
         p = w[i]["rwkv"]
-        nx = rms_norm(x, w[i]["norm2"], cfg.norm_eps)
-        k, xr = rwkv_lib.channel_mix_keys(cfg, p, nx,
-                                          carry[i][2] if carry else None)
-        keys.append(k)
-        gates.append(torch.sigmoid(xr @ p["c_wr"]))
+        nx = rms_norm(xs[i], w[i]["norm2"], cfg.norm_eps)
+        keys[i], xr = rwkv_lib.channel_mix_keys(
+            cfg, p, nx, carry[i][2] if carry else None)
+        gates[i] = torch.sigmoid(xr @ p["c_wr"])
         entries[i].append(nx[:, -1])
     if lay.split_ff:
-        kvs = _row_parallel(lay, [mm_f32(k, w[i]["rwkv"]["c_wv"])
-                                  for i, k in enumerate(keys)], ctx.spec0, dt)
+        kvs = _row_parallel(lay, lay.each(lambda i: mm_f32(
+            keys[i], w[i]["rwkv"]["c_wv"])), ctx.spec0, dt)
     else:
-        kvs = [k @ w[i]["rwkv"]["c_wv"] for i, k in enumerate(keys)]
-    out = [x + g * kv for x, g, kv in zip(xs, gates, kvs)]
+        kvs = lay.each(lambda i: keys[i] @ w[i]["rwkv"]["c_wv"])
+    out = lay.each(lambda i: xs[i] + gates[i] * kvs[i])
     return out, (entries if collect else []), None
 
 
-def _tp_attention(cfg, w, nxs, positions, is_global, collect: bool,
-                  causal: bool = True):
+def _tp_attention(cfg, lay: Layout, w, nxs, positions, is_global,
+                  collect: bool, causal: bool = True):
     """Attention at every position on its normed input ``nxs[i]``, each
     shard at its own heads. Returns (each position's output (B, S, h·D)
     of its heads, before ``wo``; each position's (k, v) of its KV heads if
     ``collect``)."""
-    kvs, os = [], []
-    for i, nx in enumerate(nxs):
-        o, kv = _attn_out(cfg, w[i]["attn"], nx, positions[i], is_global,
-                          causal)
-        os.append(o)
-        if collect:
-            kvs.append(kv)
-    return os, kvs
+    outs = lay.each(lambda i: _attn_out(cfg, w[i]["attn"], nxs[i],
+                                        positions[i], is_global, causal))
+    return _nth(outs, 0), (_nth(outs, 1) if collect else [])
 
 
 def _cp_attention(cfg, lay: Layout, w, xs, positions, spec0, is_global,
@@ -624,36 +671,35 @@ def _cp_attention(cfg, lay: Layout, w, xs, positions, spec0, is_global,
     after ``wo``; each position's whole (k, v), every KV head, if
     ``collect``)."""
     hd = cfg.resolved_head_dim
-    S = xs[0].shape[1]
+    S = xs[lay.active[0]].shape[1]
     blk = S // lay.m
-    qs, ks, vs = [], [], []
-    for i, x in enumerate(xs):
+    qs, ks, vs = [None] * lay.n, [None] * lay.n, [None] * lay.n
+    for i in lay.active:
         lo = lay.r(i) * blk
-        nx = rms_norm(x[:, lo:lo + blk], w[i]["norm1"], cfg.norm_eps)
+        nx = rms_norm(xs[i][:, lo:lo + blk], w[i]["norm1"], cfg.norm_eps)
         q, k, v = _project(cfg, w[i]["attn"], nx)
         if cfg.rope_theta:
             ang = rope_angles(positions[i][:, lo:lo + blk], hd,
                               cfg.rope_theta, cfg.mrope_sections)
             q, k = apply_rope(q, ang), apply_rope(k, ang)
-        qs.append(q)
-        ks.append(k)
-        vs.append(v)
+        qs[i], ks[i], vs[i] = q, k, v
     by_seq = M.Placement(lay.mesh, M.P(spec0, "model"))
 
     def gathered(pieces):
         x = M.ShardedTensor.from_pieces(by_seq, pieces)
         return M.all_gather(x, "model", 1).pieces
     k_all, v_all = gathered(ks), gathered(vs)
-    blocks = []
-    for i, q in enumerate(qs):
+
+    def block(i):
+        q = qs[i]
         hi = (lay.r(i) + 1) * blk if causal else S
         o = attn_lib.attention(q, k_all[i][:, :hi], v_all[i][:, :hi],
                                causal=causal, window=cfg.swa_window,
                                q_offset=hi - blk if causal else 0,
                                chunk=cfg.attn_chunk, is_global=is_global)
-        blocks.append(fdot(o.reshape(q.shape[0], blk, -1),
-                           w[i]["attn"]["wo"]))
-    return gathered(blocks), (list(zip(k_all, v_all)) if collect else [])
+        return fdot(o.reshape(q.shape[0], blk, -1), w[i]["attn"]["wo"])
+    return gathered(lay.each(block)), (list(zip(k_all, v_all)) if collect
+                                       else [])
 
 
 def _over_rows(lay: Layout, vals: List[torch.Tensor],
@@ -664,9 +710,27 @@ def _over_rows(lay: Layout, vals: List[torch.Tensor],
     order) of i's group over the batch axes that holds it, and the
     blocks are summed in their order on i's device: an exclusive scan
     and an all-reduce over the batch axes, where a block held twice
-    (rows replicated over an axis) counts once."""
+    (rows replicated over an axis) counts once. Under a count, each
+    counted position all-gathers the blocks' values over the batch axes
+    and scans them in one op, whatever its place among them."""
     before: List[Optional[torch.Tensor]] = [None] * lay.n
     total: List[Optional[torch.Tensor]] = [None] * lay.n
+    if lay.counting:
+        for grp in lay.data_groups:
+            blocks = sorted({rows[j] for j in grp})
+            for i in grp:
+                if vals[i] is None:
+                    continue
+                if len(blocks) == 1:
+                    before[i], total[i] = torch.zeros_like(vals[i]), vals[i]
+                    continue
+                every = M.record(lay.mesh, i, "all-gather", len(blocks),
+                                 vals[i].new_empty((len(blocks),)
+                                                   + vals[i].shape))
+                upto = every.cumsum(0)
+                before[i] = (upto - every)[blocks.index(rows[i])]
+                total[i] = upto[-1]
+        return before, total
     for grp in lay.data_groups:
         first: Dict[Tuple[int, int], int] = {}
         for j in grp:
@@ -699,46 +763,49 @@ def _moe_all(cfg, lay: Layout, w, xs, ctx: _Ctx, dt):
     partials are summed over "model". The load-balancing loss is each
     position's, of the whole batch's mean probabilities and counts."""
     E, k = cfg.n_experts, cfg.top_k
-    T = ctx.n_rows * xs[0].shape[1]
-    nxs, chs = [], []
+    T = ctx.n_rows * xs[lay.active[0]].shape[1]
     with record_function("moe_router"):
-        for i, x in enumerate(xs):
-            nx = rms_norm(x, w[i]["norm2"], cfg.norm_eps)
-            nxs.append(nx.reshape(-1, nx.shape[-1]))
-            chs.append(moe.choose(cfg, w[i]["moe"]["router"], nxs[i]))
-        before, counts = _over_rows(lay, [c.counts for c in chs], ctx.rows)
+        def choose(i):
+            nx = rms_norm(xs[i], w[i]["norm2"], cfg.norm_eps)
+            nx = nx.reshape(-1, nx.shape[-1])
+            return nx, moe.choose(cfg, w[i]["moe"]["router"], nx)
+        both = lay.each(choose)
+        nxs, chs = _nth(both, 0), _nth(both, 1)
+        before, counts = _over_rows(
+            lay, lay.each(lambda i: chs[i].counts), ctx.rows)
         C = moe.capacity(cfg, T)
-        routes = [moe.place(c, C, b) for c, b in zip(chs, before)]
-    parts = [moe.expert_partial(cfg, w[i]["moe"], nxs[i], routes[i],
-                                *lay.experts(i)).view(x.shape)
-             for i, x in enumerate(xs)]
+        routes = lay.each(lambda i: moe.place(chs[i], C, before[i]))
+    parts = lay.each(lambda i: moe.expert_partial(
+        cfg, w[i]["moe"], nxs[i], routes[i], *lay.experts(i)).view(
+            xs[i].shape))
     with record_function("moe_combine"):
         if lay.split_experts:
             ys = _row_parallel(lay, parts, ctx.spec0, dt)
         else:
-            ys = [p.to(dt) for p in parts]
-    _, probs = _over_rows(lay, [c.probs.sum(0) for c in chs], ctx.rows)
-    aux = [E * torch.sum((p / T) * (c.float() / (T * k)))
-           for p, c in zip(probs, counts)]
-    return [x + y for x, y in zip(xs, ys)], aux
+            ys = lay.each(lambda i: parts[i].to(dt))
+    _, probs = _over_rows(lay, lay.each(lambda i: chs[i].probs.sum(0)),
+                          ctx.rows)
+    aux = lay.each(lambda i: E * torch.sum(
+        (probs[i] / T) * (counts[i].float() / (T * k))))
+    return lay.each(lambda i: xs[i] + ys[i]), aux
 
 
 def _mlp_all(cfg, lay: Layout, w, xs, spec0, dt):
     """The residual MLP of a layer at every position: w_gate and w_up
     column-parallel, w_down row-parallel when the ff columns split."""
     act = activation(cfg.act)
-    parts, res = [], []
-    for i, x in enumerate(xs):
+
+    def mlp(i):
         p = w[i]["mlp"]
-        nx = rms_norm(x, w[i]["norm2"], cfg.norm_eps)
+        nx = rms_norm(xs[i], w[i]["norm2"], cfg.norm_eps)
         h = act(fdot(nx, p["w_gate"])) * fdot(nx, p["w_up"])
         if lay.split_ff:
-            parts.append(mm_f32(h, p["w_down"]))
-        else:
-            res.append(x + fdot(h, p["w_down"]))
+            return mm_f32(h, p["w_down"])
+        return xs[i] + fdot(h, p["w_down"])
+    res = lay.each(mlp)
     if lay.split_ff:
-        res = [x + a for x, a in zip(xs, _row_parallel(lay, parts, spec0,
-                                                         dt))]
+        sums = _row_parallel(lay, res, spec0, dt)
+        res = lay.each(lambda i: xs[i] + sums[i])
     return res
 
 
@@ -761,14 +828,12 @@ def run_blocks(cfg: ArchConfig, lay: Layout, src, batch,
     dt = getattr(torch, cfg.dtype)
     ctx = lay.ctx(tokens)
     tables = lay.view(src["embed"]["tokens"], dt)
-    xs, positions = [], []
-    for i, tok in enumerate(tokens.pieces):
+    xs, positions = [None] * lay.n, [None] * lay.n
+    for i in lay.active:
         mine = {k: v.pieces[i] for k, v in batch.items()
                 if k in ("tokens", "vision_embeds", "positions")}
-        x, pos = transformer.embed_inputs(cfg, {"embed": {"tokens":
-                                                          tables[i]}}, mine)
-        xs.append(x)
-        positions.append(pos)
+        xs[i], positions[i] = transformer.embed_inputs(
+            cfg, {"embed": {"tokens": tables[i]}}, mine)
     enc = (_encode(cfg, lay, src, batch["enc_frames"], remat)
            if cfg.enc_dec else None)
     kv_layers, aux = [], None
@@ -777,12 +842,12 @@ def run_blocks(cfg: ArchConfig, lay: Layout, src, batch,
             _block, remat, cfg, lay, lsrc, xs, positions, ctx,
             transformer.is_global_layer(cfg, li), collect, True, enc)
         if layer_aux is not None:
-            aux = layer_aux if aux is None else [
-                a + b for a, b in zip(aux, layer_aux)]
+            aux = layer_aux if aux is None else lay.each(
+                lambda i: aux[i] + layer_aux[i])
         if collect:
             kv_layers.append(kvs)
     norms = lay.view(src["final_norm"], dt)
-    xs = [rms_norm(x, g, cfg.norm_eps) for x, g in zip(xs, norms)]
+    xs = lay.each(lambda i: rms_norm(xs[i], norms[i], cfg.norm_eps))
     return xs, kv_layers, aux, enc
 
 
@@ -795,19 +860,18 @@ def _encode(cfg: ArchConfig, lay: Layout, src, frames: M.ShardedTensor,
     Returns each position's output (B_i, Se, d), whole over "model"."""
     dt = getattr(torch, cfg.dtype)
     ctx = lay.ctx(frames)
-    xs, positions = [], []
-    for piece in frames.pieces:
-        x = piece.to(dt)
+    xs, positions = [None] * lay.n, [None] * lay.n
+    for i in lay.active:
+        x = frames.pieces[i].to(dt)
         B, T, _ = x.shape
-        xs.append(x + sinusoidal_positions(T, cfg.d_model, dt,
-                                           x.device)[None])
-        positions.append(torch.arange(T, dtype=torch.int32,
-                                      device=x.device).expand(B, T))
+        xs[i] = x + sinusoidal_positions(T, cfg.d_model, dt, x.device)[None]
+        positions[i] = torch.arange(T, dtype=torch.int32,
+                                    device=x.device).expand(B, T)
     for lsrc in layer_sources(src["enc_blocks"]):
         xs, _, _ = transformer._remat(_block, remat, cfg, lay, lsrc, xs,
                                       positions, ctx, None, False, False)
     norms = lay.view(src["enc_final_norm"], dt)
-    return [rms_norm(x, g, cfg.norm_eps) for x, g in zip(xs, norms)]
+    return lay.each(lambda i: rms_norm(xs[i], norms[i], cfg.norm_eps))
 
 
 def _head(cfg, lay: Layout, src, dt) -> List[torch.Tensor]:
@@ -846,12 +910,19 @@ def loss_fn(cfg: ArchConfig, mesh: M.Mesh, src, batch: Dict[str, Any],
                 raise ValueError(
                     f"a training batch of {tokens.shape[0]} rows does not "
                     f"split over the mesh's {c!r} axis ({mesh.shape[c]})")
+    if lay.counting and tokens.shape[1] % lay.m:
+        # the other shards' backward comes only from shard 0's loss
+        raise NotImplementedError(
+            f"a count of a training step over {tokens.shape[1]} positions, "
+            f"which the model axis ({lay.m}) does not divide")
     hidden, _, aux, _ = run_blocks(
         cfg, lay, src, batch, remat=cfg.remat and torch.is_grad_enabled())
-    dt = hidden[0].dtype
+    first = lay.active[0]
+    dt = hidden[first].dtype
     heads = _head(cfg, lay, src, dt)
-    tots, cnts = [], []
-    for i, (h, lab) in enumerate(zip(hidden, labels.pieces)):
+    tots, cnts = [None] * lay.n, [None] * lay.n
+    for i in lay.active:
+        h, lab = hidden[i], labels.pieces[i]
         head = wide(heads[i].to(dt))
         S = h.shape[1]
         lo, hi = _seq_block(lay, i, S)
@@ -866,15 +937,15 @@ def loss_fn(cfg: ArchConfig, mesh: M.Mesh, src, batch: Dict[str, Any],
                 transformer._chunk_nll, True, h[:, a:a + c],
                 lab[:, a:a + c], head)
             tot, cnt = tot + s, cnt + k
-        tots.append(tot)
-        cnts.append(cnt)
+        tots[i], cnts[i] = tot, cnt
     every = tuple(mesh.axis_names)
     rep = M.Placement(mesh, M.P())
     tot = M.all_reduce(M.ShardedTensor(rep, (), tots, every), every)
     cnt = M.all_reduce(M.ShardedTensor(rep, (), cnts, every), every)
-    loss = tot.pieces[0] / torch.clamp(cnt.pieces[0], min=1.0)
+    # on the mesh's first device (under a count, the first counted one)
+    loss = tot.pieces[first] / torch.clamp(cnt.pieces[first], min=1.0)
     aux = (torch.zeros((), dtype=torch.float32, device=loss.device)
-           if aux is None else aux[0])
+           if aux is None else aux[first])
     return (loss + transformer.MOE_AUX_WEIGHT * aux,
             {"loss": loss, "moe_aux": aux})
 
@@ -912,9 +983,10 @@ def prefill(cfg: ArchConfig, mesh: M.Mesh, src, batch, max_len: int = 0,
     with torch.no_grad():
         hidden, kv_layers, _, enc = run_blocks(cfg, lay, src, batch,
                                                collect=True)
-        dt = hidden[0].dtype
+        dt = hidden[lay.active[0]].dtype
         heads = _head(cfg, lay, src, dt)
-        logits = [fdot(h[:, -1], w.to(dt)) for h, w in zip(hidden, heads)]
+        logits = lay.each(lambda i: fdot(hidden[i][:, -1],
+                                         heads[i].to(dt)))
     B, S = tokens.shape
     max_len = max(max_len, S)
     # the KV heads each shard collected: its own, or under cp all of them
@@ -927,18 +999,18 @@ def prefill(cfg: ArchConfig, mesh: M.Mesh, src, batch, max_len: int = 0,
     heads_spec = _state_placement(lay, rows).spec
     if cfg.attn_free:
         cache = {"state": _layer_stack(
-            lay, [[e[0] for e in kvs] for kvs in kv_layers], heads_spec,
+            lay, [_nth(kvs, 0) for kvs in kv_layers], heads_spec,
             spec["state"][0], pls["state"])}
         for j, name in ((1, "x_tm"), (2, "x_cm")):
             cache[name] = _layer_stack(
-                lay, [[e[j] for e in kvs] for kvs in kv_layers], M.P(rows),
+                lay, [_nth(kvs, j) for kvs in kv_layers], M.P(rows),
                 spec[name][0], pls[name], torch.bfloat16)
     elif cfg.family == "hybrid":
         layers = [_ring(lay, tokens, [kvs], lspec, lpls, kv_ranges)
                   for kvs, lspec, lpls in zip(kv_layers, spec["layers"],
                                               pls["layers"])]
         cache = {"layers": layers, "ssm": _layer_stack(
-            lay, [[e[-1] for e in kvs] for kvs in kv_layers], heads_spec,
+            lay, [_nth(kvs, -1) for kvs in kv_layers], heads_spec,
             spec["ssm"][0], pls["ssm"])}
     else:
         cache = _ring(lay, tokens, kv_layers, spec, pls, kv_ranges)
@@ -947,8 +1019,14 @@ def prefill(cfg: ArchConfig, mesh: M.Mesh, src, batch, max_len: int = 0,
             cache.update(_cross_cache(cfg, lay, src, enc, tokens,
                                       spec["xk"][0], pls["xk"]))
     lpl = M.data_sharding(mesh, B, 2)
-    out = _by_rows(lay, logits, tokens, lpl, (B, logits[0].shape[-1]))
+    out = _by_rows(lay, logits, tokens, lpl,
+                   (B, logits[lay.active[0]].shape[-1]))
     return out, cache
+
+
+def _nth(entries, j: int) -> List[Optional[torch.Tensor]]:
+    """Item ``j`` of each position's cache entry (None where none)."""
+    return [None if e is None else e[j] for e in entries]
 
 
 def _ring(lay: Layout, tokens: M.ShardedTensor, kv_layers, spec, pls,
@@ -963,9 +1041,10 @@ def _ring(lay: Layout, tokens: M.ShardedTensor, kv_layers, spec, pls,
     stacked = len(kshape) == 5
     bdim, sdim = (1, 2) if stacked else (0, 1)
     W, S = kshape[sdim], tokens.shape[1]
-    pieces: Dict[str, List[torch.Tensor]] = {k: [] for k in ("k", "v",
-                                                            "pos")}
-    for i in range(lay.n):
+    pieces: Dict[str, List[Optional[torch.Tensor]]] = {
+        k: [None] * lay.n for k in ("k", "v", "pos")}
+    split = (list(pls["k"].spec) + [None] * 5)[sdim] == "model"
+    for i in lay.active:
         blk = M.block_of(mesh, pls["k"].spec, kshape, lay.coords[i])
         (b0, b1), (s0, s1) = blk[bdim], blk[sdim]
         # the rows of position i: the same rows on every model shard
@@ -975,15 +1054,18 @@ def _ring(lay: Layout, tokens: M.ShardedTensor, kv_layers, spec, pls,
         # one layer at a time: only the position's slots outlive the loop
         ks, vs = [], []
         for kvs in kv_layers:
-            k, v = _whole_kv(lay, kvs, src_rows, lay.devs[i], kv_ranges)
+            k, v = _whole_kv(lay, kvs, src_rows, lay.devs[i], kv_ranges, i)
+            moved = lay.counting and k.shape[2] != kvs[i][0].shape[2]
             k, v, p = _slots(k[None].to(torch.bfloat16),
                              v[None].to(torch.bfloat16), pos, W, s0, s1)
+            if moved:
+                _kv_moved(lay, i, (k, v), split)
             ks.append(k[0])
             vs.append(v[0])
         parts = {"k": torch.stack(ks) if stacked else ks[0],
                  "v": torch.stack(vs) if stacked else vs[0], "pos": p}
         for name in pieces:
-            pieces[name].append(parts[name].contiguous())
+            pieces[name][i] = parts[name].contiguous()
     return {name: M.ShardedTensor(pls[name], spec[name][0], pieces[name])
             for name in pieces}
 
@@ -1008,9 +1090,8 @@ def _layer_stack(lay: Layout, per_layer, src_spec, shape,
     want = M.Placement(lay.mesh, M.P(*list(pl.spec)[1:]))
     layers = [M.reshard(M.ShardedTensor(src, shape[1:], pieces), want,
                         dtype).pieces for pieces in per_layer]
-    return M.ShardedTensor(pl, shape, [
-        torch.stack([pieces[i] for pieces in layers]).contiguous()
-        for i in range(lay.n)])
+    return M.ShardedTensor(pl, shape, lay.each(lambda i: torch.stack(
+        [pieces[i] for pieces in layers]).contiguous()))
 
 
 def _cross_cache(cfg, lay: Layout, src, enc, tokens: M.ShardedTensor,
@@ -1021,27 +1102,32 @@ def _cross_cache(cfg, lay: Layout, src, enc, tokens: M.ShardedTensor,
     the forward, as the reference computes them); each position takes its
     rows and Se block of every KV head from the first shard (mesh order)
     that computed it (`_whole_kv`)."""
-    dt = enc[0].dtype
+    dt = enc[lay.active[0]].dtype
     hd = cfg.resolved_head_dim
     blks = [M.block_of(lay.mesh, pl.spec, shape, c) for c in lay.coords]
+    split = (list(pl.spec) + [None] * 5)[2] == "model"
     out: Dict[str, List[List[torch.Tensor]]] = {
         "xk": [[] for _ in range(lay.n)], "xv": [[] for _ in range(lay.n)]}
     for lsrc in layer_sources(src["blocks"]):
         wk, wv = (lay.view(lsrc[k], dt, _SPLIT[k])
                   for k in ("xattn/wk", "xattn/wv"))
-        kvs = [(fdot(e, a).reshape(*e.shape[:2], -1, hd),
-                fdot(e, b).reshape(*e.shape[:2], -1, hd))
-               for e, a, b in zip(enc, wk, wv)]
-        for i in range(lay.n):
+        kvs = lay.each(lambda i: (
+            fdot(enc[i], wk[i]).reshape(*enc[i].shape[:2], -1, hd),
+            fdot(enc[i], wv[i]).reshape(*enc[i].shape[:2], -1, hd)))
+        for i in lay.active:
             (b0, b1), (s0, s1) = blks[i][1], blks[i][2]
-            k, v = _whole_kv(lay, [(a[:, s0:s1], b[:, s0:s1])
-                                   for a, b in kvs],
+            k, v = _whole_kv(lay, [None if kv is None else
+                                   (kv[0][:, s0:s1], kv[1][:, s0:s1])
+                                   for kv in kvs],
                              _row_owner(lay, tokens, i, b0, b1),
-                             lay.devs[i], lay.kv_heads)
-            out["xk"][i].append(k.to(torch.bfloat16))
-            out["xv"][i].append(v.to(torch.bfloat16))
-    return {name: M.ShardedTensor(pl, shape, [torch.stack(p).contiguous()
-                                              for p in pieces])
+                             lay.devs[i], lay.kv_heads, i)
+            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+            if lay.counting and k.shape[2] != kvs[i][0].shape[2]:
+                _kv_moved(lay, i, (k, v), split)
+            out["xk"][i].append(k)
+            out["xv"][i].append(v)
+    return {name: M.ShardedTensor(pl, shape, lay.each(
+        lambda i: torch.stack(pieces[i]).contiguous()))
             for name, pieces in out.items()}
 
 
@@ -1056,11 +1142,12 @@ def quantize_cache(cfg: ArchConfig, cache: Dict[str, M.ShardedTensor]
     out = dict(cache)
     for name in ("k", "v"):
         x = cache[name]
-        pairs = [decoding._quantize_kv(p) for p in x.pieces]
+        pairs = [None if p is None else decoding._quantize_kv(p)
+                 for p in x.pieces]
         out[name] = M.ShardedTensor(x.placement, x.shape,
-                                    [q for q, _ in pairs])
+                                    _nth(pairs, 0))
         out[f"{name}_scale"] = M.ShardedTensor(
-            x.placement, tuple(x.shape[:-1]) + (1,), [s for _, s in pairs])
+            x.placement, tuple(x.shape[:-1]) + (1,), _nth(pairs, 1))
     return out
 
 
@@ -1072,7 +1159,14 @@ def _row_owner(lay: Layout, x: M.ShardedTensor, i: int, b0: int,
                b1: int) -> List[Tuple[int, int, int]]:
     """Where rows [b0, b1) of the batch placed as ``x`` were computed:
     (position j, local lo, local hi) for each block of rows, j the first
-    model shard 0 (mesh order) holding the block."""
+    model shard 0 (mesh order) holding the block; under a count, position
+    i itself, which holds them."""
+    if lay.counting:
+        r0, r1 = _rows_of(lay, x, i)
+        if not r0 <= b0 <= b1 <= r1:
+            raise NotImplementedError(f"a count reads rows [{b0}, {b1}) "
+                                      f"at a position holding [{r0}, {r1})")
+        return [(i, b0 - r0, b1 - r0)]
     out, seen = [], set()
     for j in range(lay.n):
         if lay.r(j) != 0:
@@ -1085,10 +1179,21 @@ def _row_owner(lay: Layout, x: M.ShardedTensor, i: int, b0: int,
     return out
 
 
-def _heads_whole(lay: Layout, parts, ranges, grp, dev) -> torch.Tensor:
+def _heads_whole(lay: Layout, parts, ranges, grp, dev, i: int
+                 ) -> torch.Tensor:
     """The whole head dim (dim 2) of a model group's per-shard tensors:
     ``parts[j]`` holds heads ``ranges(j)``; each head is taken from the
-    first shard of ``grp`` (mesh order) that holds it, onto ``dev``."""
+    first shard of ``grp`` (mesh order) that holds it, onto ``dev``.
+    Under a count, position ``i`` all-gathers the distinct ranges, or
+    reads its own part where it holds every head."""
+    if lay.counting:
+        whole = max(ranges(j)[1] for j in grp)
+        if ranges(i) == (0, whole):
+            return parts[i][:, :, 0:].to(dev)
+        shp = list(parts[i].shape)
+        shp[2] = whole
+        return M.record(lay.mesh, i, "all-gather",
+                        len({ranges(j) for j in grp}), parts[i].new_empty(shp))
     out, have = [], 0
     for j in grp:
         lo, hi = ranges(j)
@@ -1099,18 +1204,41 @@ def _heads_whole(lay: Layout, parts, ranges, grp, dev) -> torch.Tensor:
     return out[0] if len(out) == 1 else torch.cat(out, dim=2)
 
 
-def _whole_kv(lay: Layout, kvs, rows, dev, ranges):
+def _whole_kv(lay: Layout, kvs, rows, dev, ranges, i: int):
     """All KV heads of the rows ``rows`` (from `_row_owner`): each KV head
     from the first model shard (mesh order) that computed it, shard j
-    holding the KV heads ``ranges(j)``."""
+    holding the KV heads ``ranges(j)``. Under a count, position ``i``
+    reads its own rows where it holds every KV head, else makes empty
+    pieces of every KV head (its caller records the exchange,
+    `_kv_moved`)."""
+    if lay.counting:
+        (_, lo, hi), = rows
+        k, v = kvs[i][0][lo:hi], kvs[i][1][lo:hi]
+        grp = lay.group[i]
+        whole = max(ranges(j)[1] for j in grp)
+        if ranges(i) == (0, whole):
+            return torch.cat([k[:, :, 0:]]), torch.cat([v[:, :, 0:]])
+        shp = list(k.shape)
+        shp[2] = whole
+        return k.new_empty(shp), v.new_empty(shp)
     ks, vs = [], []
     for j, lo, hi in rows:
         grp = lay.group[j]
         ks.append(_heads_whole(lay, [kv[0][lo:hi] for kv in kvs],
-                               ranges, grp, dev))
+                               ranges, grp, dev, i))
         vs.append(_heads_whole(lay, [kv[1][lo:hi] for kv in kvs],
-                               ranges, grp, dev))
+                               ranges, grp, dev, i))
     return torch.cat(ks), torch.cat(vs)
+
+
+def _kv_moved(lay: Layout, i: int, kv, split: bool) -> None:
+    """Record, under a count, the exchange that gives position i its
+    cache block ``kv`` (k, v) of every KV head from the model shards that
+    computed them: an all-to-all over "model" where the block's sequence
+    is cut over "model", else an all-gather."""
+    for t in kv:
+        M.record(lay.mesh, i, "all-to-all" if split else "all-gather",
+                 lay.m, t)
 
 
 def _slots(k, v, pos, W: int, s0: int, s1: int):
@@ -1136,15 +1264,14 @@ def _by_rows(lay: Layout, per_pos: List[torch.Tensor], rows_of,
              placement: M.Placement, shape) -> M.ShardedTensor:
     """A placed tensor of ``placement`` (rows over the batch axes) from
     each position's results for its rows of ``rows_of``."""
-    pieces = []
-    for i in range(lay.n):
+    def piece(i):
         b0, b1 = M.block_of(lay.mesh, placement.spec, tuple(shape),
                             lay.coords[i])[0]
         parts = []
         for j, lo, hi in _row_owner(lay, rows_of, i, b0, b1):
             parts.append(per_pos[j][lo:hi].to(lay.devs[i], copy=True))
-        pieces.append(torch.cat(parts).contiguous())
-    return M.ShardedTensor(placement, shape, pieces)
+        return torch.cat(parts).contiguous()
+    return M.ShardedTensor(placement, shape, lay.each(piece))
 
 
 def decode_step(cfg: ArchConfig, mesh: M.Mesh, src, cache: Dict[str, Any],
@@ -1177,17 +1304,16 @@ def decode_step(cfg: ArchConfig, mesh: M.Mesh, src, cache: Dict[str, Any],
     hybrid = cfg.family == "hybrid"
     with torch.no_grad():
         tables = lay.view(src["embed"]["tokens"], dt)
-        xs = [decoding._embed_decode(cfg, {"embed": {"tokens": tables[i]}},
-                                     tok, step)
-              for i, tok in enumerate(tokens.pieces)]
+        xs = lay.each(lambda i: decoding._embed_decode(
+            cfg, {"embed": {"tokens": tables[i]}}, tokens.pieces[i], step))
         for li, lsrc in enumerate(layer_sources(src["blocks"])):
             w = lay.layer_views(lsrc, dt)
             if cfg.attn_free:
                 xs = _rwkv_decode(cfg, lay, w, xs, ctx, cache, li)
                 continue
-            nxs, qs, ks, vs = [], [], [], []
-            for i, x in enumerate(xs):
-                nx = rms_norm(x, w[i]["norm1"], cfg.norm_eps)
+            nxs, qs, ks, vs = ([None] * lay.n for _ in range(4))
+            for i in lay.active:
+                nx = rms_norm(xs[i], w[i]["norm1"], cfg.norm_eps)
                 q, k, v = _project(cfg, w[i]["attn"], nx)
                 if cfg.rope_theta:
                     pos = torch.full((nx.shape[0], 1), step,
@@ -1197,10 +1323,7 @@ def decode_step(cfg: ArchConfig, mesh: M.Mesh, src, cache: Dict[str, Any],
                     ang = rope_angles(pos, hd, cfg.rope_theta,
                                       cfg.mrope_sections)
                     q, k = apply_rope(q, ang), apply_rope(k, ang)
-                nxs.append(nx)
-                qs.append(q)
-                ks.append(k)
-                vs.append(v)
+                nxs[i], qs[i], ks[i], vs[i] = nx, q, k, v
             if hybrid:
                 ring = _LayerRing.of(cache["layers"][li], None)
                 window = (0 if transformer.is_global_layer(cfg, li)
@@ -1210,34 +1333,32 @@ def decode_step(cfg: ArchConfig, mesh: M.Mesh, src, cache: Dict[str, Any],
                 window = cfg.swa_window or 0
             merged = _cached_attention(lay, ring, qs, ks, vs, step, window,
                                        write_pos=hybrid or li == 0)
-            pairs = []
-            for i, x in enumerate(xs):
-                lo, hi = lay.heads(i)
-                o = merged[i][:, lo:hi].to(dt).reshape(x.shape[0], 1, -1)
-                pairs.append([(o, w[i]["attn"]["wo"])])
+            pairs = lay.each(lambda i: [(
+                merged[i][:, slice(*lay.heads(i))].to(dt).reshape(
+                    xs[i].shape[0], 1, -1), w[i]["attn"]["wo"])])
             if hybrid:
-                for i, y in enumerate(_ssm_decode(cfg, lay, w, nxs,
-                                                  cache["ssm"], li)):
-                    pairs[i].append((y, w[i]["ssm"]["out_proj"]))
+                ys = _ssm_decode(cfg, lay, w, nxs, cache["ssm"], li)
+                for i in lay.active:
+                    pairs[i].append((ys[i], w[i]["ssm"]["out_proj"]))
             outs = _row_products(lay, pairs, ctx.spec0, dt)
             if hybrid:
-                new = [x + 0.5 * (w[i]["fuse_scale"][0] * o[0]
-                                  + w[i]["fuse_scale"][1] * o[1])
-                       for i, (x, o) in enumerate(zip(xs, outs))]
+                new = lay.each(lambda i: xs[i] + 0.5 * (
+                    w[i]["fuse_scale"][0] * outs[i][0]
+                    + w[i]["fuse_scale"][1] * outs[i][1]))
             else:
-                new = [x + o[0] for x, o in zip(xs, outs)]
+                new = lay.each(lambda i: xs[i] + outs[i][0])
             if cfg.enc_dec:
                 new = _cross_decode(cfg, lay, w, new, cache, li, ctx.spec0,
                                     dt)
             xs, _ = _ffn_all(cfg, lay, w, new, ctx, dt)
         norms = lay.view(src["final_norm"], dt)
         heads = _head(cfg, lay, src, dt)
-        logits = [rms_norm(x, g, cfg.norm_eps) @ h.to(dt)
-                  for x, g, h in zip(xs, norms, heads)]
+        logits = lay.each(lambda i: rms_norm(xs[i], norms[i], cfg.norm_eps)
+                          @ heads[i].to(dt))
     B = tokens.shape[0]
     lpl = M.data_sharding(mesh, B, 3)
     return _by_rows(lay, logits, tokens, lpl,
-                    (B, 1, logits[0].shape[-1])), cache
+                    (B, 1, logits[lay.active[0]].shape[-1])), cache
 
 
 def _cross_decode(cfg, lay: Layout, w, xs, cache, li: int, spec0, dt):
@@ -1250,31 +1371,29 @@ def _cross_decode(cfg, lay: Layout, w, xs, cache, li: int, spec0, dt):
     hd = cfg.resolved_head_dim
     xk, xv = cache["xk"], cache["xv"]
     spec = list(xk.spec) + [None] * (xk.ndim - len(xk.spec))
-    qs = [fdot(rms_norm(x, w[i]["norm3"], cfg.norm_eps),
-               w[i]["xattn"]["wq"]).reshape(x.shape[0], 1, -1, hd)
-          for i, x in enumerate(xs)]
-    outs, ms, ls = [], [], []
-    for i in range(lay.n):
+    qs = lay.each(lambda i: fdot(
+        rms_norm(xs[i], w[i]["norm3"], cfg.norm_eps),
+        w[i]["xattn"]["wq"]).reshape(xs[i].shape[0], 1, -1, hd))
+
+    def attend(i):
         q = qs[i]
         if lay.split_heads:
-            q = _heads_whole(lay, qs, lay.heads, lay.group[i], lay.devs[i])
+            q = _heads_whole(lay, qs, lay.heads, lay.group[i], lay.devs[i],
+                             i)
         s0, s1 = M.block_of(lay.mesh, xk.spec, tuple(xk.shape),
                             lay.coords[i])[2]
         ck = xk.pieces[i][li]
         cpos = torch.arange(s0, s1, dtype=torch.int32,
                             device=ck.device).expand(ck.shape[0], s1 - s0)
-        o, mx, sm = _partial_attention(q, ck, xv.pieces[i][li], cpos, 0, 0)
-        outs.append(o)
-        ms.append(mx)
-        ls.append(sm)
-    merged = _merge(lay, spec[2] == "model", outs, ms, ls)
-    pairs = []
-    for i, x in enumerate(xs):
-        lo, hi = lay.heads(i)
-        o = merged[i][:, lo:hi].to(dt).reshape(x.shape[0], 1, -1)
-        pairs.append([(o, w[i]["xattn"]["wo"])])
-    return [x + o[0] for x, o in zip(xs, _row_products(lay, pairs, spec0,
-                                                         dt))]
+        return _partial_attention(q, ck, xv.pieces[i][li], cpos, 0, 0)
+    parts = lay.each(attend)
+    merged = _merge(lay, spec[2] == "model", _nth(parts, 0), _nth(parts, 1),
+                    _nth(parts, 2))
+    pairs = lay.each(lambda i: [(
+        merged[i][:, slice(*lay.heads(i))].to(dt).reshape(
+            xs[i].shape[0], 1, -1), w[i]["xattn"]["wo"])])
+    outs = _row_products(lay, pairs, spec0, dt)
+    return lay.each(lambda i: xs[i] + outs[i][0])
 
 
 def _layer_states(lay: Layout, x: M.ShardedTensor, li: int):
@@ -1284,7 +1403,8 @@ def _layer_states(lay: Layout, x: M.ShardedTensor, li: int):
     heads are not the shard's)."""
     spec = list(x.spec) + [None] * (x.ndim - len(x.spec))
     stored = M.Placement(lay.mesh, M.P(*spec[1:]))
-    layer = M.ShardedTensor(stored, x.shape[1:], [p[li] for p in x.pieces])
+    layer = M.ShardedTensor(stored, x.shape[1:], [
+        None if p is None else p[li] for p in x.pieces])
     return layer, M.reshard(layer, _state_placement(lay, spec[1])).pieces
 
 
@@ -1292,6 +1412,8 @@ def _write_states(lay: Layout, layer: M.ShardedTensor, states) -> None:
     """Each position's new state at its shard's heads ``states[i]``
     written, in place, into its block of ``layer`` (`_layer_states`)."""
     for i, st in enumerate(states):
+        if st is None:
+            continue
         h0, h1 = M.block_of(lay.mesh, layer.spec, tuple(layer.shape),
                             lay.coords[i])[1]
         c0 = lay.heads(i)[0]
@@ -1305,12 +1427,14 @@ def _rwkv_decode(cfg, lay: Layout, w, xs, ctx: _Ctx, cache, li: int):
     back into each position's block and the token shifts into every
     position's piece, in place. Returns the layer's outputs."""
     layer, states = _layer_states(lay, cache["state"], li)
-    dt = xs[0].dtype
-    carry = [(states[i], cache["x_tm"].pieces[i][li].to(dt),
-              cache["x_cm"].pieces[i][li].to(dt)) for i in range(lay.n)]
+    dt = xs[lay.active[0]].dtype
+    carry = lay.each(lambda i: (states[i],
+                                cache["x_tm"].pieces[i][li].to(dt),
+                                cache["x_cm"].pieces[i][li].to(dt)))
     xs, entries, _ = _rwkv_block(cfg, lay, w, xs, ctx, True, carry)
-    _write_states(lay, layer, [e[0] for e in entries])
-    for i, (_st, tm, cm) in enumerate(entries):
+    _write_states(lay, layer, _nth(entries, 0))
+    for i in lay.active:
+        _st, tm, cm = entries[i]
         cache["x_tm"].pieces[i][li].copy_(tm)
         cache["x_cm"].pieces[i][li].copy_(cm)
     return xs
@@ -1339,7 +1463,8 @@ class _LayerRing(NamedTuple):
         spec = list(k.spec) + [None] * (k.ndim - len(k.spec))
 
         def at(x):
-            return [p if li is None else p[li] for p in x.pieces]
+            return [p if li is None or p is None else p[li]
+                    for p in x.pieces]
         coords = M.positions(k.mesh)
         slots = [M.block_of(k.mesh, k.spec, tuple(k.shape), c)[sdim]
                  for c in coords]
@@ -1358,11 +1483,12 @@ def _cached_attention(lay: Layout, ring: _LayerRing, qs, ks, vs, step: int,
     partial attention of every head over its slots, merged across
     "model" (`_merge`). Returns each position's (B_i, H, D) float32."""
     slot = step % ring.W
-    outs, ms, ls = [], [], []
-    for i in range(lay.n):
+    outs, ms, ls = [None] * lay.n, [None] * lay.n, [None] * lay.n
+    for i in lay.active:
         q = qs[i]
         if lay.split_heads:
-            q = _heads_whole(lay, qs, lay.heads, lay.group[i], lay.devs[i])
+            q = _heads_whole(lay, qs, lay.heads, lay.group[i], lay.devs[i],
+                             i)
         s0, s1 = ring.slots[i]
         ck, cv, cpos = ring.k[i], ring.v[i], ring.pos[i]
         if s0 <= slot < s1:
@@ -1370,9 +1496,9 @@ def _cached_attention(lay: Layout, ring: _LayerRing, qs, ks, vs, step: int,
             k, v = ks[i], vs[i]
             if lay.split_heads:
                 k = _heads_whole(lay, ks, lay.kv_heads, lay.group[i],
-                                 lay.devs[i])
+                                 lay.devs[i], i)
                 v = _heads_whole(lay, vs, lay.kv_heads, lay.group[i],
-                                 lay.devs[i])
+                                 lay.devs[i], i)
             if ring.scales is not None:
                 (kq, ksc), (vq, vsc) = (decoding._quantize_kv(k),
                                         decoding._quantize_kv(v))
@@ -1388,10 +1514,8 @@ def _cached_attention(lay: Layout, ring: _LayerRing, qs, ks, vs, step: int,
         if ring.scales is not None:
             ck = decoding._dequantize_kv(ck, ring.scales[i][0])
             cv = decoding._dequantize_kv(cv, ring.scales[i][1])
-        o, mx, sm = _partial_attention(q, ck, cv, cpos, window, step)
-        outs.append(o)
-        ms.append(mx)
-        ls.append(sm)
+        outs[i], ms[i], ls[i] = _partial_attention(q, ck, cv, cpos, window,
+                                                   step)
     return _merge(lay, ring.split, outs, ms, ls)
 
 
@@ -1403,13 +1527,10 @@ def _ssm_decode(cfg, lay: Layout, w, nxs, ssm: M.ShardedTensor,
     (`_layer_states`), and the new state written back (`_write_states`).
     Returns each position's gated y (B_i, 1, h·Dh)."""
     layer, states = _layer_states(lay, ssm, li)
-    ys, sts = [], []
-    for i, nx in enumerate(nxs):
-        y, st = ssm_lib.ssm_decode_heads(cfg, w[i]["ssm"], nx, states[i])
-        ys.append(y)
-        sts.append(st)
-    _write_states(lay, layer, sts)
-    return ys
+    both = lay.each(lambda i: ssm_lib.ssm_decode_heads(
+        cfg, w[i]["ssm"], nxs[i], states[i]))
+    _write_states(lay, layer, _nth(both, 1))
+    return _nth(both, 0)
 
 
 def _partial_attention(q, ck, cv, cpos, window: int, step: int):
@@ -1439,9 +1560,21 @@ def _merge(lay: Layout, split: bool, outs, ms, ls) -> List[torch.Tensor]:
     (B, H, D). A cache whose slots are not ``split`` needs no merge: each
     shard attended over every slot."""
     if not split:
-        return [(o / l[..., None]).reshape(o.shape[0], -1, o.shape[-1])
-                for o, l in zip(outs, ls)]
+        return lay.each(lambda i: (outs[i] / ls[i][..., None]).reshape(
+            outs[i].shape[0], -1, outs[i].shape[-1]))
     res: List[Optional[torch.Tensor]] = [None] * lay.n
+    if lay.counting:
+        # each counted position all-gathers its group's partials and
+        # merges them itself
+        for i in lay.active:
+            g = len(lay.group[i])
+            o, mx, sm = (M.record(lay.mesh, i, "all-gather", g,
+                                  t.new_empty((g,) + t.shape))
+                         for t in (outs[i], ms[i], ls[i]))
+            f = torch.exp(mx - mx.amax(0))
+            o = (o * f[..., None]).sum(0) / (sm * f).sum(0)[..., None]
+            res[i] = o.reshape(o.shape[0], -1, o.shape[-1])
+        return res
     for grp in M._groups(lay.mesh, ("model",)):
         dev = lay.devs[grp[0]]
         mx = None

@@ -1,26 +1,32 @@
 """Roofline analysis of the port's dry-run records: the counterpart of
 `repro.launch.roofline`.
 
-    PYTHONPATH=src python -m repro_torch.launch.roofline [--csv]
+    PYTHONPATH=src python -m repro_torch.launch.roofline \\
+        [--mesh 16x16] [--rules tp] [--csv]
 
 Hardware model: one NVIDIA H100 SXM (80GB HBM3, 700 W power limit), from
 its data sheet: 989 TFLOP/s bf16 dense, 3.35 TB/s HBM3, 900 GB/s NVLink 4.
 These are published peaks, not measurements; a card set below 700 W runs
 slower under load.
 
-Terms per (arch x shape), all per-device per-step seconds:
+Terms per (arch x shape x mesh x rules), all per-device per-step
+seconds:
   compute    = dot FLOPs / peak     (`op_profile`: ATen products + kernels)
   memory     = memory bytes / HBM bw (`memory_bytes`: arguments, outputs,
                temporaries written and read)
-  collective = collective operand bytes / link bw (0 on one card)
+  collective = collective operand bytes / link bw (0 on one card; the
+               wire-bytes variant is reported beside it)
 
 MODEL_FLOPS = 6*N*D (train) or 2*N_active*D (serve) per device; the ratio
 MODEL_FLOPS / counted FLOPs exposes remat and dispatch waste. The records
 come from `launch/dryrun.py` (`RESULTS`); a record's ``chips`` field gives
 the device count, and a record without one (the reference's) takes it
-from its mesh name as the reference does. The port's records are of one
-card, so the reference's ``--mesh`` and ``--rules`` filters, which choose
-among meshes and sharding rules, are left to the multi-card work.
+from its mesh name as the reference does. A mesh record is its busiest
+position's (`dryrun.run_cell`). ``--mesh`` and ``--rules`` (`table`)
+keep the records of one mesh ("1" for one card, "16x16", "2x16x16") and
+one sharding preset, as the reference's do; unlike the reference's,
+either left out keeps every mesh or every preset (one-card records carry
+no preset and read as "baseline").
 """
 from __future__ import annotations
 
@@ -114,8 +120,19 @@ def load_results() -> List[Dict]:
     return []
 
 
-def table() -> List[Dict]:
-    rows = [a for a in map(analyze_record, load_results()) if a]
+def table(mesh: Optional[str] = None, rules: Optional[str] = None
+          ) -> List[Dict]:
+    """The analysed records of ``mesh`` under ``rules`` (each: every one
+    when None), by arch and shape."""
+    rows = []
+    for r in load_results():
+        if mesh is not None and r["mesh"] != mesh:
+            continue
+        if rules is not None and r.get("rules", "baseline") != rules:
+            continue
+        a = analyze_record(r)
+        if a:
+            rows.append(a)
     rows.sort(key=lambda x: (x["arch"], x["shape"]))
     return rows
 
@@ -139,9 +156,13 @@ def markdown(rows: List[Dict]) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--mesh", default=None,
+                    help="1, 16x16 or 2x16x16 (default: every mesh)")
+    ap.add_argument("--rules", default=None,
+                    help="a preset of meshes.PRESETS (default: every one)")
     ap.add_argument("--csv", action="store_true")
     args = ap.parse_args()
-    rows = table()
+    rows = table(args.mesh, args.rules)
     if args.csv:
         keys = ["arch", "shape", "mesh", "rules", "compute_s", "memory_s",
                 "collective_s", "dominant", "flops_ratio",

@@ -155,8 +155,8 @@ def _unwrap(tree):
 
 
 def _pieces(xs):
-    """Every piece of the placed tensors ``xs``, leaf by leaf."""
-    return [p for x in xs for p in x.pieces]
+    """Every piece held of the placed tensors ``xs``, leaf by leaf."""
+    return [p for x in xs for p in x.pieces if p is not None]
 
 
 def init_opt(params):
@@ -223,17 +223,16 @@ def _mesh_train_step(cfg, shape, lr_fn, accum, psh, csh, cp):
                                             opt_state.v), metrics
         batch = place_batch(mesh, cfg, shape, batch)
         rows = batch["tokens"]
-        n_rows = rows.pieces[0].shape[0]
+        n_rows = rows.first.shape[0]
         if n_rows % accum:
             raise ValueError(f"grad_accum={accum} does not divide the "
                              f"{n_rows} rows a position holds")
         micro = [{k: M.map_placed(lambda t, j=j: t[j::accum], v)
                   for k, v in batch.items()} for j in range(accum)]
         flat = tree_leaves(params)
-        for x in flat:
-            for p in x.pieces:
-                p.requires_grad_(True)
-                p.grad = None
+        for p in _pieces(flat):
+            p.requires_grad_(True)
+            p.grad = None
         losses = []
         try:
             if csh is None:
@@ -245,7 +244,8 @@ def _mesh_train_step(cfg, shape, lr_fn, accum, psh, csh, cp):
                 pc = M.place_tree(params, csh, dt)
                 det = tree_map(lambda x: M.ShardedTensor(
                     x.placement, x.shape,
-                    [p.detach().requires_grad_(True) for p in x.pieces]), pc)
+                    [None if p is None else p.detach().requires_grad_(True)
+                     for p in x.pieces]), pc)
                 for mb in micro:
                     total, m = spmd.loss_fn(cfg, mesh, det, mb, cp)
                     total.backward()
@@ -255,6 +255,8 @@ def _mesh_train_step(cfg, shape, lr_fn, accum, psh, csh, cp):
                 for a, b in zip(tree_leaves(pc), tree_leaves(det)):
                     outs, gouts = [], []
                     for pa, pb in zip(a.pieces, b.pieces):
+                        if pa is None:
+                            continue
                         if pa.requires_grad and pb.grad is not None:
                             outs.append(pa)
                             gouts.append(pb.grad)
@@ -268,6 +270,9 @@ def _mesh_train_step(cfg, shape, lr_fn, accum, psh, csh, cp):
             for x in flat:
                 gp = []
                 for p in x.pieces:
+                    if p is None:
+                        gp.append(None)
+                        continue
                     gp.append(p.grad if p.grad is not None
                               else torch.zeros_like(p))
                     p.grad = None
@@ -275,9 +280,8 @@ def _mesh_train_step(cfg, shape, lr_fn, accum, psh, csh, cp):
                 grads.append(M.sync_replicas(
                     M.ShardedTensor(x.placement, x.shape, gp)))
         if accum > 1:
-            for g in grads:
-                for p in g.pieces:
-                    p.div_(accum)
+            for p in _pieces(grads):
+                p.div_(accum)
         loss = sum(losses) / accum
         # the one-card step's: the micro-batch's aux, 0 with accumulation
         metrics = {"loss": loss, "moe_aux": (
@@ -286,7 +290,7 @@ def _mesh_train_step(cfg, shape, lr_fn, accum, psh, csh, cp):
         st = opt_state.step
         _, o1, om = adamw.update(
             _pieces(grads), adamw.AdamWState(
-                st.pieces[0], _pieces(tree_leaves(opt_state.m)),
+                st.first, _pieces(tree_leaves(opt_state.m)),
                 _pieces(tree_leaves(opt_state.v))),
             _pieces(flat), lr_fn, grad_norm=M.global_norm(grads))
         metrics.update(om)
