@@ -1780,10 +1780,11 @@ def device_profile(fn, spans=()) -> dict:
     most; with ``spans``, also the device time of the kernels inside each
     ``record_function`` span of those names. The profiler marks a span on
     the device as an event of the span's name from its first kernel's
-    start to its last kernel's end (idle gaps included): it is left out
-    of the kernel sums, and a span's time is the sum of the kernels that
-    start inside its marks. A profiler that records no device activity
-    is reported, not fatal: it measures, it checks nothing."""
+    start to its last kernel's end (idle gaps included): it and every
+    other span's mark are left out of the kernel sums, and a span's time
+    is the sum of the kernels that start inside its marks. A profiler
+    that records no device activity is reported, not fatal: it measures,
+    it checks nothing."""
     import bisect
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1802,6 +1803,8 @@ def device_profile(fn, spans=()) -> dict:
         if e.name in spans:
             marks.append(e)
             continue
+        if getattr(e, "is_user_annotation", False):
+            continue                    # the mark of a span not asked for
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.elapsed_us() / 1e3)
         starts.append((e.time_range.start, e.time_range.elapsed_us()))

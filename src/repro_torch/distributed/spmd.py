@@ -82,7 +82,7 @@ float32 partial, summed over "model" before the one rounding, as the
 row-parallel products are. No all-to-all is needed: the tokens are
 replicated over "model" (the reference's note on an all-to-all describes
 XLA's lowering of its scatter, not a semantic). The MoE layer's stages
-keep `models.moe.SPANS` (``record_function``), so a profile splits the
+keep `models.moe.SPANS` (`repro_torch.spans`), so a profile splits the
 layer as on one card.
 
 The hybrid family (Hymba): every layer runs attention and an SSM head
@@ -164,7 +164,6 @@ from __future__ import annotations
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.distributed import meshes as M
@@ -175,6 +174,7 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (activation, apply_rope, fdot,
                                        rms_norm, rope_angles,
                                        sinusoidal_positions, wide)
+from repro_torch.spans import span
 
 FAMILIES = ("dense", "moe", "hybrid", "vlm", "audio", "ssm")
 
@@ -764,7 +764,7 @@ def _moe_all(cfg, lay: Layout, w, xs, ctx: _Ctx, dt):
     position's, of the whole batch's mean probabilities and counts."""
     E, k = cfg.n_experts, cfg.top_k
     T = ctx.n_rows * xs[lay.active[0]].shape[1]
-    with record_function("moe_router"):
+    with span("moe_router"):
         def choose(i):
             nx = rms_norm(xs[i], w[i]["norm2"], cfg.norm_eps)
             nx = nx.reshape(-1, nx.shape[-1])
@@ -778,7 +778,7 @@ def _moe_all(cfg, lay: Layout, w, xs, ctx: _Ctx, dt):
     parts = lay.each(lambda i: moe.expert_partial(
         cfg, w[i]["moe"], nxs[i], routes[i], *lay.experts(i)).view(
             xs[i].shape))
-    with record_function("moe_combine"):
+    with span("moe_combine"):
         if lay.split_experts:
             ys = _row_parallel(lay, parts, ctx.spec0, dt)
         else:

@@ -14,8 +14,8 @@ code and has no backward kernel):
 - `flash_attention`'s backward recomputes the plain version for that call
   and returns its input gradients (`_FlashAttention`); its forward is the
   kernel.
-Each backward runs under a ``torch.profiler.record_function`` span
-(`SPANS`), which a profiler reads to split a step's device time.
+Each forward and backward runs under a span (`SPANS`, `repro_torch.spans`),
+which a profiler reads to split a step's device time.
 
 While `launch.op_profile` counts a step on meta tensors, `COUNTER` is
 set and every call goes to it instead: it records the kernel's work and
@@ -25,15 +25,16 @@ that costs each call one check of `COUNTER`.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gnn_mp as _mp
 from repro_torch.kernels import lut_eval as _lut
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as _scan
+from repro_torch.spans import span
 
-SPANS = ("flash_attention_backward", "ssm_scan_backward")
+SPANS = ("flash_attention_forward", "flash_attention_backward",
+         "ssm_scan_forward", "ssm_scan_backward")
 
 # the open `launch.op_profile` count, if any
 COUNTER = None
@@ -75,7 +76,7 @@ class _FlashAttention(torch.autograd.Function):
         inputs = [t.detach().requires_grad_(need)
                   for t, need in zip((q, k, v), ctx.needs_input_grad[:3])]
         wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad(), record_function(SPANS[0]):
+        with torch.enable_grad(), span("flash_attention_backward"):
             out = ref.flash_attention_ref(*inputs, causal=ctx.causal)
             got = iter(torch.autograd.grad(out, wanted, g))
         return tuple(next(got) if t.requires_grad else None
@@ -88,9 +89,10 @@ def flash_attention(q, k, v, *, causal: bool = True):
     position Sk - Sq + i)."""
     if COUNTER is not None:
         return COUNTER.kernel("flash_attention", q, k, v, causal)
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal)
-    return _FlashAttention.apply(q, k, v, causal)
+    with span("flash_attention_forward"):
+        if q.device.type == "cpu":
+            return ref.flash_attention_ref(q, k, v, causal=causal)
+        return _FlashAttention.apply(q, k, v, causal)
 
 
 class _SsmScan(torch.autograd.Function):
@@ -113,7 +115,7 @@ class _SsmScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_ys, g_yf):
-        with record_function(SPANS[1]):
+        with span("ssm_scan_backward"):
             return _SsmScan._backward(ctx, g_ys, g_yf)
 
     @staticmethod
@@ -146,7 +148,8 @@ def ssm_scan(a, b, y0):
     (T,D/R) shared by R neighbouring channels. Returns (ys, y_final)."""
     if COUNTER is not None:
         return COUNTER.kernel("ssm_scan", a, b, y0)
-    if b.device.type == "cpu":
-        rep = _scan.repeat_factor(a, b)
-        return ref.ssm_scan_ref(a.repeat_interleave(rep, dim=1), b, y0)
-    return _SsmScan.apply(a, b, y0)
+    with span("ssm_scan_forward"):
+        if b.device.type == "cpu":
+            rep = _scan.repeat_factor(a, b)
+            return ref.ssm_scan_ref(a.repeat_interleave(rep, dim=1), b, y0)
+        return _SsmScan.apply(a, b, y0)

@@ -43,6 +43,7 @@ from repro_torch.models.transformer import (_mlp, _project_qkv,
                                             cast_params, head_weight,
                                             is_global_layer, layer_params,
                                             run_blocks, rwkv_block_fwd)
+from repro_torch.spans import span
 
 
 def _cache_width(cfg: ArchConfig, seq_len: int) -> int:
@@ -351,17 +352,28 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int = 0
     Returns (last-position logits (B,V), cache). The head is applied to
     the last position only: the reference computes every position's
     logits and keeps the last."""
-    params = cast_params(cfg, params)
-    x, entries, _aux, enc_out = run_blocks(cfg, params, batch, collect=True)
-    logits = fdot(x[:, -1], head_weight(cfg, params).to(x.dtype))
-    B, S = batch["tokens"].shape
-    max_len = max(max_len, S)
-    dev = x.device
+    with span("prefill_step"):
+        params = cast_params(cfg, params)
+        x, entries, _aux, enc_out = run_blocks(cfg, params, batch,
+                                               collect=True)
+        with span("lm_head"):
+            logits = fdot(x[:, -1], head_weight(cfg, params).to(x.dtype))
+        with span("cache_pack"):
+            B, S = batch["tokens"].shape
+            cache = _pack_cache(cfg, params, entries, enc_out, B, S,
+                                max(max_len, S), x.device)
+        return logits, cache
+
+
+def _pack_cache(cfg: ArchConfig, params, entries, enc_out, B: int, S: int,
+                max_len: int, dev) -> Dict:
+    """A prefill's cache from its per-layer entries (`prefill`): bf16
+    keys and values padded to their slots, the positions, the recurrent
+    states."""
     bf16 = torch.bfloat16
     if cfg.attn_free:
         st, x_tm, x_cm = (torch.stack(t) for t in zip(*entries))
-        return logits, {"state": st, "x_tm": x_tm.to(bf16),
-                        "x_cm": x_cm.to(bf16)}
+        return {"state": st, "x_tm": x_tm.to(bf16), "x_cm": x_cm.to(bf16)}
     pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     if cfg.family == "hybrid":
         layers, states = [], []
@@ -372,7 +384,7 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int = 0
             layers.append({"k": k.contiguous(), "v": v.contiguous(),
                            "pos": p.contiguous()})
             states.append(state)
-        return logits, {"layers": layers, "ssm": torch.stack(states)}
+        return {"layers": layers, "ssm": torch.stack(states)}
     W = _cache_width(cfg, max_len)
     ks, vs = [], []
     for k, v in entries:
@@ -392,4 +404,4 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int = 0
             xk.append((enc_out @ xp["wk"]).reshape(B, Se, KV, hd).to(bf16))
             xv.append((enc_out @ xp["wv"]).reshape(B, Se, KV, hd).to(bf16))
         cache["xk"], cache["xv"] = torch.stack(xk), torch.stack(xv)
-    return logits, cache
+    return cache

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch import device as device_lib
 from repro_torch.device import DeviceLike
+from repro_torch.spans import span
 
 Initializer = str  # "normal" | "zeros" | "ones" | "embed"
 # float32 elements of a normal leaf drawn at once by `ParamTable.init`
@@ -196,10 +197,11 @@ def wide(x: torch.Tensor) -> torch.Tensor:
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
              ) -> torch.Tensor:
-    dt = x.dtype
-    x = wide(x)
-    var = x.square().mean(-1, keepdim=True)
-    return (x * torch.rsqrt(var + eps) * gamma.to(x.dtype)).to(dt)
+    with span("rms_norm"):
+        dt = x.dtype
+        x = wide(x)
+        var = x.square().mean(-1, keepdim=True)
+        return (x * torch.rsqrt(var + eps) * gamma.to(x.dtype)).to(dt)
 
 
 def activation(name: str):

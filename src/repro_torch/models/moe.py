@@ -24,20 +24,19 @@ shard's experts on the assignments kept for them and returns their
 gated sum in float32, for the sum over the shards.
 
 The router product follows ``torch.backends.cuda.matmul.allow_tf32``,
-off by default and in `chip_smoke.py`. Each stage runs under a
-``torch.profiler.record_function`` span (`SPANS`), which a profiler reads
-to split a call's device time; no profiler, no cost beyond the span's
-enter and exit.
+off by default and in `chip_smoke.py`. Each stage runs under a span
+(`SPANS`, `repro_torch.spans`), which a profiler reads to split a call's
+device time; no profiler, no cost beyond a flag check.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import ParamTable, activation
+from repro_torch.spans import span
 
 SPANS = ("moe_router", "moe_dispatch", "moe_experts", "moe_combine")
 
@@ -152,7 +151,7 @@ def moe_ffn(cfg: ArchConfig, p: Dict[str, Any], x: torch.Tensor,
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, d)
-    with record_function("moe_router"):
+    with span("moe_router"):
         r = route(cfg, p["router"], xt, deterministic_capacity)
     y = expert_partial(cfg, p, xt, r, 0, E).to(x.dtype)
     me = r.probs.mean(dim=0)
@@ -176,18 +175,18 @@ def expert_partial(cfg: ArchConfig, p: Dict[str, Any], xt: torch.Tensor,
     C = r.capacity
     n = (e1 - e0) * C
     flat_e = r.idx.reshape(-1)
-    with record_function("moe_dispatch"):
+    with span("moe_dispatch"):
         local = r.keep & (flat_e >= e0) & (flat_e < e1)
         rows = torch.where(local, r.dest - e0 * C, n)
         buf = xt.new_zeros((n + 1, d))
         buf[rows] = xt.repeat_interleave(k, dim=0)
         xe = buf[:n].view(e1 - e0, C, d)
-    with record_function("moe_experts"):
+    with span("moe_experts"):
         act = activation(cfg.act)
         h = act(torch.bmm(xe, p["w_gate"].to(xt.dtype))) * torch.bmm(
             xe, p["w_up"].to(xt.dtype))
         ye = torch.bmm(h, p["w_down"].to(xt.dtype)).view(n, d)
-    with record_function("moe_combine"):
+    with span("moe_combine"):
         w = local.to(xt.dtype) * r.gates.reshape(-1).to(xt.dtype)
         y = ye[torch.where(local, rows, 0)] * w[:, None]
         return y.float().view(T, k, d).sum(dim=1)

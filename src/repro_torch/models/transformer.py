@@ -41,6 +41,7 @@ from repro_torch.models.layers import (ParamTable, activation, apply_rope,
                                        rope_angles,
                                        sinusoidal_at, sinusoidal_positions,
                                        tree_map, wide)
+from repro_torch.spans import span
 
 MOE_AUX_WEIGHT = 0.01
 LOSS_CHUNK = 512
@@ -155,32 +156,37 @@ def _remat(fn, on: bool, *args, **kw):
 # --------------------------------------------------------------------------
 
 def _project_qkv(cfg, p, x):
-    B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
-    q = fdot(x, p["wq"])
-    k = fdot(x, p["wk"])
-    v = fdot(x, p["wv"])
-    if cfg.qkv_bias and "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, cfg.n_heads, hd),
-            k.reshape(B, S, cfg.n_kv_heads, hd),
-            v.reshape(B, S, cfg.n_kv_heads, hd))
+    with span("qkv_proj"):
+        B, S, _ = x.shape
+        hd = cfg.resolved_head_dim
+        q = fdot(x, p["wq"])
+        k = fdot(x, p["wk"])
+        v = fdot(x, p["wv"])
+        if cfg.qkv_bias and "bq" in p:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        return (q.reshape(B, S, cfg.n_heads, hd),
+                k.reshape(B, S, cfg.n_kv_heads, hd),
+                v.reshape(B, S, cfg.n_kv_heads, hd))
 
 
 def _mlp(cfg, p, x):
-    act = activation(cfg.act)
-    return fdot(act(fdot(x, p["w_gate"])) * fdot(x, p["w_up"]), p["w_down"])
+    with span("mlp"):
+        act = activation(cfg.act)
+        return fdot(act(fdot(x, p["w_gate"])) * fdot(x, p["w_up"]),
+                    p["w_down"])
 
 
 def _attn_block(cfg, p, x, positions, *, causal=True, is_global=None):
     q, k, v = _project_qkv(cfg, p, x)
     if cfg.rope_theta:
-        ang = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
-                          cfg.mrope_sections)
-        q, k = apply_rope(q, ang), apply_rope(k, ang)
+        with span("rope"):
+            ang = rope_angles(positions, cfg.resolved_head_dim,
+                              cfg.rope_theta, cfg.mrope_sections)
+            q, k = apply_rope(q, ang), apply_rope(k, ang)
     o = attn_lib.attention(q, k, v, causal=causal, window=cfg.swa_window,
                            chunk=cfg.attn_chunk, is_global=is_global)
-    return fdot(o.reshape(*x.shape[:2], -1), p["wo"]), (k, v)
+    with span("attn_out"):
+        return fdot(o.reshape(*x.shape[:2], -1), p["wo"]), (k, v)
 
 
 def block_fwd(cfg: ArchConfig, p: Dict[str, Any], x: torch.Tensor,
@@ -246,22 +252,23 @@ def embed_inputs(cfg: ArchConfig, params, batch
     first positions) and positions: ``batch["positions"]`` ((B,S,3) for
     M-RoPE) where given, else 0..S-1. A stack without rotary embeddings
     (Whisper's decoder) adds the sinusoidal encoding here."""
-    tokens = batch["tokens"]
-    x = params["embed"]["tokens"].to(getattr(torch, cfg.dtype))[
-        tokens.long()]
-    if cfg.n_vision_tokens and "vision_embeds" in batch:
-        ve = batch["vision_embeds"]
-        x[:, :ve.shape[1]] = ve.to(x.dtype)
-    if "positions" in batch:
-        positions = batch["positions"]
-    else:
-        B, S = tokens.shape
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device).expand(B, S)
-    if not cfg.rope_theta and not cfg.mrope_sections:
-        pos1d = positions if positions.dim() == 2 else positions[..., 0]
-        x = x + sinusoidal_at(pos1d, cfg.d_model, x.dtype)
-    return x, positions
+    with span("embed_inputs"):
+        tokens = batch["tokens"]
+        x = params["embed"]["tokens"].to(getattr(torch, cfg.dtype))[
+            tokens.long()]
+        if cfg.n_vision_tokens and "vision_embeds" in batch:
+            ve = batch["vision_embeds"]
+            x[:, :ve.shape[1]] = ve.to(x.dtype)
+        if "positions" in batch:
+            positions = batch["positions"]
+        else:
+            B, S = tokens.shape
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=tokens.device).expand(B, S)
+        if not cfg.rope_theta and not cfg.mrope_sections:
+            pos1d = positions if positions.dim() == 2 else positions[..., 0]
+            x = x + sinusoidal_at(pos1d, cfg.d_model, x.dtype)
+        return x, positions
 
 
 def head_weight(cfg: ArchConfig, params) -> torch.Tensor:
@@ -304,23 +311,24 @@ def run_blocks(cfg: ArchConfig, params, batch, collect: bool = False,
     RWKV layer's entry is (state, last time-mix input, last channel-mix
     input). With ``remat`` each block runs under a checkpoint while
     autograd records."""
-    x, positions = embed_inputs(cfg, params, batch)
-    enc_out = (encode(cfg, params, batch["enc_frames"]) if cfg.enc_dec
-               else None)
-    entries = []
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, lp in enumerate(unstack(params["blocks"])):
-        if cfg.attn_free:
-            x, *entry = _remat(rwkv_block_fwd, remat, cfg, lp, x)
-        else:
-            x, entry, layer_aux = _remat(
-                block_fwd, remat, cfg, lp, x, positions,
-                is_global=is_global_layer(cfg, i), enc_out=enc_out)
-            aux = aux + layer_aux
-        if collect:
-            entries.append(entry)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, entries, aux, enc_out
+    with span("run_blocks"):
+        x, positions = embed_inputs(cfg, params, batch)
+        enc_out = (encode(cfg, params, batch["enc_frames"]) if cfg.enc_dec
+                   else None)
+        entries = []
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, lp in enumerate(unstack(params["blocks"])):
+            if cfg.attn_free:
+                x, *entry = _remat(rwkv_block_fwd, remat, cfg, lp, x)
+            else:
+                x, entry, layer_aux = _remat(
+                    block_fwd, remat, cfg, lp, x, positions,
+                    is_global=is_global_layer(cfg, i), enc_out=enc_out)
+                aux = aux + layer_aux
+            if collect:
+                entries.append(entry)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return x, entries, aux, enc_out
 
 
 def forward(cfg: ArchConfig, params, batch, kind: str = "train"):

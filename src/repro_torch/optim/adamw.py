@@ -10,9 +10,9 @@ Every scalar (the step, the learning rate, the bias corrections) stays
 a tensor on the parameters' device, computed in float32 as the reference
 computes it, so a step never waits for the host. The leaves may lie on
 several devices (a mesh step passes its pieces): each leaf's update takes
-the step's scalars on its own device. The update runs under a
-``torch.profiler.record_function`` span (`SPAN`), which a profiler reads
-to split a step's device time.
+the step's scalars on its own device. The update runs under a span
+(`SPAN`, `repro_torch.spans`), which a profiler reads to split a step's
+device time.
 """
 from __future__ import annotations
 
@@ -20,10 +20,10 @@ import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.models.layers import tree_leaves as leaves
 from repro_torch.models.layers import tree_map
+from repro_torch.spans import span
 
 SPAN = "adamw_update"
 
@@ -90,7 +90,7 @@ def update(grads, state: AdamWState, params, lr_fn: Callable,
     global norm where the caller has it (a mesh step's pieces hold
     replicated blocks more than once, so it computes the norm itself:
     `distributed.meshes.global_norm`); else `global_norm` of ``grads``."""
-    with torch.no_grad(), record_function(SPAN):
+    with torch.no_grad(), span(SPAN):
         gnorm = global_norm(grads) if grad_norm is None else grad_norm
         scale = _clip_scale(gnorm, max_grad_norm)
         step = state.step + 1
