@@ -4,11 +4,13 @@ Run from the root of a checkout, on a host with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from src/repro_torch/kernels/csrc (one
+It builds the five CUDA kernels from src/repro_torch/kernels/csrc (one
 nvcc per source, in parallel, into build/kernels/) and prints ptxas's
 registers, shared memory and spills of each and the count of
 tensor-core instructions in each one's SASS, holds each kernel against
-its plain PyTorch version at the main paths' shapes (gnn_mp also at
+its plain PyTorch version at the main paths' shapes (rms_norm at 8,192
+rows of each family's width, then each family's prefill timed with it
+and with the plain norms; gnn_mp also at
 N = 21 and 64, F = 1, an odd Fo, H x 1e3 and the LM bridge's N = 7
 layers; flash_attention also at
 Granite-20B's and Qwen2.5-32B's D = 128 prefills, Granite-3-2B's shards
@@ -724,6 +726,194 @@ def ssm_scan_phase(gen, shapes=SCAN_SHAPES):
                      "ms": ms, "plain_ms": plain, "bound_ms": bnd,
                      "bound_by": by})
     return rows
+
+
+# the norm kernel's rows: a call of the benchmark cell (8,192 tokens) at
+# each family's width, Qwen2-VL-7B's first (the cell's); its epsilon
+NORM_ROWS, NORM_EPS = 8192, 1e-6
+NORM_WIDTHS = (("qwen2-vl-7b", 3584), ("hymba-1.5b", 1600),
+               ("whisper-large-v3", 1280), ("granite-3-2b", 2048),
+               ("rwkv6-3b", 2560), ("qwen2.5-32b", 5120),
+               ("granite-20b", 6144))
+# inputs a timing cycles through: more bytes than the 50 MB L2 holds, so
+# every launch reads its row from device memory, as the bound counts
+NORM_SWEEP_BYTES = 256 * 2 ** 20
+# a family's float32 prefill with the kernel against one with the plain
+# norms: the last logits apart by at most this share of their largest
+# entry (only the order of the norm's float32 sums differs; a norm that
+# misses a row, gamma or the mean moves them by the logits' own size)
+NORM_F32_SHARE = 1e-3
+
+
+def norm_launches(cfg, recompute: bool = False) -> int:
+    """The norm kernel's launches in one forward on the card: two a block
+    and the final norm; Whisper's decoder blocks three (the
+    cross-attention's), its encoder blocks two and the encoder's final
+    norm besides; with ``recompute`` (remat's backward) the blocks'
+    twice."""
+    blocks = (3 * cfg.n_layers + 2 * cfg.enc_layers if cfg.enc_dec
+              else 2 * cfg.n_layers)
+    return blocks * (1 + recompute) + 1 + bool(cfg.enc_dec)
+
+
+def norm_ulps(got, want) -> float:
+    """The largest |got - want| in units of the last place of want (a
+    2-byte float type)."""
+    import torch
+    w = want.double()
+    ulp = torch.finfo(want.dtype).eps * torch.exp2(
+        torch.floor(torch.log2(w.abs().clamp_min(1e-30))))
+    return float(((got.double() - w).abs() / ulp).max())
+
+
+def rms_norm_phase(gen, widths=NORM_WIDTHS):
+    """The norm kernel against its plain version (within one ulp of bf16)
+    at NORM_ROWS x d bf16 for each width, timed beside the plain version
+    and `F.rms_norm` (the library's yardstick; the port never calls it),
+    each cycling through inputs of NORM_SWEEP_BYTES."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rms_norm as nk
+    dev = torch.device("cuda")
+    rows, out = NORM_ROWS, []
+    for label, d in widths:
+        n_in = -(-NORM_SWEEP_BYTES // (2 * rows * d))
+        xs = [torch.randn(rows, d, device=dev, generator=gen)
+              .to(torch.bfloat16) for _ in range(n_in)]
+        g = (1 + 0.1 * torch.randn(d, device=dev, generator=gen)) \
+            .to(torch.bfloat16)
+        got = nk.rms_norm(xs[0], g, NORM_EPS)
+        want = ref.rms_norm_ref(xs[0], g, NORM_EPS)
+        ulps = norm_ulps(got, want)
+        exact = float((got == want).float().mean())
+        check(ulps <= 1.0, f"rms_norm {label} {rows}x{d}: {ulps} ulp from "
+              f"its plain version")
+        del got, want
+        turn = [0]
+
+        def cycled(fn):
+            def call():
+                fn(xs[turn[0] % n_in])
+                turn[0] += 1
+            return call
+        iters = 10 * n_in
+        ms = cuda_ms(cycled(lambda x: nk.rms_norm(x, g, NORM_EPS)), iters)
+        plain = cuda_ms(cycled(lambda x: ref.rms_norm_ref(x, g, NORM_EPS)),
+                        n_in)
+        library = cuda_ms(cycled(lambda x: F.rms_norm(x, (d,), g, NORM_EPS)),
+                          iters)
+        # x read and the result written once in bf16, gamma once; a
+        # square, an add and two multiplies an element
+        nbytes = 2 * (2 * rows * d + d)
+        bnd, by = bound_ms(nbytes, 4 * rows * d)
+        out.append({"label": label, "shape": [rows, d], "dtype": "bfloat16",
+                    "plan": list(nk.plan(d, 2, True)), "max_ulps": ulps,
+                    "exact_share": exact, "ms": ms, "plain_ms": plain,
+                    "library_ms": library, "bound_ms": bnd, "bound_by": by,
+                    "share_of_bound": bnd / ms,
+                    "gb_per_s": nbytes / ms / 1e6})
+        del xs
+    return out
+
+
+@contextmanager
+def plain_norms():
+    """`layers.rms_norm` through the plain version on the card, as before
+    the kernel (a measurement's yardstick; the port has no such route)."""
+    from repro_torch.kernels import ops, ref
+    kernel = ops.rms_norm
+    ops.rms_norm = ref.rms_norm_ref
+    try:
+        yield
+    finally:
+        ops.rms_norm = kernel
+
+
+# the prefills timed with the norm kernel and with the plain norms:
+# (arch, prompt tokens, decode horizon), 8 prompts each
+NORM_FAMILIES = (("qwen2-vl-7b", LM_PROMPT, LM_MAX_LEN),
+                 ("hymba-1.5b", LM_PROMPT, LM_MAX_LEN),
+                 ("whisper-large-v3", 224, 224 + LM_STEPS),
+                 ("rwkv6-3b", LM_PROMPT, LM_MAX_LEN))
+
+
+def rms_norm_families_phase(card: str, dev, families=NORM_FAMILIES,
+                            archs=None, batch: int = LM_BATCH):
+    """Each family's warm prefill at full width and depth (random bf16
+    weights), timed in turns with the plain norms and with the kernel
+    (plain, kernel, kernel, plain, twice), one model at a time; the norm
+    launches of one prefill and the logits' largest gap between the two
+    routes. Then the same weights in float32, both routes again: their
+    logits within NORM_F32_SHARE (checked), and the bf16 logits' gap to
+    the float32 ones with the plain norms, the rounding's own reach
+    beside the routes' bf16 gap."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import rms_norm as nk
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import tree_map
+    archs = archs or ARCHS
+    report = {"card": card, "batch": batch, "f32_share": NORM_F32_SHARE,
+              "models": {}}
+    for name, prompt_len, max_len in families:
+        cfg = archs[name]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = transformer.build_param_table(cfg).init(
+            gen, device=dev, dtype=torch.bfloat16)
+        tokens, extra = family_inputs(cfg, gen, dev, batch, max_len)
+        prompt = family_batch(tokens, extra, prompt_len)
+        prefill = steps.make_prefill_step(cfg, max_len=max_len)
+        prefill32 = steps.make_prefill_step(
+            dataclasses.replace(cfg, dtype="float32"), max_len=max_len)
+        times = {"plain": [], "kernel": []}
+        with torch.inference_mode():
+            with plain_norms():
+                want = prefill(params, prompt)[0]
+            nk.LAUNCHES.reset()
+            got = prefill(params, prompt)[0]
+            launches = nk.LAUNCHES.value
+            for route in ["plain", "kernel", "kernel", "plain"] * 2:
+                if route == "plain":
+                    with plain_norms():
+                        _, ms = timed_ms(dev, lambda: prefill(params, prompt))
+                else:
+                    _, ms = timed_ms(dev, lambda: prefill(params, prompt))
+                times[route].append(ms)
+            params = tree_map(lambda a: a.float() if a.is_floating_point()
+                              else a, params)
+            with plain_norms():
+                want32 = prefill32(params, prompt)[0].float()
+            got32 = prefill32(params, prompt)[0].float()
+        gap = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        gap32 = float((got32 - want32).abs().max())
+        scale32 = float(want32.abs().max())
+        check(gap32 <= NORM_F32_SHARE * scale32,
+              f"{name}: float32 logits {gap32} apart with the kernel and "
+              f"the plain norms, beyond {NORM_F32_SHARE} of {scale32}")
+        per_run = norm_launches(cfg)
+        check(launches == per_run, f"{name}: {launches} rms_norm launches "
+              f"in a prefill, not {per_run}")
+        report["models"][name] = {
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "prompt": prompt_len, "launches": launches,
+            "plain_ms": times["plain"], "kernel_ms": times["kernel"],
+            "plain_ms_median": sorted(times["plain"])[len(times["plain"])
+                                                      // 2],
+            "kernel_ms_median": sorted(times["kernel"])[len(times["kernel"])
+                                                        // 2],
+            "logits_max_gap": gap, "logits_max_abs": scale,
+            "f32_logits_max_gap": gap32, "f32_logits_max_abs": scale32,
+            "bf16_vs_f32_plain_max_gap": float(
+                (want.float() - want32).abs().max())}
+        del params, tokens, extra, prompt, want, got, want32, got32
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
 
 
 # --------------------------------------------------------------------------
@@ -1768,6 +1958,7 @@ KIND_OF_KERNEL = (  # device time of a call, by what the kernel does
     ("lut_eval", ("lut_",)),
     ("flash_attention", ("flash_",)),
     ("ssm_scan", ("ssm_scan",)),
+    ("rms_norm", ("rms_norm",)),
     ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass")),
     ("copy", ("copy",)),
 )
@@ -1875,6 +2066,7 @@ def lm_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
     import dataclasses
     import torch
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rms_norm as nk
     from repro_torch.kernels import ssm_scan as sc
     from repro_torch.launch import steps
     from repro_torch.models import transformer
@@ -1883,6 +2075,7 @@ def lm_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
               "prompt": prompt_len, "max_len": max_len,
               "decode_steps": n_steps}
     per_run = cfg.n_layers if dev.type == "cuda" else 0
+    per_norm = norm_launches(cfg) if dev.type == "cuda" else 0
     checks = {}
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1910,12 +2103,16 @@ def lm_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
             torch.cuda.reset_peak_memory_stats(dev)
         fa.LAUNCHES.reset()
         sc.LAUNCHES.reset()
+        nk.LAUNCHES.reset()
         (last, cache), warm = timed_ms(dev, lambda: prefill(params, prompt))
         launches = {"flash_attention": fa.LAUNCHES.value,
-                    "ssm_scan": sc.LAUNCHES.value}
+                    "ssm_scan": sc.LAUNCHES.value,
+                    "rms_norm": nk.LAUNCHES.value}
         for name, n in launches.items():
-            check(n == per_run, f"{name}: {n} launches in the prefill, not "
-                  f"{per_run} (one per layer on the card)")
+            n_want = per_run if name != "rms_norm" else per_norm
+            check(n == n_want, f"{name}: {n} launches in the prefill, not "
+                  f"{n_want} (on the card one per layer, two norms a "
+                  f"layer and the final one)")
         tok = last.argmax(-1, keepdim=True).to(torch.int32)
         step_ms = []
         for i in range(n_steps):
@@ -2075,6 +2272,7 @@ def moe_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rms_norm as nk
     from repro_torch.launch import serve as serve_lib
     from repro_torch.launch import steps
     from repro_torch.models import moe, transformer
@@ -2085,6 +2283,7 @@ def moe_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
               "experts": cfg.n_experts, "top_k": cfg.top_k,
               "capacity_factor": cfg.capacity_factor}
     per_run = cfg.n_layers if dev.type == "cuda" else 0
+    per_norm = norm_launches(cfg) if dev.type == "cuda" else 0
     checks = {}
 
     def peak_gib():
@@ -2122,11 +2321,16 @@ def moe_slice_phase(card: str, dev, cfg, batch: int = LM_BATCH,
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         fa.LAUNCHES.reset()
+        nk.LAUNCHES.reset()
         (last, cache), warm = timed_ms(dev, lambda: prefill(params, prompt))
-        launches = {"flash_attention": fa.LAUNCHES.value}
+        launches = {"flash_attention": fa.LAUNCHES.value,
+                    "rms_norm": nk.LAUNCHES.value}
         check(launches["flash_attention"] == per_run,
               f"flash_attention: {launches['flash_attention']} launches in "
               f"the moe prefill, not {per_run} (one per layer on the card)")
+        check(launches["rms_norm"] == per_norm,
+              f"rms_norm: {launches['rms_norm']} launches in the moe "
+              f"prefill, not {per_norm} (two a layer and the final one)")
         report["peak_gib_prefill"] = peak_gib()
         tok = last.argmax(-1, keepdim=True).to(torch.int32)
         step_ms = []
@@ -2435,7 +2639,8 @@ def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
     """One family at full width and depth on ``dev``: random bf16
     weights, a cold and a counted warm prefill of ``batch`` prompts
     through `make_prefill_step`, greedy `make_decode_step` steps, device
-    profiles, and the checks; returns (report, K3 launches a prefill).
+    profiles, and the checks; returns (report, K3's and the norm's
+    launches in the counted prefill).
     With ``keep``, the report's "_yardstick" holds what a mesh run of the
     same weights and prompts compares with (`family_yardstick`): the
     prefill's last logits, the first ``keep`` steps' fed tokens and
@@ -2444,6 +2649,7 @@ def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
     nothing is launched and nothing is profiled."""
     import torch
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rms_norm as nk
     from repro_torch.launch import steps
     from repro_torch.models import transformer
     from repro_torch.models.layers import tree_map
@@ -2460,6 +2666,7 @@ def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
     # queries over 1500 frames, a full mask); RWKV has no attention
     per_run = 0 if cfg.attn_free or not cuda else (
         cfg.n_layers * (2 if cfg.enc_dec else 1) + cfg.enc_layers)
+    per_norm = norm_launches(cfg) if cuda else 0
     checks = {}
 
     def peak_gib():
@@ -2503,10 +2710,16 @@ def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
         fa.LAUNCHES.reset()
+        nk.LAUNCHES.reset()
         (last, cache), warm = timed_ms(dev, lambda: prefill(params, prompt))
-        launches = fa.LAUNCHES.value
-        check(launches == per_run, f"{cfg.name}: {launches} flash_attention "
+        launches = {"flash_attention": fa.LAUNCHES.value,
+                    "rms_norm": nk.LAUNCHES.value}
+        check(launches["flash_attention"] == per_run,
+              f"{cfg.name}: {launches['flash_attention']} flash_attention "
               f"launches in the prefill, not {per_run}")
+        check(launches["rms_norm"] == per_norm,
+              f"{cfg.name}: {launches['rms_norm']} rms_norm launches in the "
+              f"prefill, not {per_norm}")
         report["peak_gib_prefill"] = peak_gib()
         tok = last.argmax(-1, keepdim=True).to(torch.int32)
         step_ms, fed, seen = [], [], []
@@ -2527,7 +2740,7 @@ def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
         report["decode_ms_per_step_median"] = sorted(step_ms)[n_steps // 2]
         report["decode_tokens_per_s"] = (batch * 1e3
                                          / report["decode_ms_per_step"])
-        report["launches"] = {"flash_attention": launches}
+        report["launches"] = launches
         if keep:
             report["_yardstick"] = {
                 "last": last.float(), "fed": fed[:keep],
@@ -2656,18 +2869,18 @@ def family_run(card: str, dev, cfg, prompt_len: int, max_len: int,
 def families_slice_phase(card: str, dev, families=FAMILIES, archs=None,
                          keep=None, **kw):
     """Drive the VLM, Whisper and RWKV-6 at full width and depth, one
-    after the other, the memory freed between them; returns (report, K3
-    launches of the counted prefills, {name: yardstick}). ``archs`` maps
-    a name to its config (default: the published ones); ``keep`` maps a
-    name to the decode steps to keep for a mesh run (`family_run`'s
-    ``keep``), whose "_yardstick" the third value holds; ``kw`` goes to
-    `family_run`."""
+    after the other, the memory freed between them; returns (report, K3's
+    and the norm's launches of the counted prefills, {name: yardstick}).
+    ``archs`` maps a name to its config (default: the published ones);
+    ``keep`` maps a name to the decode steps to keep for a mesh run
+    (`family_run`'s ``keep``), whose "_yardstick" the third value holds;
+    ``kw`` goes to `family_run`."""
     import gc
     import torch
     from repro_torch.configs import ARCHS
     archs = archs or ARCHS
     report = {"card": card, "models": {}}
-    launches, yardsticks = 0, {}
+    launches, yardsticks = {"flash_attention": 0, "rms_norm": 0}, {}
     t0 = time.perf_counter()
     for name, prompt_len, max_len in families:
         t = time.perf_counter()
@@ -2678,7 +2891,8 @@ def families_slice_phase(card: str, dev, families=FAMILIES, archs=None,
             yardsticks[name] = r.pop("_yardstick")
         r["phase_s"] = time.perf_counter() - t
         report["models"][name] = r
-        launches += n
+        for kernel, count in n.items():
+            launches[kernel] += count
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -2902,7 +3116,7 @@ def lm_train_slice_phase(card: str, dev, cfg, batch: int = TRAIN_BATCH,
     the config's width and depth: float32 master parameters from a seeded
     generator, AdamW, TokenPipeline batches; ``warm`` steps, then
     ``timed`` counted ones, a device profile of one more, then the
-    gradient checks and the restart drill. Returns (report, K3/K4
+    gradient checks and the restart drill. Returns (report, K3/K4/norm
     launches of the counted steps). On the CPU (a rehearsal at reduced
     size) the kernels' plain versions run, nothing is launched and
     nothing is profiled."""
@@ -2913,6 +3127,7 @@ def lm_train_slice_phase(card: str, dev, cfg, batch: int = TRAIN_BATCH,
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rms_norm as nk
     from repro_torch.kernels import ssm_scan as sc
     from repro_torch.launch import steps
     from repro_torch.launch.train import batch_on
@@ -2948,32 +3163,36 @@ def lm_train_slice_phase(card: str, dev, cfg, batch: int = TRAIN_BATCH,
                                                  * tokens_per_step / 1e12)
     pipe = TokenPipeline(cfg.vocab_size, seq, batch)
     step_fn = steps.make_train_step(cfg, shape)
-    per_layer = {"flash_attention": 2 * accum, "ssm_scan": 3 * accum}
+    per_step = {"flash_attention": 2 * accum * cfg.n_layers,
+                "ssm_scan": 3 * accum * cfg.n_layers,
+                "rms_norm": accum * norm_launches(cfg, recompute=cfg.remat)}
+    counters = {"flash_attention": fa.LAUNCHES, "ssm_scan": sc.LAUNCHES,
+                "rms_norm": nk.LAUNCHES}
     step_ms, losses, gnorms, launches_each = [], [], [], []
     for i in range(warm + timed):
         b = batch_on(pipe.batch_at(i), {}, dev)
         if i == warm:
             if cuda:
                 torch.cuda.reset_peak_memory_stats(dev)
-            fa.LAUNCHES.reset()
-            sc.LAUNCHES.reset()
-        n3, n4 = fa.LAUNCHES.value, sc.LAUNCHES.value
+            for c in counters.values():
+                c.reset()
+        before = {name: c.value for name, c in counters.items()}
         (params, opt, m), ms = timed_ms(dev, lambda: step_fn(params, opt, b))
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
         if i >= warm:
             step_ms.append(ms)
-            launches_each.append({"flash_attention": fa.LAUNCHES.value - n3,
-                                  "ssm_scan": sc.LAUNCHES.value - n4})
-    counted = {"flash_attention": fa.LAUNCHES.value,
-               "ssm_scan": sc.LAUNCHES.value}
-    for name, n in per_layer.items():
-        want = n * cfg.n_layers if cuda else 0
+            launches_each.append({name: c.value - before[name]
+                                  for name, c in counters.items()})
+    counted = {name: c.value for name, c in counters.items()}
+    for name, n in per_step.items():
+        want = n if cuda else 0
         check(all(e[name] == want for e in launches_each),
               f"{name}: {[e[name] for e in launches_each]} launches a "
               f"training step, not {want} (forward and remat's recompute"
               f"{' and the reverse scan' if name == 'ssm_scan' else ''} "
-              f"per layer and micro-batch)")
+              f"per layer and micro-batch"
+              f"{', and the final norm' if name == 'rms_norm' else ''})")
     check(all(map(math.isfinite, losses + gnorms)),
           "training: a non-finite loss or grad norm")
     report["losses"] = losses
@@ -5748,9 +5967,13 @@ def main() -> int:
     lut_rows = lut_eval_phase(gen)
     fa_rows = flash_attention_phase(gen)
     scan_rows = ssm_scan_phase(gen)
+    norm_rows = rms_norm_phase(gen)
     print("kernel_shapes " + json.dumps({
         "card": card, "gnn_mp": gnn_rows, "lut_eval": lut_rows,
-        "flash_attention": fa_rows, "ssm_scan": scan_rows}), flush=True)
+        "flash_attention": fa_rows, "ssm_scan": scan_rows,
+        "rms_norm": norm_rows}), flush=True)
+    print("rms_norm_families " + json.dumps(rms_norm_families_phase(
+        card, torch.device("cuda"))), flush=True)
     report, launches, gaussian = slice_phase(card, torch.device("cuda"))
     print("slice " + json.dumps(report), flush=True)
     apps_report, apps_launches = apps_slice_phase(card, torch.device("cuda"),
@@ -5889,7 +6112,7 @@ def main() -> int:
          # GPipe passes of the split slice, the mesh slices' (Whisper's
          # encoder, self- and cross-attention among them)
          "launches": lm_launches["flash_attention"]
-         + moe_launches["flash_attention"] + fam_launches
+         + moe_launches["flash_attention"] + fam_launches["flash_attention"]
          + train_lm_launches["flash_attention"]
          + split_launches["flash_attention"] + mesh_k3 + moe_mesh_k3
          + fam_mesh_launches["flash_attention"]
@@ -5909,6 +6132,20 @@ def main() -> int:
          "plain_ms": sr["plain_ms"], "bound_ms": sr["bound_ms"],
          "bound_by": sr["bound_by"], "library_ms": None},
     ]
+    nr = norm_rows[0]          # the cell's call: 8,192 x 3,584 bf16
+    kernels.append(
+        {"name": "rms_norm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rms_norm.cu",
+         "replaces": None,      # XLA fuses the norm in the JAX package
+         # the counted prefills (Hymba, Moonlight, Qwen2-VL, Whisper,
+         # RWKV-6) and the Hymba training steps (forward and remat's
+         # recompute)
+         "launches": lm_launches["rms_norm"] + moe_launches["rms_norm"]
+         + fam_launches["rms_norm"] + train_lm_launches["rms_norm"],
+         "max_ulps": nr["max_ulps"],
+         "ms": nr["ms"], "plain_ms": nr["plain_ms"],
+         "bound_ms": nr["bound_ms"], "bound_by": nr["bound_by"],
+         "library_ms": nr["library_ms"]})
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed: "
               + "; ".join(FAILURES), file=sys.stderr)

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"gnn_mp": "gnn_mp.cu", "lut_eval": "lut_eval.cu",
            "flash_attention": "flash_attention.cu",
-           "ssm_scan": "ssm_scan.cu"}
+           "ssm_scan": "ssm_scan.cu", "rms_norm": "rms_norm.cu"}
 # -Xptxas -v: ptxas reports each kernel's registers, shared memory and
 # spills (kept in LOGS, read by `resources`)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

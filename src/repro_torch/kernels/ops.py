@@ -6,21 +6,24 @@ goes to the hand-written kernel, whose wrapper raises on anything it
 cannot launch. There is no fallback from the kernel to the plain version:
 which one ran follows from the device.
 
-The two LM kernels carry gradients on the card through
+The LM kernels carry gradients on the card through
 `torch.autograd.Function`s (the JAX package differentiates plain jnp
 code and has no backward kernel):
 - `ssm_scan`'s backward is the same CUDA kernel run over reversed time
   (`_SsmScan`);
-- `flash_attention`'s backward recomputes the plain version for that call
-  and returns its input gradients (`_FlashAttention`); its forward is the
-  kernel.
-Each forward and backward runs under a span (`SPANS`, `repro_torch.spans`),
-which a profiler reads to split a step's device time.
+- `flash_attention`'s and `rms_norm`'s backward recompute the plain
+  version for that call and return its input gradients
+  (`_FlashAttention`, `_RmsNorm`); their forward is the kernel.
+Each forward and backward of K3 and K4 runs under a span (`SPANS`,
+`repro_torch.spans`), which a profiler reads to split a step's device
+time; `rms_norm` runs under its caller's (`models.layers.rms_norm`).
 
 While `launch.op_profile` counts a step on meta tensors, `COUNTER` is
 set and every call goes to it instead: it records the kernel's work and
 returns outputs of the right shapes, so neither route runs. On the card
-that costs each call one check of `COUNTER`.
+that costs each call one check of `COUNTER`. `rms_norm` is the exception:
+a meta tensor takes its plain version, whose operations the count sees
+as it always has.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gnn_mp as _mp
 from repro_torch.kernels import lut_eval as _lut
 from repro_torch.kernels import ref
+from repro_torch.kernels import rms_norm as _norm
 from repro_torch.kernels import ssm_scan as _scan
 from repro_torch.spans import span
 
@@ -93,6 +97,39 @@ def flash_attention(q, k, v, *, causal: bool = True):
         if q.device.type == "cpu":
             return ref.flash_attention_ref(q, k, v, causal=causal)
         return _FlashAttention.apply(q, k, v, causal)
+
+
+class _RmsNorm(torch.autograd.Function):
+    """The norm's kernel forward; backward through the plain version of
+    the same call (its float32 copy of x lives only inside this
+    backward)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, gamma)
+        return _norm.rms_norm(x, gamma, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip((x, gamma), ctx.needs_input_grad[:2])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = ref.rms_norm_ref(*inputs, ctx.eps)
+            got = iter(torch.autograd.grad(out, wanted, g))
+        return tuple(next(got) if t.requires_grad else None
+                     for t in inputs) + (None,)
+
+
+def rms_norm(x, gamma, eps: float):
+    """x * rsqrt(mean(x^2) + eps) * gamma over the last dimension, in
+    float32 (float64 for float64 x), rounded once to x's type. CPU and
+    meta tensors take the plain version."""
+    if x.device.type in ("cpu", "meta"):
+        return ref.rms_norm_ref(x, gamma, eps)
+    return _RmsNorm.apply(x, gamma, eps)
 
 
 class _SsmScan(torch.autograd.Function):

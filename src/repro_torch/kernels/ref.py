@@ -55,6 +55,16 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
     return o.reshape(B, H, Sq, D)
 
 
+def rms_norm_ref(x, gamma, eps: float):
+    """RMSNorm over the last dimension: x * rsqrt(mean(x^2) + eps) * gamma
+    in float32 (in x's type where that is wider), rounded once to x's
+    type."""
+    dt = x.dtype
+    x = x.to(torch.promote_types(dt, torch.float32))
+    var = x.square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * gamma.to(x.dtype)).to(dt)
+
+
 def ssm_scan_ref(a, b, y0):
     """Diagonal linear recurrence y_t = a_t * y_{t-1} + b_t.
 

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch import device as device_lib
 from repro_torch.device import DeviceLike
+from repro_torch.kernels import ops
 from repro_torch.spans import span
 
 Initializer = str  # "normal" | "zeros" | "ones" | "embed"
@@ -197,11 +198,11 @@ def wide(x: torch.Tensor) -> torch.Tensor:
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
              ) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * gamma over the last dimension
+    (`kernels.ops.rms_norm`: the CUDA kernel on the card, the plain
+    version on the CPU)."""
     with span("rms_norm"):
-        dt = x.dtype
-        x = wide(x)
-        var = x.square().mean(-1, keepdim=True)
-        return (x * torch.rsqrt(var + eps) * gamma.to(x.dtype)).to(dt)
+        return ops.rms_norm(x, gamma, eps)
 
 
 def activation(name: str):
